@@ -1,0 +1,42 @@
+"""Carry state across from the reference: plain numpy in, port objects out.
+
+The tests feed both packages identical inputs through here: a host COO
+triple (what ``repro``'s ``SparseMatrix.host_coo()`` returns) with its
+shape and layout keyword arguments becomes a port ``SparseMatrix``, and
+start blocks, eigenvector guesses and centroids (``U0``, ``X0``, ``C0``)
+become tensors.  Nothing here imports ``repro``: the inputs are numpy
+arrays, whichever package made them.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.grblas.containers import SparseMatrix
+
+
+def sparse_matrix(coo: Tuple, shape: Tuple[int, int], *,
+                  device: DeviceLike = None, dtype=None,
+                  **layout) -> SparseMatrix:
+    """A port SparseMatrix from a host (rows, cols, vals) triple.  ``dtype``
+    defaults to the dtype of ``vals``; ``layout`` passes through to
+    ``SparseMatrix.from_coo`` (build_ell, build_sellcs, sell_c, ...)."""
+    rows, cols, vals = (np.asarray(a) for a in coo)
+    dtype = vals.dtype if dtype is None else dtype
+    return SparseMatrix.from_coo(rows, cols, vals, shape, dtype=dtype,
+                                 device=device, **layout)
+
+
+def tensor(a, *, device: DeviceLike = None, dtype=None) -> torch.Tensor:
+    """A contiguous tensor copy of a host array (U0, X0, C0, ...)."""
+    a = np.array(a)                    # a writable, contiguous copy
+    dt = torch_dtype(a.dtype if dtype is None else dtype)
+    return torch.as_tensor(a, device=resolve_device(device)).to(dt)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Host numpy copy of a tensor."""
+    return t.detach().cpu().numpy()

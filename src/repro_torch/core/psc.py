@@ -1,0 +1,218 @@
+"""GrB-pGrass: the end-to-end p-spectral clustering pipeline (flat path).
+
+Port of ``repro.core.psc``:
+
+  1. p=2 start: smallest-k eigenvectors of the graph Laplacian (LOBPCG,
+     dense eigh for n <= 1024).
+  2. p-continuation: for p_t = max(p_target, 2.0 * 0.9^t), minimize
+     F_{p_t}(U) over Gr(k,n) with the ``newton`` driver, warm-started
+     from the previous level.
+  3. Discretize the k nonlinear eigenvectors with kmeans++.
+
+Everything runs on the graph's device.  Randomness follows a seeded
+``torch.Generator`` discipline in place of the reference's
+``stage_keys``: the eigensolver's start block is drawn from a generator
+seeded with ``cfg.seed``, and the two kmeans stages from generators
+seeded with two words that ``numpy.random.SeedSequence(cfg.seed)``
+derives.  The streams differ from ``jax.random``'s, so the port matches
+the reference in quality (accuracy, RCut), not label for label.
+
+Config fields of slices not ported yet raise NotImplementedError naming
+the ROADMAP.md item: ``multilevel``, ``guard``, ``validate``, ``trace``,
+``init_U``, ``reorder`` and solvers other than ``newton``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import kmeans as km
+from repro_torch.core import lobpcg, metrics, solvers
+from repro_torch.grblas import api as grb_api
+from repro_torch.grblas.api import Descriptor
+from repro_torch.grblas.containers import SparseMatrix
+
+# config field -> the ROADMAP.md item that ports it
+_UNPORTED_FIELDS = {
+    "multilevel": "queue 1, item 12 (multilevel V-cycle)",
+    "guard": "queue 1, item 10 (guarded continuation)",
+    "validate": "queue 1, item 11 (graphs.validate)",
+    "trace": "queue 1, item 14 (obs telemetry)",
+    "init_U": "queue 1, item 13 (warm start / serve)",
+}
+
+
+@dataclasses.dataclass
+class PSCConfig:
+    k: int = 4                      # number of clusters / eigenvectors
+    p_target: float = 1.2           # final p
+    p_factor: float = 0.9           # continuation ratio
+    eps: float = 1e-8               # phi_p smoothing
+    newton_iters: int = 30          # outer RTR iterations per p level
+    tcg_iters: int = 20             # inner truncated-CG iterations
+    grad_tol: float = 1e-5
+    kmeans_restarts: int = 8
+    kmeans_iters: int = 50
+    hvp_mode: str = "graphblas"     # "graphblas" (Alg.1) | "matrix_free"
+    normalized_init: bool = False
+    seed: int = 0
+    solver: str = "newton"
+    # grblas backend of the hot loop: "auto" | "coo" | "sellcs" (the
+    # CUDA kernels, when the SELL-C-σ layout is built)
+    backend: str = "auto"
+    reorder: str = "none"
+    multilevel: object = None
+    init_U: object = None
+    guard: object = None
+    validate: object = None
+    trace: object = None
+
+    def __post_init__(self):
+        for name, item in _UNPORTED_FIELDS.items():
+            value = getattr(self, name)
+            if value is not None and value is not False:
+                raise NotImplementedError(
+                    f"PSCConfig.{name} is not ported yet (ROADMAP.md {item})")
+        if self.reorder != "none":
+            raise NotImplementedError(
+                "PSCConfig.reorder is not ported yet (ROADMAP.md queue 1, "
+                "item 11: graphs.reorder)")
+        if self.hvp_mode not in ("graphblas", "matrix_free"):
+            raise ValueError(f"hvp_mode={self.hvp_mode!r}: expected "
+                             "'graphblas' or 'matrix_free'")
+        solvers.validate_config(self)
+        if self.k < 1:
+            raise ValueError(f"k={self.k} must be >= 1")
+
+    def descriptor(self) -> Descriptor:
+        return Descriptor(backend=self.backend)
+
+    def validate_backend(self, W: SparseMatrix) -> None:
+        """Shape-only capability probe: fail before any work is done."""
+        desc = self.descriptor()
+        if desc.backend == "auto":
+            return
+        from repro_torch.grblas import backends as _backends
+        from repro_torch.grblas.semiring import (plap_edge_semiring,
+                                                 plap_hvp_edge_semiring)
+
+        probe = torch.empty((W.n_rows, self.k), dtype=W.vals.dtype,
+                            device="meta")
+        _backends.select_backend(W, probe,
+                                 plap_edge_semiring(2.0, self.eps), desc)
+        if self.hvp_mode == "matrix_free":
+            _backends.select_backend(W, (probe, probe),
+                                     plap_hvp_edge_semiring(2.0, self.eps),
+                                     desc)
+
+
+@dataclasses.dataclass
+class PSCResult:
+    labels: np.ndarray
+    U: torch.Tensor                 # final p-eigenvectors (n,k)
+    rcut: float
+    ncut: float
+    p_path: list
+    fvals: list                     # F_p at the end of each p level
+    hvp_counts: list                # Hessian applies per level
+    init_labels: Optional[np.ndarray] = None  # p=2 (Spec) labels
+    init_rcut: float = float("nan")
+    reports: Optional[list] = None  # SolverReport per level
+    # host wall seconds per stage: "init" (eigensolve + Spec kmeans),
+    # "continuation", "kmeans" (discretize + metrics); each stage ends
+    # in a value read back from the device
+    stage_seconds: Optional[dict] = None
+
+
+def stage_generators(seed: int, device) -> Tuple[torch.Generator,
+                                                 torch.Generator]:
+    """(init kmeans generator, final kmeans generator) for ``seed``."""
+    s_init, s_final = np.random.SeedSequence(seed).generate_state(2)
+    dev = torch.device(device)
+    return (torch.Generator(device=dev).manual_seed(int(s_init)),
+            torch.Generator(device=dev).manual_seed(int(s_final)))
+
+
+def discretize(U: torch.Tensor, k: int, gen: torch.Generator,
+               restarts: int = 8, iters: int = 50) -> torch.Tensor:
+    """Stage 3: row-normalize (scale-invariant coordinates) and kmeans++
+    the nonlinear eigenvectors."""
+    Xn = U / torch.clamp(torch.linalg.norm(U, dim=1, keepdim=True), min=1e-12)
+    labels, _ = km.kmeans(gen, Xn, k, restarts=restarts, iters=iters)
+    return labels
+
+
+def _trivial_result(W: SparseMatrix, cfg: PSCConfig) -> PSCResult:
+    """k=1: the all-ones cluster; k=n: every vertex its own cluster."""
+    n, k = W.n_rows, cfg.k
+    if k == 1:
+        labels = np.zeros(n, np.int64)
+        U = torch.full((n, 1), 1.0 / np.sqrt(max(n, 1)), dtype=W.vals.dtype,
+                       device=W.device)
+    else:
+        labels = np.arange(n, dtype=np.int64)
+        U = torch.eye(n, dtype=W.vals.dtype, device=W.device)
+    rcut = float(metrics.rcut(W, labels, k))
+    ncut = float(metrics.ncut(W, labels, k))
+    return PSCResult(labels=labels, U=U, rcut=rcut, ncut=ncut, p_path=[],
+                     fvals=[], hvp_counts=[], init_labels=labels.copy(),
+                     init_rcut=rcut, reports=[])
+
+
+def p_spectral_cluster(W: SparseMatrix, cfg: PSCConfig) -> PSCResult:
+    """Run the flat GrB-pGrass pipeline on graph W, on W's device."""
+    n = W.n_rows
+    if n == 0:
+        raise ValueError("cannot cluster an empty graph (n_rows == 0)")
+    if cfg.k > n:
+        raise ValueError(f"k={cfg.k} exceeds the number of vertices n={n}")
+    if cfg.k == 1 or cfg.k == n:
+        return _trivial_result(W, cfg)
+    cfg.validate_backend(W)
+    g_init, g_final = stage_generators(cfg.seed, W.device)
+    seconds = {}
+
+    # -- stage 1: linear (p=2) spectral start; the reals-ring matvec gets
+    # the configured descriptor only where that backend can serve it
+    t0 = time.perf_counter()
+    stage1_desc = grb_api.capable_desc(W, desc=cfg.descriptor(), k=cfg.k,
+                                       dtype=W.vals.dtype)
+    _, U = lobpcg.smallest_eigvecs(W, cfg.k, normalized=cfg.normalized_init,
+                                   seed=cfg.seed, desc=stage1_desc)
+    U = torch.linalg.qr(U)[0].contiguous()
+    init_labels, _ = km.kmeans(g_init, U, cfg.k, restarts=cfg.kmeans_restarts,
+                               iters=cfg.kmeans_iters)
+    init_rcut = float(metrics.rcut(W, init_labels, cfg.k))
+    seconds["init"] = time.perf_counter() - t0
+
+    # -- stage 2: p-continuation under the registered driver
+    t0 = time.perf_counter()
+    U, p_path, fvals, hvps, reports = solvers.p_continuation(W, U, cfg)
+    seconds["continuation"] = time.perf_counter() - t0
+
+    # -- stage 3: kmeans discretization and the cut metrics
+    t0 = time.perf_counter()
+    labels = discretize(U, cfg.k, g_final, restarts=cfg.kmeans_restarts,
+                        iters=cfg.kmeans_iters)
+    rcut = float(metrics.rcut(W, labels, cfg.k))
+    ncut = float(metrics.ncut(W, labels, cfg.k))
+    seconds["kmeans"] = time.perf_counter() - t0
+
+    return PSCResult(labels=labels.cpu().numpy(), U=U, rcut=rcut, ncut=ncut,
+                     p_path=p_path, fvals=fvals, hvp_counts=hvps,
+                     init_labels=init_labels.cpu().numpy(),
+                     init_rcut=init_rcut, reports=reports,
+                     stage_seconds=seconds)
+
+
+def spectral_cluster(W: SparseMatrix, k: int, seed: int = 0,
+                     normalized: bool = False) -> Tuple[np.ndarray, float]:
+    """Baseline `Spec`: classical p=2 spectral clustering."""
+    _, U = lobpcg.smallest_eigvecs(W, k, normalized=normalized, seed=seed)
+    gen = torch.Generator(device=W.device).manual_seed(seed)
+    labels, _ = km.kmeans(gen, U, k)
+    return labels.cpu().numpy(), float(metrics.rcut(W, labels, k))

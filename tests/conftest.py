@@ -8,6 +8,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without them")
+
+
 @pytest.fixture(scope="session")
 def small_graphs():
     """A couple of small graphs shared across tests."""

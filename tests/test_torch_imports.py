@@ -1,0 +1,86 @@
+"""The port stands alone: it never imports JAX or the reference package,
+and its entry points do not quietly fall back to the CPU."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")  # the reference-only CI has no torch
+
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(SRC)))
+def test_port_module_imports_no_jax_or_reference(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+
+
+def test_import_repro_torch_loads_no_jax_or_reference():
+    code = ("import sys, repro_torch, repro_torch.convert\n"
+            "from repro_torch.core import psc, plap, lobpcg, grassmann, "
+            "kmeans, metrics\n"
+            "from repro_torch.graphs import delaunay_graph\n"
+            "from repro_torch.kernels import sellcs_spmm\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    env = {"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
+def _kernel_module():
+    import importlib
+
+    return importlib.import_module(
+        "repro_torch.kernels.sellcs_spmm.sellcs_spmm")
+
+
+def test_import_builds_no_extension():
+    K = _kernel_module()
+
+    assert K._extension.cache_info().currsize == 0
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    from repro_torch import resolve_device
+    from repro_torch.graphs import ring_of_cliques
+    from repro_torch.grblas import SparseMatrix
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ring_of_cliques(3, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SparseMatrix.from_coo([0, 1], [1, 0], [1.0, 1.0], (2, 2))
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_wrappers_take_the_twin_only_for_cpu_tensors():
+    """A multivector off the CPU goes to the kernel (CUDA) or raises; the
+    plain twins serve CPU tensors only."""
+    from repro_torch.graphs import ring_of_cliques
+
+    K = _kernel_module()
+    W, _ = ring_of_cliques(3, 4, device="cpu", build_sellcs=True, sell_c=4)
+    X = torch.zeros((W.n_rows, 2), dtype=W.vals.dtype)
+    assert K._check(W, X) is False
+    meta = X.to("meta")
+    with pytest.raises(ValueError):
+        K._check(W, meta)
