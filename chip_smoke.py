@@ -6,31 +6,50 @@
 Phases, none of which catches its own failure:
 
   1. device: the card's name and power limit (nvidia-smi), the torch and
-     CUDA versions, then the build of the SELL-C-σ kernels from
-     ``src/repro_torch/kernels/sellcs_spmm/csrc`` into ``build/torch_ext``.
-  2. kernels: on ``delaunay_graph(20)`` (n = 2^20, SELL-C-σ with C=32) and
-     k=4 fp32 multivectors, each kernel's wrapper against its plain
-     PyTorch version on the card, with the tolerance of the fp32 parity
-     tests (|kernel - plain| <= 2e-5 + 2e-4 |plain|), and its time
+     CUDA versions, then the build of every kernel from the checkout's
+     sources into ``build/torch_ext`` (``repro_torch.kernels.build_all``:
+     the two nvcc libraries of the BSR kernels compile while the
+     SELL-C-σ extension builds).
+  2. SELL-C-σ kernels: on ``delaunay_graph(20)`` (n = 2^20, SELL-C-σ with
+     C=32) and k=4 fp32 multivectors, each kernel's wrapper against its
+     plain PyTorch version on the card, with the tolerance of the fp32
+     parity tests (|kernel - plain| <= 2e-5 + 2e-4 |plain|), and its time
      (median of CUDA-event timed runs), the plain version's time, the
-     byte bound of the card and, for the reals ring, ``torch.sparse.mm``
-     on the CSR form of W (timed only as a yardstick; the port never
-     calls it).
-  3. main path: ``p_spectral_cluster(W, PSCConfig(k=4, backend="sellcs"))``
-     with ``hvp_mode="graphblas"`` and ``"matrix_free"``.  Each run starts
-     from zeroed launch counts; it fails unless every kernel the mode uses
-     launched, RCut is finite and at most 1.01 x the p=2 start's, and
-     U^T U is within 1e-4 of I.
+     bound of the card and, for the reals ring, ``torch.sparse.mm`` on the
+     CSR form of W (timed only as a yardstick; the port never calls it).
+  3. SELL-C-σ path: ``p_spectral_cluster(W, PSCConfig(k=4,
+     backend="sellcs"))`` with ``hvp_mode="graphblas"`` and
+     ``"matrix_free"``.  Each run starts from zeroed launch counts; it
+     fails unless every kernel the mode uses launched, RCut is finite and
+     at most 1.01 x the p=2 start's, and U^T U is within 1e-4 of I.
   4. breakdown: at the final U of each mode and p = 1.2, the host time of
-     one value, one gradient and one Hessian apply (the three callbacks of
-     the trust-region loop), and a torch.profiler window over a few
-     Hessian applies: the device's busy share of the window and the
-     kernels that take the most device time.
+     one value, one gradient and one Hessian apply, and a torch.profiler
+     window over a few Hessian applies: the device's busy share of the
+     window and the kernels that take the most device time.
+  5. BSR graph: the same triangulation as BSR with 128 x 128 tiles and
+     COO only (no ELL, no SELL-C-σ); its tile count, fill and bytes.
+  6. BSR kernels: the three BSR kernels against their plain versions
+     (which process tiles in chunks) at full size, fp32, k=4, with the
+     same tolerance; their times, bounds and, for ``bsr_spmm``, the time
+     of ``torch.sparse_bsr_tensor(...) @ X`` on the same tiles (a
+     yardstick the port never calls) and a second check at k=24, the
+     width of stage 1's LOBPCG block.
+  7. BSR path: ``PSCConfig(k=4, backend="edge_pallas")`` in both HVP
+     modes with the checks of phase 3 (stage 1 runs on ``bsr_pallas``,
+     the graph having no other reals layout), then the breakdown of
+     phase 4.
+  8. multilevel BSR path: the same configuration with
+     ``multilevel=MultilevelConfig()`` and ``hvp_mode="matrix_free"``,
+     every level built with BSR tiles; it fails on non-finite output,
+     U^T U off I by more than 1e-4, labels missing a cluster, or no
+     launch of the two p-Laplacian kernels.  Its RCut next to the flat
+     BSR solve's is printed, not asserted.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-without ``src/repro_torch`` beside this script, it exits non-zero and
-prints no result.
+The line before the last is a JSON object with one entry per kernel, its
+launches summed over the paths' runs (and split by path); the last line
+is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
+``src/repro_torch`` beside this script, it exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -51,6 +70,10 @@ FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 RTOL, ATOL = 2e-4, 2e-5        # fp32 bounds of the kernel parity tests
 P, EPS = 1.2, 1e-8             # PSCConfig's p_target and eps
 GRAPH_R = 20                   # delaunay_graph(20): n = 1,048,576
+BLOCK = 128                    # the reference's default BSR tile
+# operations per term (one stored value, one column); a pow counts as
+# one operation, so the operation bound is a lower bound
+OPS = {"reals": 2, "apply": 7, "hvp": 13}
 
 
 def _time_ms(fn, reps: int = 5, inner: int = 20) -> float:
@@ -90,7 +113,7 @@ def _compare(name: str, got, want) -> tuple:
 
 
 def _layout_bytes(L, itemsize: int) -> int:
-    """Bytes of the layout arrays a launch reads once (int32 slice
+    """Bytes of the SELL-C-σ arrays a launch reads once (int32 slice
     offsets, widths, perm and column ids; the stored values)."""
     return (4 * (L.slice_ptr.numel() + L.slice_w.numel() + L.perm.numel()
                  + L.cols.numel()) + itemsize * L.vals.numel())
@@ -102,18 +125,40 @@ def _bound(bytes_moved: int, ops: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_phase(W, K, torch) -> list:
-    """Each kernel against its plain version at the main path's shapes."""
+def _row(name, source, replaces, err, ms, plain_ms, bound, library_ms):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err[0], max_rel_err=err[1], ms=ms,
+                plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                library_ms=library_ms)
+
+
+def _print_rows(rows) -> None:
+    for row in rows:
+        print(f"{row['name']}: kernel_ms={row['ms']!r} "
+              f"twin_ms={row['plain_ms']!r} bound_ms={row['bound_ms']!r} "
+              f"({row['bound_by']}) library_ms={row['library_ms']!r}",
+              flush=True)
+
+
+def _inputs(n, torch):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    X = torch.randn((n, 4), generator=gen, device="cuda")
+    U = torch.linalg.qr(torch.randn((n, 4), generator=gen, device="cuda"))[0]
+    E = 0.1 * torch.randn((n, 4), generator=gen, device="cuda")
+    return gen, X, U.contiguous(), E
+
+
+def sellcs_kernel_phase(W, K, torch) -> list:
+    """Each SELL-C-σ kernel against its plain version at the main path's
+    shapes."""
     n, k = W.n_rows, 4
     L = W.sell_kernel
     item = 4
-    slot_cols = L.slots * k
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    X = torch.randn((n, k), generator=gen, device="cuda")
-    U = torch.linalg.qr(torch.randn((n, k), generator=gen, device="cuda"))[0]
-    U = U.contiguous()
-    E = 0.1 * torch.randn((n, k), generator=gen, device="cuda")
+    terms = L.slots * k
+    gen, X, U, E = _inputs(n, torch)
     dense_bytes = n * k * item
+    src = "src/repro_torch/kernels/sellcs_spmm/csrc/sellcs_kernels.cu"
+    ref = "src/repro/kernels/sellcs_spmm/sellcs_spmm.py"
     rows = []
 
     # reals ring, scalar values (the LOBPCG Laplacian matvec)
@@ -122,108 +167,161 @@ def kernel_phase(W, K, torch) -> list:
     csr = torch.sparse_coo_tensor(
         torch.stack([W.rows.long(), W.cols.long()]), W.vals,
         (n, n)).coalesce().to_sparse_csr()
-    lib_want = torch.sparse.mm(csr, X)
-    _compare("sellcs_spmm vs torch.sparse.mm", got, lib_want)
-    bound = _bound(_layout_bytes(L, item) + 2 * dense_bytes, 2 * slot_cols)
+    _compare("sellcs_spmm vs torch.sparse.mm", got, torch.sparse.mm(csr, X))
+    bound = _bound(_layout_bytes(L, item) + 2 * dense_bytes,
+                   OPS["reals"] * terms)
     # reals ring, (nnz, k) multivalues (the Algorithm-1 W-hat SpMM)
     mv = torch.rand((W.nnz, k), generator=gen, device="cuda")
     Wh = W.with_vals(mv)
     got_mv, want_mv = K.sellcs_spmm(Wh, X), K.sellcs_spmm_plain(Wh, X)
     err_mv = _compare("sellcs_spmm multivalue", got_mv, want_mv)
     bound_mv = _bound(_layout_bytes(Wh.sell_kernel, item) + 2 * dense_bytes,
-                      2 * slot_cols)
-    rows.append(dict(
-        name="sellcs_spmm", route="cuda",
-        source="src/repro_torch/kernels/sellcs_spmm/csrc/sellcs_kernels.cu",
-        replaces="src/repro/kernels/sellcs_spmm/sellcs_spmm.py:95",
-        max_abs_err=err[0], max_rel_err=err[1],
-        ms=_time_ms(lambda: K.sellcs_spmm(W, X)),
-        plain_ms=_time_ms(lambda: K.sellcs_spmm_plain(W, X), 3, 3),
-        bound_ms=bound[0], bound_by=bound[1],
-        library_ms=_time_ms(lambda: torch.sparse.mm(csr, X)),
-        multivalue=dict(
-            max_abs_err=err_mv[0], max_rel_err=err_mv[1],
-            ms=_time_ms(lambda: K.sellcs_spmm(Wh, X)),
-            plain_ms=_time_ms(lambda: K.sellcs_spmm_plain(Wh, X), 3, 3),
-            bound_ms=bound_mv[0], bound_by=bound_mv[1])))
-    del csr, lib_want, mv, Wh
+                      OPS["reals"] * terms)
+    row = _row("sellcs_spmm", src, f"{ref}:95", err,
+               _time_ms(lambda: K.sellcs_spmm(W, X)),
+               _time_ms(lambda: K.sellcs_spmm_plain(W, X), 3, 3), bound,
+               _time_ms(lambda: torch.sparse.mm(csr, X)))
+    row["multivalue"] = dict(
+        max_abs_err=err_mv[0], max_rel_err=err_mv[1],
+        ms=_time_ms(lambda: K.sellcs_spmm(Wh, X)),
+        plain_ms=_time_ms(lambda: K.sellcs_spmm_plain(Wh, X), 3, 3),
+        bound_ms=bound_mv[0], bound_by=bound_mv[1])
+    rows.append(row)
+    del csr, mv, Wh
 
     # p-Laplacian apply (the gradient op)
-    got = K.sellcs_plap_apply(W, U, P, EPS)
-    want = K.sellcs_plap_apply_plain(W, U, P, EPS)
-    err = _compare("sellcs_plap_apply", got, want)
-    bound = _bound(_layout_bytes(L, item) + 2 * dense_bytes, 6 * slot_cols)
-    rows.append(dict(
-        name="sellcs_plap_apply", route="cuda",
-        source="src/repro_torch/kernels/sellcs_spmm/csrc/sellcs_kernels.cu",
-        replaces="src/repro/kernels/sellcs_spmm/sellcs_spmm.py:109",
-        max_abs_err=err[0], max_rel_err=err[1],
-        ms=_time_ms(lambda: K.sellcs_plap_apply(W, U, P, EPS)),
-        plain_ms=_time_ms(lambda: K.sellcs_plap_apply_plain(W, U, P, EPS),
-                          3, 3),
-        bound_ms=bound[0], bound_by=bound[1], library_ms=None))
+    err = _compare("sellcs_plap_apply", K.sellcs_plap_apply(W, U, P, EPS),
+                   K.sellcs_plap_apply_plain(W, U, P, EPS))
+    rows.append(_row(
+        "sellcs_plap_apply", src, f"{ref}:109", err,
+        _time_ms(lambda: K.sellcs_plap_apply(W, U, P, EPS)),
+        _time_ms(lambda: K.sellcs_plap_apply_plain(W, U, P, EPS), 3, 3),
+        _bound(_layout_bytes(L, item) + 2 * dense_bytes,
+               OPS["apply"] * terms), None))
 
     # matrix-free Newton HVP
-    got = K.sellcs_plap_hvp(W, U, E, P, EPS)
-    want = K.sellcs_plap_hvp_plain(W, U, E, P, EPS)
-    err = _compare("sellcs_plap_hvp", got, want)
-    bound = _bound(_layout_bytes(L, item) + 3 * dense_bytes, 12 * slot_cols)
-    rows.append(dict(
-        name="sellcs_plap_hvp", route="cuda",
-        source="src/repro_torch/kernels/sellcs_spmm/csrc/sellcs_kernels.cu",
-        replaces="src/repro/kernels/sellcs_spmm/sellcs_spmm.py:124",
-        max_abs_err=err[0], max_rel_err=err[1],
-        ms=_time_ms(lambda: K.sellcs_plap_hvp(W, U, E, P, EPS)),
-        plain_ms=_time_ms(lambda: K.sellcs_plap_hvp_plain(W, U, E, P, EPS),
-                          3, 3),
-        bound_ms=bound[0], bound_by=bound[1], library_ms=None))
-    for row in rows:
-        print(f"{row['name']}: kernel_ms={row['ms']!r} "
-              f"twin_ms={row['plain_ms']!r} bound_ms={row['bound_ms']!r} "
-              f"({row['bound_by']}) library_ms={row['library_ms']!r}",
-              flush=True)
+    err = _compare("sellcs_plap_hvp", K.sellcs_plap_hvp(W, U, E, P, EPS),
+                   K.sellcs_plap_hvp_plain(W, U, E, P, EPS))
+    rows.append(_row(
+        "sellcs_plap_hvp", src, f"{ref}:124", err,
+        _time_ms(lambda: K.sellcs_plap_hvp(W, U, E, P, EPS)),
+        _time_ms(lambda: K.sellcs_plap_hvp_plain(W, U, E, P, EPS), 3, 3),
+        _bound(_layout_bytes(L, item) + 3 * dense_bytes,
+               OPS["hvp"] * terms), None))
+    _print_rows(rows)
     return rows
 
 
-def main_path_phase(W, K, torch, psc, mode: str, args) -> dict:
-    """One p_spectral_cluster run; returns the launch counts it made."""
-    cfg = psc.PSCConfig(k=4, backend="sellcs", hvp_mode=mode,
-                        newton_iters=args.newton_iters,
-                        tcg_iters=args.tcg_iters)
-    K.reset_launch_counts()
+def bsr_kernel_phase(W, KB, KP, torch) -> list:
+    """Each BSR kernel against its chunked plain version at full size."""
+    n, k, item = W.n_rows, 4, 4
+    nb, bs = int(W.bsr_blocks.shape[0]), W.block_size
+    terms = nb * bs * bs * k
+    # bytes a launch must move: the tiles, the int32 tile column ids and
+    # row pointers, each multivector read once, the output written once
+    layout = (nb * bs * bs * item + 4 * nb
+              + 4 * int(W.bsr_indptr_dev.numel()))
+    dense_bytes = n * k * item
+    gen, X, U, E = _inputs(n, torch)
+    rows = []
+
+    err = _compare("bsr_spmm", KB.bsr_spmm(W, X), KB.bsr_spmm_plain(W, X))
+    # LOBPCG's [X, R, P] block: the widest multivector of stage 1
+    S = torch.randn((n, 24), generator=gen, device="cuda")
+    err_s = _compare("bsr_spmm k=24", KB.bsr_spmm(W, S),
+                     KB.bsr_spmm_plain(W, S))
+    block = dict(k=24, max_abs_err=err_s[0], max_rel_err=err_s[1],
+                 ms=_time_ms(lambda: KB.bsr_spmm(W, S)),
+                 plain_ms=_time_ms(lambda: KB.bsr_spmm_plain(W, S), 3, 3))
+    block["bound_ms"], block["bound_by"] = _bound(
+        layout + 2 * n * 24 * item, OPS["reals"] * nb * bs * bs * 24)
+    del S
+    n_rb = len(W.bsr_indptr) - 1
+    n_cb = -(-W.n_cols // bs)
+    lib = torch.sparse_bsr_tensor(W.bsr_indptr_dev, W.bsr_indices,
+                                  W.bsr_blocks, (n_rb * bs, n_cb * bs))
+    Xp = torch.nn.functional.pad(X, (0, 0, 0, n_cb * bs - n))
+    _compare("bsr_spmm vs torch.sparse_bsr_tensor @ X", KB.bsr_spmm(W, X),
+             (lib @ Xp)[:n])
+    rows.append(_row(
+        "bsr_spmm", "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
+        "src/repro/kernels/bsr_spmm/bsr_spmm.py:46", err,
+        _time_ms(lambda: KB.bsr_spmm(W, X)),
+        _time_ms(lambda: KB.bsr_spmm_plain(W, X), 3, 3),
+        _bound(layout + 2 * dense_bytes, OPS["reals"] * terms),
+        _time_ms(lambda: lib @ Xp)))
+    rows[-1]["lobpcg_block"] = block
+    del lib, Xp
+
+    src = "src/repro_torch/kernels/plap_edge/csrc/plap_edge.cu"
+    ref = "src/repro/kernels/plap_edge/plap_edge.py"
+    err = _compare("plap_apply", KP.plap_apply(W, U, P, EPS),
+                   KP.plap_apply_plain(W, U, P, EPS))
+    rows.append(_row(
+        "plap_apply", src, f"{ref}:76", err,
+        _time_ms(lambda: KP.plap_apply(W, U, P, EPS)),
+        _time_ms(lambda: KP.plap_apply_plain(W, U, P, EPS), 3, 1),
+        _bound(layout + 2 * dense_bytes, OPS["apply"] * terms), None))
+    err = _compare("plap_hvp", KP.plap_hvp(W, U, E, P, EPS),
+                   KP.plap_hvp_plain(W, U, E, P, EPS))
+    rows.append(_row(
+        "plap_hvp", src, f"{ref}:96", err,
+        _time_ms(lambda: KP.plap_hvp(W, U, E, P, EPS)),
+        _time_ms(lambda: KP.plap_hvp_plain(W, U, E, P, EPS), 3, 1),
+        _bound(layout + 3 * dense_bytes, OPS["hvp"] * terms), None))
+    _print_rows(rows)
+    return rows
+
+
+def _orthonormality(U, torch) -> float:
+    G = U.T @ U
+    return float((G - torch.eye(G.shape[0], device=G.device)).abs().max())
+
+
+def solve_phase(tag, W, counters, torch, psc, cfg, used) -> tuple:
+    """One p_spectral_cluster run from zeroed launch counts; returns
+    (counts, result)."""
+    for K in counters:
+        K.reset_launch_counts()
     t0 = time.perf_counter()
     res = psc.p_spectral_cluster(W, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-    print(f"main[{mode}]: wall_s={wall!r} stage_s={res.stage_seconds} "
+    launches = {name: c for K in counters for name, c in K.LAUNCHES.items()}
+    orth = _orthonormality(res.U, torch)
+    print(f"{tag}: wall_s={wall!r} stage_s={res.stage_seconds} "
           f"init_rcut={res.init_rcut!r} rcut={res.rcut!r} ncut={res.ncut!r} "
           f"p_path={res.p_path} hvp_counts={res.hvp_counts} "
-          f"fvals={res.fvals} launches={launches}", flush=True)
-    used = ["sellcs_spmm", "sellcs_plap_apply"]
-    if mode == "matrix_free":
-        used.append("sellcs_plap_hvp")
+          f"fvals={res.fvals} launches={launches} "
+          f"max|U^T U - I|={orth!r}", flush=True)
     for name in used:
         if launches[name] < 1:
-            raise AssertionError(f"main[{mode}]: {name} never launched")
-    if not math.isfinite(res.rcut):
-        raise AssertionError(f"main[{mode}]: rcut {res.rcut} not finite")
-    if not res.rcut <= res.init_rcut * 1.01 + 1e-9:
-        raise AssertionError(f"main[{mode}]: rcut {res.rcut} above "
-                             f"1.01 x init_rcut {res.init_rcut}")
-    G = res.U.T @ res.U
-    orth = float((G - torch.eye(G.shape[0], device=G.device)).abs().max())
-    print(f"main[{mode}]: max|U^T U - I|={orth!r}", flush=True)
+            raise AssertionError(f"{tag}: {name} never launched")
+    if not (math.isfinite(res.rcut) and bool(torch.isfinite(res.U).all())):
+        raise AssertionError(f"{tag}: non-finite output (rcut {res.rcut})")
     if not orth <= 1e-4:
-        raise AssertionError(f"main[{mode}]: U^T U off identity by {orth}")
+        raise AssertionError(f"{tag}: U^T U off identity by {orth}")
     if len(np.unique(res.labels)) != cfg.k:
-        raise AssertionError(f"main[{mode}]: labels use "
-                             f"{len(np.unique(res.labels))} of {cfg.k} "
-                             "clusters")
-    return launches, res.U          # in the layout the solver left it
+        raise AssertionError(f"{tag}: labels use {len(np.unique(res.labels))}"
+                             f" of {cfg.k} clusters")
+    return launches, res
 
 
-def breakdown_phase(W, torch, mode: str, U) -> None:
+def flat_phase(tag, W, counters, torch, psc, backend, mode, used,
+               args) -> tuple:
+    """A flat solve, also held to RCut <= 1.01 x the p=2 start's."""
+    cfg = psc.PSCConfig(k=4, backend=backend, hvp_mode=mode,
+                        newton_iters=args.newton_iters,
+                        tcg_iters=args.tcg_iters)
+    launches, res = solve_phase(f"{tag}[{mode}]", W, counters, torch, psc,
+                                cfg, used)
+    if not res.rcut <= res.init_rcut * 1.01 + 1e-9:
+        raise AssertionError(f"{tag}[{mode}]: rcut {res.rcut} above "
+                             f"1.01 x init_rcut {res.init_rcut}")
+    return launches, res
+
+
+def breakdown_phase(tag, W, torch, backend: str, mode: str, U) -> None:
     """Host ms of the trust-region callbacks at U, and where the device
     time of a window of Hessian applies goes."""
     from torch.autograd import DeviceType
@@ -233,7 +331,8 @@ def breakdown_phase(W, torch, mode: str, U) -> None:
     from repro_torch.core.grassmann import proj
     from repro_torch.grblas import Descriptor
 
-    desc = Descriptor(backend="sellcs")
+    desc = Descriptor(backend=backend)
+    tag = f"{tag}[{mode}]"
     gen = torch.Generator(device="cuda").manual_seed(1)
     eta = proj(U, 1e-3 * torch.randn(U.shape, generator=gen, device="cuda"))
     hvp = {"graphblas": plap.hess_eta_graphblas,
@@ -250,7 +349,7 @@ def breakdown_phase(W, torch, mode: str, U) -> None:
             fn()
         torch.cuda.synchronize()
         host[name] = (time.perf_counter() - t0) * 100.0     # ms per call
-    print(f"breakdown[{mode}]: host_ms_per_call={host}", flush=True)
+    print(f"{tag}: host_ms_per_call={host}", flush=True)
 
     reps = 5
     with profile(activities=[ProfilerActivity.CPU,
@@ -263,13 +362,35 @@ def breakdown_phase(W, torch, mode: str, U) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"breakdown[{mode}]: hvp window {reps} calls wall_ms={window_ms!r} "
+    print(f"{tag}: hvp window {reps} calls wall_ms={window_ms!r} "
           f"device_ms={device_ms!r} busy_share={device_ms / window_ms!r} "
           f"kernel_launches={sum(e.count for e in kernels)}", flush=True)
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in kernels[:8]:
-        print(f"breakdown[{mode}]:   {e.self_device_time_total / 1e3 / reps!r}"
-              f" ms/hvp x{e.count // reps} {e.key[:90]}", flush=True)
+        print(f"{tag}:   {e.self_device_time_total / 1e3 / reps!r}"
+              f" ms/hvp x{e.count / reps} {e.key[:90]}", flush=True)
+
+
+def multilevel_phase(W, counters, torch, psc, flat_rcut, args) -> dict:
+    from repro_torch.multilevel import MultilevelConfig
+
+    cfg = psc.PSCConfig(k=4, backend="edge_pallas", hvp_mode="matrix_free",
+                        newton_iters=args.newton_iters,
+                        tcg_iters=args.tcg_iters,
+                        multilevel=MultilevelConfig())
+    launches, res = solve_phase("multilevel[matrix_free]", W, counters,
+                                torch, psc, cfg, ["plap_apply", "plap_hvp"])
+    if not res.hierarchy or len(res.hierarchy) < 2:
+        raise AssertionError("multilevel: the graph was not coarsened")
+    for lev in res.hierarchy:
+        print(f"multilevel: level {lev['level']} n={lev['n']} "
+              f"nnz={lev['nnz']} bsr_tiles={lev['bsr_tiles']}", flush=True)
+    refined = sorted({r["level"] for r in res.levels})
+    print(f"multilevel: refined_levels={refined} "
+          f"total_s={sum(res.stage_seconds.values())!r} "
+          f"rcut_over_flat_bsr={res.rcut / flat_rcut!r} (recorded, not "
+          f"asserted)", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -290,7 +411,22 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import psc
     from repro_torch.graphs import delaunay_graph
+    from repro_torch.grblas import SparseMatrix
+    from repro_torch.kernels import bsr_spmm as KB
+    from repro_torch.kernels import build_all
+    from repro_torch.kernels import plap_edge as KP
     from repro_torch.kernels import sellcs_spmm as K
+
+    counters = (K, KB, KP)
+    phase_s = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase
+        t_phase = now
+        print(f"phase {name}: {phase_s[name]!r} s", flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -299,8 +435,14 @@ def main() -> int:
     print(smi, flush=True)
     print(f"torch={torch.__version__} cuda={torch.version.cuda} "
           f"device={torch.cuda.get_device_name(0)}", flush=True)
-    print(f"build_s={K.build()!r}", flush=True)
+    print(f"build_s={build_all()!r}", flush=True)
+    if (args.newton_iters, args.tcg_iters) != (30, 20):
+        print(f"iteration budget cut: newton_iters={args.newton_iters} "
+              f"tcg_iters={args.tcg_iters} (PSCConfig default 30/20)",
+              flush=True)
+    phase_done("build")
 
+    # ---- SELL-C-σ slice
     t0 = time.perf_counter()
     W, _ = delaunay_graph(GRAPH_R, device="cuda", build_sellcs=True,
                           sell_c=32)
@@ -309,25 +451,63 @@ def main() -> int:
           f"sellcs_fill={W.sellcs_fill_ratio()!r} "
           f"runs={len(W.sell_cols)} build_s={time.perf_counter() - t0!r}",
           flush=True)
-
-    rows = kernel_phase(W, K, torch)
-    if (args.newton_iters, args.tcg_iters) != (30, 20):
-        print(f"iteration budget cut: newton_iters={args.newton_iters} "
-              f"tcg_iters={args.tcg_iters} (PSCConfig default 30/20)",
-              flush=True)
-    total = {name: 0 for name in K.LAUNCHES}
-    by_mode, final_U = {}, {}
+    rows = sellcs_kernel_phase(W, K, torch)
+    phase_done("sellcs_kernels")
+    by_path, final_U = {}, {}
     for mode in ("graphblas", "matrix_free"):
-        by_mode[mode], final_U[mode] = main_path_phase(W, K, torch, psc,
-                                                       mode, args)
-        for name, count in by_mode[mode].items():
-            total[name] += count
+        used = ["sellcs_spmm", "sellcs_plap_apply"]
+        if mode == "matrix_free":
+            used.append("sellcs_plap_hvp")
+        by_path[f"sellcs/{mode}"], res = flat_phase(
+            "main", W, counters, torch, psc, "sellcs", mode, used, args)
+        final_U[mode] = res.U
+    phase_done("sellcs_path")
     for mode, U in final_U.items():
-        breakdown_phase(W, torch, mode, U)
-    for row in rows:
-        row["launches"] = total[row["name"]]
-        row["launches_by_mode"] = {m: c[row["name"]] for m, c in by_mode.items()}
+        breakdown_phase("breakdown", W, torch, "sellcs", mode, U)
+    phase_done("sellcs_breakdown")
 
+    # ---- BSR slice: the same triangulation, BSR tiles and COO only
+    t0 = time.perf_counter()
+    Wb = SparseMatrix.from_coo(*W.host_coo(), (W.n_rows, W.n_cols),
+                               build_ell=False, build_sellcs=False,
+                               build_bsr=True, block_size=BLOCK,
+                               device="cuda")
+    torch.cuda.synchronize()
+    del W, final_U
+    nb = int(Wb.bsr_blocks.shape[0])
+    print(f"bsr graph: n={Wb.n_rows} nnz={Wb.nnz} block_size={BLOCK} "
+          f"n_blocks={nb} tiles_per_row_block="
+          f"{nb / (len(Wb.bsr_indptr) - 1)!r} "
+          f"bsr_fill_ratio={Wb.bsr_fill_ratio()!r} "
+          f"tile_bytes={Wb.bsr_blocks.numel() * Wb.bsr_blocks.element_size()}"
+          f" build_s={time.perf_counter() - t0!r}", flush=True)
+    rows += bsr_kernel_phase(Wb, KB, KP, torch)
+    print(f"bsr_spmm: csr torch.sparse.mm on the same graph "
+          f"library_ms={rows[0]['library_ms']!r}", flush=True)
+    phase_done("bsr_kernels")
+    flat_rcut, final_U = None, {}
+    for mode in ("graphblas", "matrix_free"):
+        used = ["bsr_spmm", "plap_apply"]
+        if mode == "matrix_free":
+            used.append("plap_hvp")
+        by_path[f"bsr/{mode}"], res = flat_phase(
+            "bsr", Wb, counters, torch, psc, "edge_pallas", mode, used, args)
+        flat_rcut, final_U[mode] = res.rcut, res.U
+    phase_done("bsr_path")
+    for mode, U in final_U.items():
+        breakdown_phase("bsr breakdown", Wb, torch, "edge_pallas", mode, U)
+    del final_U
+    phase_done("bsr_breakdown")
+    by_path["multilevel_bsr/matrix_free"] = multilevel_phase(
+        Wb, counters, torch, psc, flat_rcut, args)
+    phase_done("multilevel_bsr_path")
+
+    for row in rows:
+        row["launches_by_path"] = {p: c[row["name"]]
+                                   for p, c in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+    print(f"phase_seconds={phase_s} total_s={sum(phase_s.values())!r}",
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""GrB-pGrass: the end-to-end p-spectral clustering pipeline (flat path).
+"""GrB-pGrass: the end-to-end p-spectral clustering pipeline.
 
 Port of ``repro.core.psc``:
 
@@ -17,9 +17,15 @@ seeded with two words that ``numpy.random.SeedSequence(cfg.seed)``
 derives.  The streams differ from ``jax.random``'s, so the port matches
 the reference in quality (accuracy, RCut), not label for label.
 
+Two routes around the flat path, as in the reference:
+``multilevel`` (a ``MultilevelConfig``, or True for the defaults) runs
+the V-cycle of ``repro_torch.multilevel``; ``reorder`` ("rcm" |
+"degree") relabels the graph first (``graphs.reorder``) and un-permutes
+labels, init_labels and U before the result is returned.
+
 Config fields of slices not ported yet raise NotImplementedError naming
-the ROADMAP.md item: ``multilevel``, ``guard``, ``validate``, ``trace``,
-``init_U``, ``reorder`` and solvers other than ``newton``.
+the ROADMAP.md item: ``guard``, ``validate``, ``trace``, ``init_U`` and
+solvers other than ``newton`` (also as a multilevel level's driver).
 """
 from __future__ import annotations
 
@@ -38,7 +44,6 @@ from repro_torch.grblas.containers import SparseMatrix
 
 # config field -> the ROADMAP.md item that ports it
 _UNPORTED_FIELDS = {
-    "multilevel": "queue 1, item 12 (multilevel V-cycle)",
     "guard": "queue 1, item 10 (guarded continuation)",
     "validate": "queue 1, item 11 (graphs.validate)",
     "trace": "queue 1, item 14 (obs telemetry)",
@@ -61,10 +66,18 @@ class PSCConfig:
     normalized_init: bool = False
     seed: int = 0
     solver: str = "newton"
-    # grblas backend of the hot loop: "auto" | "coo" | "sellcs" (the
-    # CUDA kernels, when the SELL-C-σ layout is built)
+    # grblas backend of the hot loop (grblas/backends.py).  The loop
+    # issues p-Laplacian edge-ring SpMMs, which "coo", "sellcs" (with the
+    # SELL-C-σ layout built) and "edge_pallas" (with the BSR layout
+    # built) serve; "auto" takes the first capable backend in the order
+    # sellcs, ell, bsr_pallas, edge_pallas, coo.  Stage 1's reals SpMM
+    # takes the named backend only where it serves the reals ring, else
+    # auto.  A backend that cannot execute raises
+    # BackendUnavailableError before any work is done.
     backend: str = "auto"
+    # vertex relabeling before stage 1: "none" | "rcm" | "degree"
     reorder: str = "none"
+    # None/False = flat solve; True or a MultilevelConfig = V-cycle
     multilevel: object = None
     init_U: object = None
     guard: object = None
@@ -77,10 +90,10 @@ class PSCConfig:
             if value is not None and value is not False:
                 raise NotImplementedError(
                     f"PSCConfig.{name} is not ported yet (ROADMAP.md {item})")
-        if self.reorder != "none":
-            raise NotImplementedError(
-                "PSCConfig.reorder is not ported yet (ROADMAP.md queue 1, "
-                "item 11: graphs.reorder)")
+        if self.multilevel:
+            from repro_torch.multilevel import vcycle
+
+            vcycle.coerce(self.multilevel)
         if self.hvp_mode not in ("graphblas", "matrix_free"):
             raise ValueError(f"hvp_mode={self.hvp_mode!r}: expected "
                              "'graphblas' or 'matrix_free'")
@@ -124,8 +137,13 @@ class PSCResult:
     reports: Optional[list] = None  # SolverReport per level
     # host wall seconds per stage: "init" (eigensolve + Spec kmeans),
     # "continuation", "kmeans" (discretize + metrics); each stage ends
-    # in a value read back from the device
+    # in a value read back from the device.  Multilevel runs: "hierarchy",
+    # "coarse_solve", "walk_up", "kmeans".
     stage_seconds: Optional[dict] = None
+    # multilevel runs only: per-level refinement records (level, n, nnz,
+    # p, fval, n_hvp, iters), and the hierarchy (level, n, nnz, bsr_tiles)
+    levels: Optional[list] = None
+    hierarchy: Optional[list] = None
 
 
 def stage_generators(seed: int, device) -> Tuple[torch.Generator,
@@ -172,6 +190,15 @@ def p_spectral_cluster(W: SparseMatrix, cfg: PSCConfig) -> PSCResult:
         raise ValueError(f"k={cfg.k} exceeds the number of vertices n={n}")
     if cfg.k == 1 or cfg.k == n:
         return _trivial_result(W, cfg)
+    if cfg.multilevel:
+        from repro_torch.multilevel import vcycle
+
+        return vcycle.multilevel_cluster(W, cfg, cfg.multilevel)
+    inv = None
+    if cfg.reorder != "none":
+        from repro_torch.graphs.reorder import reorder
+
+        W, _, inv = reorder(W, method=cfg.reorder)
     cfg.validate_backend(W)
     g_init, g_final = stage_generators(cfg.seed, W.device)
     seconds = {}
@@ -198,15 +225,18 @@ def p_spectral_cluster(W: SparseMatrix, cfg: PSCConfig) -> PSCResult:
     t0 = time.perf_counter()
     labels = discretize(U, cfg.k, g_final, restarts=cfg.kmeans_restarts,
                         iters=cfg.kmeans_iters)
-    rcut = float(metrics.rcut(W, labels, cfg.k))
+    rcut = float(metrics.rcut(W, labels, cfg.k))    # relabeling-invariant
     ncut = float(metrics.ncut(W, labels, cfg.k))
     seconds["kmeans"] = time.perf_counter() - t0
 
-    return PSCResult(labels=labels.cpu().numpy(), U=U, rcut=rcut, ncut=ncut,
+    labels, init_labels = labels.cpu().numpy(), init_labels.cpu().numpy()
+    if inv is not None:             # back to the caller's vertex ids
+        labels, init_labels = labels[inv], init_labels[inv]
+        U = U[torch.as_tensor(inv, device=U.device)]
+    return PSCResult(labels=labels, U=U, rcut=rcut, ncut=ncut,
                      p_path=p_path, fvals=fvals, hvp_counts=hvps,
-                     init_labels=init_labels.cpu().numpy(),
-                     init_rcut=init_rcut, reports=reports,
-                     stage_seconds=seconds)
+                     init_labels=init_labels, init_rcut=init_rcut,
+                     reports=reports, stage_seconds=seconds)
 
 
 def spectral_cluster(W: SparseMatrix, k: int, seed: int = 0,

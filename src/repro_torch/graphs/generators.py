@@ -3,7 +3,8 @@
 A numpy/scipy copy of ``repro.graphs.generators``: the same seeds give the
 same edge lists.  Keyword arguments pass through to
 ``SparseMatrix.from_coo`` (``device=``, ``dtype=``, ``build_sellcs=``,
-``sell_c=`` ...); the default device is ``cuda``.
+``sell_c=``, ``build_bsr=``, ``block_size=`` ...); the default device is
+``cuda``.
 
 The paper evaluates on SuiteSparse `delaunay_nXX` graphs: Delaunay
 triangulations of 2^r uniform points in the unit square (n=2^r nodes,
@@ -36,7 +37,7 @@ def _symmetrize(rows, cols, vals, n):
 
 def _to_matrix(rows, cols, vals, n, **kw) -> SparseMatrix:
     """kw passes through to from_coo (device / dtype / build_ell /
-    build_sellcs / sell_c / sell_sigma)."""
+    build_sellcs / sell_c / sell_sigma / build_bsr / block_size)."""
     rows, cols, vals = _symmetrize(np.asarray(rows), np.asarray(cols),
                                    np.asarray(vals, np.float64), n)
     return SparseMatrix.from_coo(rows, cols, vals, (n, n), **kw)

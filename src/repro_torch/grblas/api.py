@@ -6,9 +6,12 @@ Port of ``repro.grblas.api``::
     mxv(A, x, ring, ...)                                   # alias of mxm
     vxm(x, A, ring, ...)                                   # transposed mxm
 
-``Descriptor.backend`` is "auto" | "coo" | "ell" | "sellcs"; a named
-backend that cannot execute the operands raises BackendUnavailableError
-instead of silently falling back.  A PairEdgeSemiring takes X=(U, Eta).
+``Descriptor.backend`` is "auto" or a registered backend ("sellcs",
+"ell", "bsr_pallas", "edge_pallas", "coo", "spgemm"; ``backends.py``);
+a named backend that cannot execute the operands raises
+BackendUnavailableError instead of silently falling back.  A
+PairEdgeSemiring takes X=(U, Eta); a SparseMatrix X makes the product
+sparse x sparse (spgemm, returning a SparseMatrix).
 
 Write semantics (GraphBLAS C<M> (.)= T, as pure outputs): ``accum=(op, C)``
 returns op(C, T); ``mask`` (row mask or full shape) keeps masked-in
@@ -45,7 +48,7 @@ DEFAULT_DESCRIPTOR = Descriptor()
 def mxm(A, X, ring=reals_ring, *, mask=None, accum=None,
         desc: Optional[Descriptor] = None):
     """Sparse x dense multivector (SpMM) under ``ring``.  X: (n,) or
-    (n, k), or a pair (U, Eta) for a PairEdgeSemiring."""
+    (n, k), a pair (U, Eta) for a PairEdgeSemiring, or a SparseMatrix."""
     desc = DEFAULT_DESCRIPTOR if desc is None else desc
     be = _backends.select_backend(A, X, ring, desc)
     return _finalize(be.execute(A, X, ring, desc), ring, mask, accum)

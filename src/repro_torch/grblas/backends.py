@@ -1,30 +1,42 @@
 """Backend registry for the unified GraphBLAS execution API.
 
-Port of ``repro.grblas.backends`` with the backends the flat SELL-C-σ
-pipeline needs.  A ``Backend`` couples a capability predicate (can it
-run this container layout, ring kind, multivector shape and descriptor
-at all?) with an execute function; ``api.mxm`` runs the backend the
-Descriptor names (loud BackendUnavailableError if it cannot) or, under
-"auto", the first capable backend in the port's own order:
+Port of ``repro.grblas.backends``.  A ``Backend`` couples a capability
+predicate (can it run this container layout, ring kind, multivector
+shape and descriptor at all?) with an execute function; ``api.mxm`` runs
+the backend the Descriptor names (loud BackendUnavailableError if it
+cannot) or, under "auto", the first capable backend in the port's own
+order:
 
-  name     layout needed   rings                               auto rank
-  sellcs   SELL-C-σ        reals (incl. (nnz,k) multivalues),     0
-                           plap_apply, plap_hvp
-  ell      padded ELL      rings with a padded reducer            10
-  coo      COO (always)    any ring, transpose, multivalues       20
+  name         layout needed  rings                            auto rank
+  sellcs       SELL-C-σ       reals (incl. (nnz,k) multivalues),    0
+                              plap_apply, plap_hvp
+  ell          padded ELL     rings with a padded reducer          10
+  bsr_pallas   BSR tiles      reals, (n,k) multivector             15
+  edge_pallas  BSR tiles      plap_apply, plap_hvp; square         16
+  coo          COO (always)   any ring, transpose, multivalues     20
+  spgemm       COO (always)   reals, X a SparseMatrix              25
 
-The port's ``auto`` picks ``sellcs`` whenever that layout is built: it
-is the only backend whose SpMMs run as the hand-written CUDA kernels of
-``kernels/sellcs_spmm`` on the GPU.  (The reference deferred to ELL on
-low-fill graphs for TPU reasons; that order is not evidence here.)
-The BSR backends (``bsr_pallas``, ``edge_pallas``) and the ``dist``,
-``dist_sellcs`` and ``spgemm`` backends are still to be ported
-(ROADMAP.md queues 1 and 2).
+The port's ``auto`` picks ``sellcs`` whenever that layout is built: its
+SpMMs run as the hand-written CUDA kernels of ``kernels/sellcs_spmm``.
+The two BSR backends (the CUDA kernels of ``kernels/bsr_spmm`` and
+``kernels/plap_edge``; the names are the reference's, so one
+``PSCConfig`` means the same in both packages) rank after ``sellcs`` and
+``ell`` and before ``coo``: every stored tile is dense, and on
+``delaunay_graph(20)`` at bs = 128 the tiles are 0.54% full, so a BSR
+kernel streams about 53x the bytes of the SELL-C-σ kernel for the same
+product.  A graph built with BSR and COO only runs its reals SpMMs on
+``bsr_pallas``, as the reference does on the TPU.  (The reference's
+TPU order, which puts the Pallas kernels first and defers ``sellcs`` to
+ELL on low-fill graphs, is not evidence on this card.)  ``spgemm`` is
+the sparse x sparse product, host-side like the reference's; the
+``dist`` backends are still to be ported (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict
+
+import numpy as np
 
 from repro_torch.grblas.containers import SparseMatrix
 from repro_torch.grblas.semiring import (
@@ -112,6 +124,10 @@ def _is_pair(X) -> bool:
     return isinstance(X, (tuple, list))
 
 
+def _is_sparse(X) -> bool:
+    return isinstance(X, SparseMatrix)
+
+
 def _square(A) -> bool:
     return A.n_rows == A.n_cols
 
@@ -131,7 +147,7 @@ def _broadcast_vals(vals, ndim):
 # --------------------------------------------------------------- coo backend
 
 def _coo_supports(A, X, ring, desc):
-    if not isinstance(A, SparseMatrix):
+    if not isinstance(A, SparseMatrix) or _is_sparse(X):
         return False
     if isinstance(ring, PairEdgeSemiring):
         return (_is_pair(X) and len(X) == 2 and _square(A)
@@ -172,7 +188,7 @@ def _ell_supports(A, X, ring, desc):
             and A.ell_cols is not None
             and A.vals.ndim == 1
             and isinstance(ring, Semiring)
-            and not _is_pair(X)
+            and not _is_pair(X) and not _is_sparse(X)
             and not desc.transpose
             and fast_paths(ring).padded is not None)
 
@@ -225,3 +241,99 @@ def _sellcs_execute(A, X, ring, desc):
     else:
         Y = K.sellcs_spmm(A, X2)
     return Y[:, 0] if one_d else Y
+
+
+# ----------------------------------------------------- bsr_pallas backend
+
+def _bsr_supports(A, X, ring, desc):
+    return (isinstance(A, SparseMatrix)
+            and A.bsr_blocks is not None
+            and A.vals.ndim == 1
+            and isinstance(ring, Semiring)
+            and ring.name == "reals_+x"
+            and not _is_pair(X)
+            and getattr(X, "ndim", 0) == 2
+            and not desc.transpose)
+
+
+@register_backend("bsr_pallas", priority=15, supports=_bsr_supports)
+def _bsr_execute(A, X, ring, desc):
+    """Dense-tile SpMM through ``kernels.bsr_spmm``: the CUDA kernel for
+    GPU tensors, the plain twin for CPU tensors."""
+    from repro_torch.kernels import bsr_spmm as K
+
+    return K.bsr_spmm(A, X.contiguous())
+
+
+# ---------------------------------------------------- edge_pallas backend
+
+def _edge_pallas_supports(A, X, ring, desc):
+    if not (isinstance(A, SparseMatrix) and A.bsr_blocks is not None
+            and A.vals.ndim == 1 and not desc.transpose and _square(A)):
+        return False
+    if isinstance(ring, EdgeSemiring) and ring.kind == "plap_apply":
+        return not _is_pair(X) and getattr(X, "ndim", 0) == 2
+    if isinstance(ring, PairEdgeSemiring) and ring.kind == "plap_hvp":
+        return (_is_pair(X) and len(X) == 2
+                and getattr(X[0], "ndim", 0) == 2
+                and X[0].shape == X[1].shape)
+    return False
+
+
+@register_backend("edge_pallas", priority=16, supports=_edge_pallas_supports)
+def _edge_pallas_execute(A, X, ring, desc):
+    """Fused p-Laplacian kernels over BSR tiles (``kernels.plap_edge``),
+    claiming rings by kind with (p, eps) from ``ring.params``."""
+    from repro_torch.kernels import plap_edge as K
+
+    p, eps = ring.params
+    if isinstance(ring, PairEdgeSemiring):
+        return K.plap_hvp(A, X[0].contiguous(), X[1].contiguous(), float(p),
+                          float(eps))
+    return K.plap_apply(A, X.contiguous(), float(p), float(eps))
+
+
+# --------------------------------------------------------- spgemm backend
+
+def _spgemm_supports(A, X, ring, desc):
+    """Sparse x sparse under the reals ring.  The output pattern depends
+    on the data, so this is a host-side construction op (like every
+    layout build), not a kernel."""
+    return (isinstance(A, SparseMatrix) and _is_sparse(X)
+            and isinstance(ring, Semiring) and ring.name == "reals_+x")
+
+
+@register_backend("spgemm", priority=25, supports=_spgemm_supports)
+def _spgemm_execute(A, B, ring, desc):
+    """C = A B (or A^T B under desc.transpose) as a bare-COO SparseMatrix
+    on A's device: row-expansion SpGEMM in host numpy, each stored A
+    entry (i, j) fanned out over B's row j, duplicate (i, b) pairs summed
+    (the reference's algorithm, so the products are equal)."""
+    a_rows, a_cols, a_vals = A.host_coo()
+    a_rows, a_cols = a_rows.astype(np.int64), a_cols.astype(np.int64)
+    if desc.transpose:
+        a_rows, a_cols = a_cols, a_rows
+    n_out = A.n_cols if desc.transpose else A.n_rows
+    b_rows, b_cols, b_vals = B.host_coo()
+    b_rows, b_cols = b_rows.astype(np.int64), b_cols.astype(np.int64)
+
+    # CSR-style row pointers of B (from_coo sorts COO by row)
+    counts = np.bincount(b_rows, minlength=B.n_rows)
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    reps = counts[a_cols]                       # fan-out of each A entry
+    total = int(reps.sum())
+    out_rows = np.repeat(a_rows, reps)
+    av = np.repeat(a_vals, reps)
+    offs = np.arange(total, dtype=np.int64) - np.repeat(
+        np.cumsum(reps) - reps, reps)
+    bpos = np.repeat(indptr[a_cols], reps) + offs
+    out_cols = b_cols[bpos]
+    prod = av * b_vals[bpos]
+
+    key = out_rows * B.n_cols + out_cols
+    uniq, inv = np.unique(key, return_inverse=True)
+    vals = np.bincount(inv, weights=prod)
+    return SparseMatrix.from_coo(uniq // B.n_cols, uniq % B.n_cols, vals,
+                                 (n_out, B.n_cols), dtype=A.dtype,
+                                 build_ell=False, build_sellcs=False,
+                                 device=A.device)

@@ -1,15 +1,23 @@
 """Algebraic containers: sparse matrices as torch tensors on one device.
 
-Port of ``repro.grblas.containers`` with the COO, ELL and SELL-C-σ
-layouts (the BSR build waits for the slice that ports its kernels,
-ROADMAP.md queue 2).  Construction is host-side numpy and produces
-layout arrays equal, element for element, to the reference's; the
-result lives on the device the caller names (default ``cuda``).
+Port of ``repro.grblas.containers`` with the COO, ELL, SELL-C-σ and
+BSR layouts.  Construction is host-side numpy (the BSR tiles are
+scattered on the target device) and produces layout arrays equal,
+element for element, to the reference's; the result lives on the
+device the caller names (default ``cuda``).
 
   * COO    (rows, cols, vals)      sorted by row then col
   * ELL    (ell_cols, ell_vals)    padded rows, pad = (col=row, val=0)
   * SELL-C-σ                       σ-window degree sort, C-row slices,
                                    each slice padded to its own width
+  * BSR    dense (bs, bs) tiles    sorted by (row-block, col-block):
+                                   ``bsr_blocks`` (n_blocks, bs, bs),
+                                   ``bsr_indices`` / ``bsr_row_ids``
+                                   (int32 col- and row-block of each
+                                   tile), ``bsr_indptr`` (host int64,
+                                   tiles of row-block rb are
+                                   [indptr[rb], indptr[rb+1])) and its
+                                   int32 device copy for the kernels
 
 SELL-C-σ is stored twice:
 
@@ -95,6 +103,12 @@ class SparseMatrix:
     vals: torch.Tensor                       # (nnz,) or (nnz, k)
     ell_cols: Optional[torch.Tensor] = None  # (n_rows, max_nnz) int32
     ell_vals: Optional[torch.Tensor] = None  # (n_rows, max_nnz)
+    block_size: int = 0
+    bsr_indptr: Optional[np.ndarray] = None          # (n_rb + 1,) host int64
+    bsr_indptr_dev: Optional[torch.Tensor] = None    # the same, int32
+    bsr_indices: Optional[torch.Tensor] = None       # (n_blocks,) int32
+    bsr_blocks: Optional[torch.Tensor] = None        # (n_blocks, bs, bs)
+    bsr_row_ids: Optional[torch.Tensor] = None       # (n_blocks,) int32
     sell_c: int = 0
     sell_sigma: int = 0
     sell_w_align: int = 1
@@ -130,7 +144,8 @@ class SparseMatrix:
     @staticmethod
     def from_coo(rows, cols, vals, shape: Tuple[int, int],
                  build_ell: Optional[bool] = None, build_bsr: bool = False,
-                 dtype=torch.float32, build_sellcs: Optional[bool] = None,
+                 block_size: int = 128, dtype=torch.float32,
+                 build_sellcs: Optional[bool] = None,
                  sell_c: int = 32, sell_sigma: Optional[int] = None,
                  sell_w_align: int = 1,
                  device: DeviceLike = None) -> "SparseMatrix":
@@ -139,11 +154,8 @@ class SparseMatrix:
         ``build_sellcs=None`` builds SELL-C-σ exactly when full-ELL
         padding would exceed SELLCS_AUTO_THRESHOLD x nnz (square
         matrices only); ``build_ell=None`` builds ELL except in that
-        same regime — the reference's auto-build policy."""
-        if build_bsr:
-            raise NotImplementedError(
-                "the BSR layout is not ported yet (ROADMAP.md queue 2: "
-                "bsr_spmm / plap_edge)")
+        same regime — the reference's auto-build policy.  BSR is built
+        only on request (``build_bsr=True``, tiles of ``block_size``)."""
         dev = resolve_device(device)
         tdtype = torch_dtype(dtype)
         np_dtype = numpy_dtype(tdtype)
@@ -173,11 +185,19 @@ class SparseMatrix:
                 build_ell = not (ell_blown_up and build_sellcs)
         if build_ell:
             mat._build_ell(rows, cols, vals, np_dtype, counts, pos_in_row)
+        if build_bsr:
+            mat._build_bsr(rows, cols, vals, block_size, np_dtype)
         if build_sellcs and n_rows > 0:
             mat._build_sellcs(rows, cols, vals, sell_c, sell_sigma, np_dtype,
                               w_align=sell_w_align, counts=counts,
                               pos_in_row=pos_in_row)
         return mat
+
+    @staticmethod
+    def from_scipy(sp, **kw) -> "SparseMatrix":
+        """Build from a scipy sparse matrix; ``kw`` as for from_coo."""
+        sp = sp.tocoo()
+        return SparseMatrix.from_coo(sp.row, sp.col, sp.data, sp.shape, **kw)
 
     # ---- layout builders (host-side) ----
     def _build_ell(self, rows, cols, vals, np_dtype, counts, pos_in_row):
@@ -190,6 +210,46 @@ class SparseMatrix:
         ell_vals[rows, pos_in_row] = vals
         self.ell_cols = torch.as_tensor(ell_cols, device=self.device)
         self.ell_vals = torch.as_tensor(ell_vals, device=self.device)
+
+    def _build_bsr(self, rows, cols, vals, bs: int, np_dtype):
+        """Dense (bs, bs) tiles of every block holding a stored entry,
+        sorted by (row-block, col-block).  Requires the COO triple sorted
+        by (row, col).  The block bookkeeping is host numpy (the
+        reference's); the tiles are allocated in the target dtype on the
+        target device and the values scattered there, so the host holds
+        no (n_blocks, bs, bs) staging copy.  A repeated (row, col) keeps
+        its last value, as the reference's numpy assignment does."""
+        bs = int(bs)
+        if bs < 1:
+            raise ValueError(f"block_size={bs} must be >= 1")
+        n_rb = -(-self.n_rows // bs)
+        n_cb = -(-self.n_cols // bs)
+        block_key = (rows // bs) * n_cb + cols // bs
+        uniq, inv = np.unique(block_key, return_inverse=True)
+        n_blocks = len(uniq)
+        if n_blocks >= 2 ** 31:
+            raise ValueError("BSR layout exceeds 2^31 tiles; the kernels "
+                             "index tiles with int32")
+        u_rb = uniq // n_cb
+        indptr = np.zeros(n_rb + 1, np.int64)
+        np.add.at(indptr, u_rb + 1, 1)
+        indptr = np.cumsum(indptr)
+        last = np.ones(len(rows), bool)           # last of each (row, col)
+        last[:-1] = (rows[1:] != rows[:-1]) | (cols[1:] != cols[:-1])
+        flat = ((inv[last] * bs + rows[last] % bs) * bs + cols[last] % bs)
+        dev = self.device
+        blocks = torch.zeros((n_blocks, bs, bs), dtype=self.dtype,
+                             device=dev)
+        blocks.view(-1)[torch.as_tensor(flat, device=dev)] = torch.as_tensor(
+            np.ascontiguousarray(vals[last]).astype(np_dtype), device=dev)
+        self.block_size = bs
+        self.bsr_indptr = indptr
+        self.bsr_indptr_dev = torch.as_tensor(indptr.astype(np.int32),
+                                              device=dev)
+        self.bsr_indices = torch.as_tensor((uniq % n_cb).astype(np.int32),
+                                           device=dev)
+        self.bsr_blocks = blocks
+        self.bsr_row_ids = torch.as_tensor(u_rb.astype(np.int32), device=dev)
 
     def _build_sellcs(self, rows, cols, vals, C: int, sigma: Optional[int],
                       np_dtype, w_align: int = 1, counts=None,
@@ -298,7 +358,7 @@ class SparseMatrix:
     def with_vals(self, vals: torch.Tensor) -> "SparseMatrix":
         """Same sparsity pattern, new values — (nnz,) or (nnz, k)
         multivalues (Algorithm 1 builds W-hat this way each Newton step).
-        ELL is dropped (it would be stale); SELL-C-σ survives, its
+        ELL and BSR are dropped (they would be stale); SELL-C-σ survives, its
         scatter maps rebuilding the kernel copy's values on the device
         (the per-run ``sell_vals`` wait until they are read)."""
         m = SparseMatrix(n_rows=self.n_rows, n_cols=self.n_cols,
@@ -343,6 +403,12 @@ class SparseMatrix:
         if self.ell_cols is None:
             return float("nan")
         return float(self.ell_cols.shape[0] * self.ell_cols.shape[1]) / max(self.nnz, 1)
+
+    def bsr_fill_ratio(self) -> float:
+        """BSR stored values / nnz (dense-tile zero fill)."""
+        if self.bsr_blocks is None:
+            return float("nan")
+        return float(self.bsr_blocks.numel()) / max(self.nnz, 1)
 
     def sellcs_fill_ratio(self) -> float:
         if self.sell_cols is None:

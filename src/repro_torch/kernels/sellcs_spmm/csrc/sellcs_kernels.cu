@@ -33,8 +33,8 @@
 // deterministic.
 //
 // p and eps are runtime arguments (the Pallas kernels bake them in as
-// static values, which retraces per continuation level).  eps == 0 takes
-// the exact |x|^(p-1) sign(x) branch at run time.  Pads store
+// static values, which retraces per continuation level); phi and phi'
+// live in ../../csrc/phi.cuh, shared with the BSR kernels.  Pads store
 // (col = own row, val = 0): x_i - x_j = 0 there, phi_p(0) = 0, and
 // phi'_p(0) = eps^((p-2)/2) is finite for eps > 0 (about 1.6e3 at
 // p = 1.2, eps = 1e-8); its second term, eps^((p-4)/2) (about 1.6e11,
@@ -45,45 +45,15 @@
 
 #include <cstdint>
 
+#include "phi.cuh"
+
 namespace {
 
 enum Kind { kReals = 0, kApply = 1, kHvp = 2 };
 
-template <typename T>
-struct Ring {
-  T pm1;      // p - 1
-  T pm2;      // p - 2
-  T half2;    // (p - 2) / 2
-  T half4;    // (p - 4) / 2
-  T eps;
-  bool exact;  // eps == 0
-};
-
-__device__ __forceinline__ float pow_t(float b, float e) { return powf(b, e); }
-__device__ __forceinline__ double pow_t(double b, double e) { return pow(b, e); }
-__device__ __forceinline__ float abs_t(float x) { return fabsf(x); }
-__device__ __forceinline__ double abs_t(double x) { return fabs(x); }
-
-template <typename T>
-__device__ __forceinline__ T sign_t(T x) {
-  return T(x > T(0)) - T(x < T(0));
-}
-
-// phi_p(x) = |x|^(p-1) sign(x); smoothed (x^2 + eps)^((p-2)/2) x
-template <typename T>
-__device__ __forceinline__ T phi(T x, const Ring<T>& g) {
-  if (g.exact) return pow_t(abs_t(x), g.pm1) * sign_t(x);
-  return pow_t(x * x + g.eps, g.half2) * x;
-}
-
-// phi'_p(x) = (p-1)|x|^(p-2); smoothed
-// (x^2+eps)^((p-2)/2) + (p-2) x^2 (x^2+eps)^((p-4)/2)
-template <typename T>
-__device__ __forceinline__ T phi_prime(T x, const Ring<T>& g) {
-  if (g.exact) return g.pm1 * pow_t(abs_t(x), g.pm2);
-  const T x2e = x * x + g.eps;
-  return pow_t(x2e, g.half2) + g.pm2 * x * x * pow_t(x2e, g.half4);
-}
+using phi_p::Ring;
+using phi_p::phi;
+using phi_p::phi_prime;
 
 template <typename T, int KIND>
 __global__ void __launch_bounds__(256) sellcs_kernel(
@@ -128,13 +98,7 @@ void launch(const int32_t* slice_ptr, const int32_t* slice_w,
             cudaStream_t stream) {
   const int64_t total = static_cast<int64_t>(n) * k;
   if (total == 0) return;
-  Ring<T> ring;
-  ring.pm1 = static_cast<T>(p - 1.0);
-  ring.pm2 = static_cast<T>(p - 2.0);
-  ring.half2 = static_cast<T>((p - 2.0) / 2.0);
-  ring.half4 = static_cast<T>((p - 4.0) / 2.0);
-  ring.eps = static_cast<T>(eps);
-  ring.exact = eps == 0.0;
+  const Ring<T> ring = phi_p::make_ring<T>(p, eps);
   constexpr int kThreads = 256;
   const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
   sellcs_kernel<T, KIND><<<blocks, kThreads, 0, stream>>>(

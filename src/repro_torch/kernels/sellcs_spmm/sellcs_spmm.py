@@ -33,10 +33,10 @@ import torch
 
 from repro_torch.core import phi as PHI
 
+from repro_torch.kernels.nvcc import BUILD_DIR, CUDA_FLAGS, SHARED_CSRC
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = [_CSRC / "binding.cpp", _CSRC / "sellcs_kernels.cu"]
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "torch_ext"
-CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 # kernel launches per wrapper: incremented where the kernel is launched
 # and nowhere else
@@ -55,7 +55,8 @@ def _extension():
     os.makedirs(BUILD_DIR, exist_ok=True)
     return load(name="repro_torch_sellcs", sources=[str(s) for s in _SOURCES],
                 build_directory=str(BUILD_DIR), extra_cflags=["-O2"],
-                extra_cuda_cflags=CUDA_FLAGS, verbose=False)
+                extra_cuda_cflags=CUDA_FLAGS,
+                extra_include_paths=[str(SHARED_CSRC)], verbose=False)
 
 
 def build() -> float:

@@ -1,0 +1,191 @@
+"""Hierarchical p-spectral solve: coarsest-level continuation, then
+prolong / re-orthonormalize / refine up the hierarchy (port of
+``repro.multilevel.vcycle``).
+
+  1. run the whole flat pipeline (p=2 eigenvectors and the full
+     p-continuation) on the coarsest graph;
+  2. walking back up, prolong U through the partition-of-unity
+     prolongator (one ``api.mxm``), and on the levels with
+     n >= ``refine_top_frac`` x n_finest re-orthonormalize it (thin QR,
+     the Grassmann retraction) and re-run the last ``refine_p_steps``
+     values of the p schedule with a small Newton budget;
+  3. discretize and score on the finest graph, like the flat solver.
+
+Every level is built with the layout the configured backend needs
+(``_layout_kwargs``): with ``backend="edge_pallas"`` or ``"bsr_pallas"``
+each coarse graph gets its BSR tiles, so the refinement on every level
+runs the BSR kernels.  Entry point: ``PSCConfig(multilevel=...)``,
+routed by ``core.psc.p_spectral_cluster``.  ``refine_cluster`` (the
+serve layer's refine-only cycle) waits for ROADMAP.md queue 1, item 13.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.grblas import api
+from repro_torch.grblas.containers import SparseMatrix
+from repro_torch.multilevel.coarsen import build_hierarchy
+
+# solver drivers the port can run on a level
+_PORTED_LEVEL_SOLVERS = (None, "newton")
+
+
+@dataclasses.dataclass(frozen=True)
+class MultilevelConfig:
+    """V-cycle shape: hierarchy caps + per-level refinement budget."""
+
+    coarse_size: int = 2048         # stop coarsening at this many vertices
+    max_levels: int = 12            # hierarchy depth cap (incl. finest)
+    min_reduction: float = 0.9      # stop when a step keeps more than
+                                    # this fraction of the vertices
+    match_rounds: int = 8           # handshake-HEM rounds per level
+    match_max_agg: int = 4          # leaf-joining aggregate size cap
+    refine_newton_iters: int = 5    # RTR iterations per refined level
+    refine_tcg_iters: int = 8       # inner tCG budget during refinement
+    refine_p_steps: int = 2         # tail of the p schedule re-run per
+                                    # refined level
+    coarse_solver: Optional[str] = None   # driver of the coarsest solve
+                                          # (None = the config's own)
+    refine_solver: Optional[str] = None   # driver of the refinements
+    refine_top_frac: float = 0.25   # refine only levels with
+                                    # n >= frac x n_finest
+    sparsify: Any = "auto"          # coarse-level degree cap ("auto" |
+                                    # None | int), coarsen._sparsify_rowcap
+
+
+def coerce(value) -> MultilevelConfig:
+    """A MultilevelConfig from ``PSCConfig.multilevel`` (True means the
+    defaults).  Raises for the solver drivers the port lacks."""
+    ml = value if isinstance(value, MultilevelConfig) else MultilevelConfig()
+    for name in ("coarse_solver", "refine_solver"):
+        solver = getattr(ml, name)
+        if solver not in _PORTED_LEVEL_SOLVERS:
+            raise NotImplementedError(
+                f"MultilevelConfig.{name}={solver!r} is not ported yet "
+                "(ROADMAP.md queue 1, item 10: scf / inverse_power / "
+                "guarded drivers); the port runs 'newton'")
+    return ml
+
+
+def _layout_kwargs(cfg) -> Optional[dict]:
+    """Coarse graphs carry whatever layout the named backend needs;
+    "auto" relies on the from_coo auto policy."""
+    if cfg.backend == "sellcs":
+        return {"build_sellcs": True}
+    if cfg.backend in ("bsr_pallas", "edge_pallas"):
+        return {"build_bsr": True}
+    if cfg.backend == "ell":
+        return {"build_ell": True}
+    return None
+
+
+def _refine_cfg(cfg, ml: MultilevelConfig):
+    return dataclasses.replace(
+        cfg, multilevel=None, newton_iters=ml.refine_newton_iters,
+        tcg_iters=ml.refine_tcg_iters, reorder="none",
+        solver=ml.refine_solver or cfg.solver)
+
+
+def _walk_up(hier, U, cfg, ml: MultilevelConfig, rec: dict):
+    """From the coarsest-level iterate ``U``, prolong through every level
+    and, on levels with n >= refine_top_frac x n_finest, retract and
+    re-run the tail of the p schedule.  ``rec`` collects p_path / fvals /
+    hvps / reports / levels in place; returns the finest orthonormal U."""
+    from repro_torch.core import solvers
+
+    tail = solvers.p_schedule(cfg)[-max(int(ml.refine_p_steps), 1):]
+    refine_cfg = _refine_cfg(cfg, ml)
+    n_fine = hier.levels[0].W.n_rows
+    for lev in range(hier.n_levels - 2, -1, -1):
+        Wl = hier.levels[lev].W
+        U = api.mxm(hier.prolongators[lev], U)        # prolong: (n_lev, k)
+        if Wl.n_rows < ml.refine_top_frac * n_fine:
+            continue
+        refine_cfg.validate_backend(Wl)
+        U = torch.linalg.qr(U)[0]                     # Grassmann retraction
+        for p in tail:
+            res = solvers.minimize_at_p(Wl, U, p, refine_cfg)
+            U = res.U
+            rec["p_path"].append(p)
+            rec["fvals"].append(float(res.fval))
+            rec["hvps"].append(int(res.n_apply))
+            rec["reports"].append(res)
+            rec["levels"].append({
+                "level": lev, "n_levels": hier.n_levels, "n": Wl.n_rows,
+                "nnz": Wl.nnz, "p": p, "fval": float(res.fval),
+                "n_hvp": int(res.n_apply), "iters": int(res.iters),
+                "solver": refine_cfg.solver})
+    return torch.linalg.qr(U)[0]
+
+
+def _finalize(W: SparseMatrix, U, cfg, rec: dict, init_labels, init_rcut,
+              seconds: dict, hierarchy: list):
+    """Finest-level discretization and metrics: the flat solver's stage 3
+    with its final-kmeans generator."""
+    from repro_torch.core import metrics
+    from repro_torch.core import psc as _psc
+
+    t0 = time.perf_counter()
+    _, g_final = _psc.stage_generators(cfg.seed, W.device)
+    labels = _psc.discretize(U, cfg.k, g_final, restarts=cfg.kmeans_restarts,
+                             iters=cfg.kmeans_iters)
+    rcut = float(metrics.rcut(W, labels, cfg.k))
+    ncut = float(metrics.ncut(W, labels, cfg.k))
+    seconds["kmeans"] = time.perf_counter() - t0
+    return _psc.PSCResult(
+        labels=labels.cpu().numpy(), U=U, rcut=rcut, ncut=ncut,
+        p_path=rec["p_path"], fvals=rec["fvals"], hvp_counts=rec["hvps"],
+        init_labels=init_labels, init_rcut=init_rcut, levels=rec["levels"],
+        reports=rec["reports"], stage_seconds=seconds, hierarchy=hierarchy)
+
+
+def multilevel_cluster(W: SparseMatrix, cfg, ml) -> Any:
+    """Run the V-cycle under the flat config ``cfg`` (a PSCConfig whose
+    ``multilevel`` field routed here; ``ml`` is that field).  Returns a PSCResult on W, with
+    the per-level refinement records in ``levels``, the shape of the
+    hierarchy in ``hierarchy`` and host seconds per stage ("hierarchy",
+    "coarse_solve", "walk_up", "kmeans") in ``stage_seconds``."""
+    from repro_torch.core import metrics
+    from repro_torch.core import psc as _psc
+
+    ml = coerce(ml)
+    seconds = {}
+    t0 = time.perf_counter()
+    hier = build_hierarchy(W, coarse_size=ml.coarse_size,
+                           max_levels=ml.max_levels,
+                           min_reduction=ml.min_reduction,
+                           rounds=ml.match_rounds,
+                           layout_kwargs=_layout_kwargs(cfg),
+                           sparsify=ml.sparsify, max_agg=ml.match_max_agg)
+    seconds["hierarchy"] = time.perf_counter() - t0
+    if hier.n_levels == 1:          # nothing to coarsen: flat solve
+        return _psc.p_spectral_cluster(
+            W, dataclasses.replace(cfg, multilevel=None))
+    hierarchy = [{"level": i, "n": lv.W.n_rows, "nnz": lv.W.nnz,
+                  "bsr_tiles": (None if lv.W.bsr_blocks is None
+                                else int(lv.W.bsr_blocks.shape[0]))}
+                 for i, lv in enumerate(hier.levels)]
+
+    # -- coarsest level: the whole flat pipeline; its labels, prolonged,
+    # are the fine graph's init_labels
+    t0 = time.perf_counter()
+    flat_cfg = dataclasses.replace(cfg, multilevel=None,
+                                   solver=ml.coarse_solver or cfg.solver)
+    res_c = _psc.p_spectral_cluster(hier.coarsest.W, flat_cfg)
+    rec = {"p_path": list(res_c.p_path), "fvals": list(res_c.fvals),
+           "hvps": list(res_c.hvp_counts),
+           "reports": list(res_c.reports or []), "levels": []}
+    seconds["coarse_solve"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    U = _walk_up(hier, res_c.U, cfg, ml, rec)
+    init_labels = hier.prolong_labels(np.asarray(res_c.labels))
+    init_rcut = float(metrics.rcut(W, init_labels, cfg.k))
+    seconds["walk_up"] = time.perf_counter() - t0
+    return _finalize(W, U, cfg, rec, init_labels, init_rcut, seconds,
+                     hierarchy)

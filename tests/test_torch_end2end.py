@@ -17,6 +17,7 @@ from repro.graphs import gaussian_blobs_knn, ring_of_cliques, sbm_graph
 from repro_torch import convert
 from repro_torch.core import metrics
 from repro_torch.core.psc import PSCConfig, p_spectral_cluster, spectral_cluster
+from repro_torch.multilevel import MultilevelConfig
 
 # Small CPU problems: intra-op threads only contend with the other test
 # workers.
@@ -76,8 +77,12 @@ def test_spectral_cluster_baseline():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("multilevel", True), ("guard", True), ("validate", True),
-    ("trace", True), ("init_U", np.zeros((4, 2))), ("reorder", "rcm"),
+    pytest.param("multilevel", MultilevelConfig(coarse_solver="scf"),
+                 id="multilevel-coarse_solver_scf"),
+    ("guard", True), ("validate", True),
+    ("trace", True), ("init_U", np.zeros((4, 2))),
+    pytest.param("multilevel", MultilevelConfig(refine_solver="inverse_power"),
+                 id="multilevel-refine_solver_inverse_power"),
     ("solver", "scf")])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -35,7 +35,10 @@ def test_import_repro_torch_loads_no_jax_or_reference():
             "from repro_torch.core import psc, plap, lobpcg, grassmann, "
             "kmeans, metrics\n"
             "from repro_torch.graphs import delaunay_graph\n"
-            "from repro_torch.kernels import sellcs_spmm\n"
+            "from repro_torch.kernels import sellcs_spmm, bsr_spmm, "
+            "plap_edge\n"
+            "from repro_torch.graphs import reorder\n"
+            "from repro_torch.multilevel import multilevel_cluster\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -55,6 +58,15 @@ def test_import_builds_no_extension():
     K = _kernel_module()
 
     assert K._extension.cache_info().currsize == 0
+
+
+@pytest.mark.parametrize("name", ["bsr_spmm", "plap_edge"])
+def test_import_builds_no_nvcc_library(name):
+    import importlib
+
+    lib = importlib.import_module(f"repro_torch.kernels.{name}.{name}").LIBRARY
+    assert lib._lib is None and lib._proc is None
+    assert lib.path.name.startswith(f"{name}-") and lib.path.suffix == ".so"
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -84,3 +96,14 @@ def test_wrappers_take_the_twin_only_for_cpu_tensors():
     meta = X.to("meta")
     with pytest.raises(ValueError):
         K._check(W, meta)
+
+
+def test_bsr_wrappers_take_the_twin_only_for_cpu_tensors():
+    from repro_torch.graphs import ring_of_cliques
+    from repro_torch.kernels.bsr_spmm.bsr_spmm import check_operands
+
+    W, _ = ring_of_cliques(3, 4, device="cpu", build_bsr=True, block_size=4)
+    X = torch.zeros((W.n_rows, 2), dtype=W.vals.dtype)
+    assert check_operands(W, X) is False
+    with pytest.raises(ValueError):
+        check_operands(W, X.to("meta"))
