@@ -44,10 +44,32 @@ Phases, none of which catches its own failure:
      U^T U off I by more than 1e-4, labels missing a cluster, or no
      launch of the two p-Laplacian kernels.  Its RCut next to the flat
      BSR solve's is printed, not asserted.
+  9. dense kernels: flash attention at Gemma-2B's serve shape (B 4,
+     Hq 8, Hkv 1, S 2048, D 256, bf16, causal), at a ragged S = 1000,
+     with window = 512 and at D 128 with group 4, each against fp32 math
+     on the same bf16 inputs (|d| <= 2^-6 (1 + |ref|): bf16 keeps 8
+     significant bits, and the kernel rounds P and O), timed beside the
+     plain version, its bound and ``F.scaled_dot_product_attention`` (a
+     yardstick the port never calls); kmeans_assign on the row-normalized
+     stage-3 input (the final U of the SELL-C-σ matrix_free solve) with
+     8 kmeans++ restarts, labels equal except where the plain version's
+     two nearest centroids tie within 16 ulps, distances to the fp32
+     bound above; and stage 3 (``psc.discretize``) on that U through the
+     plain assignment and through the kernel, in turns.
+ 10. LM serve path: Gemma-2B at full width (2.51 B parameters, fp32
+     params, bf16 compute) with seeded weights on the card; the
+     ServeEngine answers 4 requests of 2048-token prompts with 32 greedy
+     new tokens.  It fails unless the prefill launched flash attention
+     once per layer (18), the last-token prefill logits through the
+     kernel are within 2^-5 relative of the same prefill through the
+     plain attention, and one decode step's logits are within 2^-5
+     relative of a full forward's over the same 2049 tokens.
 
-The line before the last is a JSON object with one entry per kernel, its
-launches summed over the paths' runs (and split by path); the last line
-is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
+Every clustering solve (3, 7, 8) also assigns its kmeans stages through
+``kmeans_assign``, and fails if it did not launch.  The line before the
+last is a JSON object with one entry per kernel, its launches summed
+over the paths' runs (and split by path); the last line is ``{"ok":
+true, "device": {...}}``.  Without a CUDA device, or without
 ``src/repro_torch`` beside this script, it exits non-zero and prints no
 result.
 """
@@ -67,6 +89,9 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+BF16_TOL = 2.0 ** -6           # 4 x bf16's unit roundoff 2^-8
+LM_TOL = 2.0 ** -5             # relative logit error, kernel vs plain
 RTOL, ATOL = 2e-4, 2e-5        # fp32 bounds of the kernel parity tests
 P, EPS = 1.2, 1e-8             # PSCConfig's p_target and eps
 GRAPH_R = 20                   # delaunay_graph(20): n = 1,048,576
@@ -119,9 +144,10 @@ def _layout_bytes(L, itemsize: int) -> int:
                  + L.cols.numel()) + itemsize * L.vals.numel())
 
 
-def _bound(bytes_moved: int, ops: int) -> tuple:
+def _bound(bytes_moved: int, ops: int,
+           ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -379,7 +405,8 @@ def multilevel_phase(W, counters, torch, psc, flat_rcut, args) -> dict:
                         tcg_iters=args.tcg_iters,
                         multilevel=MultilevelConfig())
     launches, res = solve_phase("multilevel[matrix_free]", W, counters,
-                                torch, psc, cfg, ["plap_apply", "plap_hvp"])
+                                torch, psc, cfg,
+                                ["plap_apply", "plap_hvp", "kmeans_assign"])
     if not res.hierarchy or len(res.hierarchy) < 2:
         raise AssertionError("multilevel: the graph was not coarsened")
     for lev in res.hierarchy:
@@ -391,6 +418,270 @@ def multilevel_phase(W, counters, torch, psc, flat_rcut, args) -> dict:
           f"rcut_over_flat_bsr={res.rcut / flat_rcut!r} (recorded, not "
           f"asserted)", flush=True)
     return launches
+
+
+def _visible_pairs(S: int, window) -> int:
+    """(query, key) pairs the causal and window masks leave, Sq = Sk = S."""
+    i = np.arange(S)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(S, int)
+    return int(np.sum(i - lo + 1))
+
+
+def _compare_bf16(name, got, ref32, torch) -> tuple:
+    """The bf16 kernel against fp32 math on the same bf16 inputs:
+    |d| <= 2^-6 (1 + |ref|) at every element."""
+    err = (got.float() - ref32).abs()
+    scaled = float((err / (1 + ref32.abs())).max())
+    max_abs = float(err.max())
+    print(f"{name}: max_abs_err={max_abs!r} max_err/(1+|ref|)={scaled!r} "
+          f"tolerance={BF16_TOL}", flush=True)
+    if not bool(torch.isfinite(got).all()) or not scaled <= BF16_TOL:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             "version")
+    return max_abs, scaled
+
+
+def flash_kernel_phase(torch) -> dict:
+    """Flash attention against its plain version at the serve shape and
+    three variants; returns the kernel's row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as KF
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shapes = [  # (tag, B, Hq, Hkv, S, D, window)
+        ("serve", 4, 8, 1, 2048, 256, None),
+        ("ragged_S1000", 4, 8, 1, 1000, 256, None),
+        ("window512", 4, 8, 1, 2048, 256, 512),
+        ("D128_group4", 4, 8, 2, 2048, 128, None)]
+    out = []
+    for tag, B, Hq, Hkv, S, D, window in shapes:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda",
+                               dtype=torch.bfloat16)
+                   for shape in ((B, Hq, S, D), (B, Hkv, S, D),
+                                 (B, Hkv, S, D)))
+        got = KF.flash_attention(q, k, v, causal=True, window=window)
+        ref32 = KF.attention_ref(q.float(), k.float(), v.float(),
+                                 causal=True, window=window)
+        err = _compare_bf16(f"flash_attention[{tag}]", got, ref32, torch)
+        plain = KF.plain_attention(q, k, v, causal=True, window=window)
+        err_plain = float((got.float() - plain.float()).abs().max())
+        del ref32, plain
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True, enable_gqa=True)
+        else:
+            i = torch.arange(S, device="cuda")
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - window)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask, enable_gqa=True)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4 * B * Hq * D * _visible_pairs(S, window)
+        bound = _bound(nbytes, flops, BF16_OPS_PER_S)
+        row = dict(shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, D=D, window=window,
+                              dtype="bfloat16", causal=True),
+                   max_abs_err=err[0], max_rel_err=err[1],
+                   max_abs_err_vs_bf16_plain=err_plain,
+                   ms=_time_ms(lambda: KF.flash_attention(
+                       q, k, v, causal=True, window=window)),
+                   plain_ms=_time_ms(lambda: KF.plain_attention(
+                       q, k, v, causal=True, window=window), 3, 3),
+                   bound_ms=bound[0], bound_by=bound[1], gflop=flops / 1e9,
+                   library_ms=_time_ms(lib))
+        print(f"flash_attention[{tag}]: kernel_ms={row['ms']!r} "
+              f"plain_ms={row['plain_ms']!r} bound_ms={row['bound_ms']!r} "
+              f"({row['bound_by']}, {row['gflop']!r} GFLOP) "
+              f"sdpa_ms={row['library_ms']!r} "
+              f"|kernel-bf16 plain|={err_plain!r}", flush=True)
+        out.append((tag, row))
+        del q, k, v
+    serve = out[0][1]
+    row = _row("flash_attention",
+               "src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+               "src/repro/kernels/flash_attention/flash_attention.py:74",
+               (serve["max_abs_err"], serve["max_rel_err"]), serve["ms"],
+               serve["plain_ms"], (serve["bound_ms"], serve["bound_by"]),
+               serve["library_ms"])
+    row["shape"] = serve["shape"]
+    row["variants"] = {tag: r for tag, r in out[1:]}
+    return row
+
+
+def kmeans_kernel_phase(U, torch, psc) -> dict:
+    """kmeans_assign on the stage-3 input with 8 kmeans++ restarts, and
+    stage 3 through the plain assignment and through the kernel."""
+    from unittest import mock
+
+    from repro_torch.core import kmeans as KM
+    from repro_torch.kernels import kmeans_assign as KK
+
+    X = U / torch.clamp(torch.linalg.norm(U, dim=1, keepdim=True), min=1e-12)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    C = KM._plusplus_init(gen, X, U.shape[1], 8)            # (8, 4, 4)
+    lab, dist = KK.kmeans_assign(X, C)
+    want_lab, want_dist = KK.kmeans_assign_ref(X, C)
+    err = _compare("kmeans_assign", dist, want_dist)
+    scale = float((X * X).sum(1).max() + (C * C).sum(-1).max())
+    top2 = KK.pairwise_sqdist(X, C).topk(2, dim=-1, largest=False).values
+    tie = (top2[..., 1] - top2[..., 0]) <= 16 * 2.0 ** -23 * scale
+    diff = lab != want_lab
+    print(f"kmeans_assign: label differences={int(diff.sum())} (at ties "
+          f"{int((diff & tie).sum())}) of {lab.numel()}", flush=True)
+    if bool((diff & ~tie).any()):
+        raise AssertionError("kmeans_assign: labels differ off a tie")
+    R, n, kc, d = C.shape[0], X.shape[0], C.shape[1], X.shape[1]
+    nbytes = 4 * (X.numel() + C.numel() + 2 * R * n)
+    ops = R * n * kc * (2 * d + 4) + 2 * n * d
+    row = _row("kmeans_assign",
+               "src/repro_torch/kernels/kmeans_assign/csrc/kmeans_assign.cu",
+               "src/repro/kernels/kmeans_assign/kmeans_assign.py:35", err,
+               _time_ms(lambda: KK.kmeans_assign(X, C)),
+               _time_ms(lambda: KK.kmeans_assign_ref(X, C), 3, 5),
+               _bound(nbytes, ops), None)
+    # distances near 0 make |d| / |plain| meaningless: the error relative
+    # to the largest term the identity cancels instead
+    row["max_rel_err"] = err[0] / scale
+    row["shape"] = dict(n=n, d=d, restarts=R, kc=kc, dtype="float32")
+    _print_rows([row])
+
+    def stage3():
+        t0 = time.perf_counter()
+        psc.discretize(U, kc, torch.Generator(device="cuda").manual_seed(4))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    plain = mock.patch.object(KM, "kmeans_assign", KK.kmeans_assign_ref)
+    seconds = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        if which == "plain":
+            with plain:
+                seconds[which].append(stage3())
+        else:
+            seconds[which].append(stage3())
+    row["stage3_s"] = seconds
+    print(f"stage 3 (discretize, 8 restarts x 50 Lloyd steps) seconds: "
+          f"{seconds}", flush=True)
+    return row
+
+
+def _profile(tag, fn, torch, reps: int) -> None:
+    """Device busy share of ``reps`` calls and the kernels that take the
+    most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"{tag}: {reps} calls wall_ms={window_ms!r} device_ms={device_ms!r}"
+          f" busy_share={device_ms / window_ms!r} "
+          f"kernel_launches={sum(e.count for e in kernels)}", flush=True)
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    for e in kernels[:8]:
+        print(f"{tag}:   {e.self_device_time_total / 1e3 / reps!r} ms/call "
+              f"x{e.count / reps} {e.key[:90]}", flush=True)
+
+
+def lm_serve_phase(torch, counters) -> tuple:
+    """Gemma-2B at full width through the ServeEngine; returns (launch
+    counts of the served run, summary)."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.serve import GenerationConfig, ServeEngine
+
+    cfg = get_config("gemma-2b")
+    B, S, new = 4, 2048, 32
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"lm_serve: {cfg.name} n_layers={cfg.n_layers} "
+          f"d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+          f"head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.padded_vocab} params={n_params} "
+          f"({cfg.params_dtype}, compute {cfg.compute_dtype}) "
+          f"init_s={time.perf_counter() - t0!r}", flush=True)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)
+    engine = ServeEngine(cfg, params, max_len=S + new)
+    engine.generate(prompts, GenerationConfig(max_new_tokens=2))  # warm-up
+    for K in counters:
+        K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, GenerationConfig(max_new_tokens=new))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c for K in counters for name, c in K.LAUNCHES.items()}
+    t = engine.timing
+    summary = dict(
+        requests=B, prompt_len=S, new_tokens=new, generated=int(out.size),
+        wall_s=wall, prefill_s=t["prefill_s"],
+        decode_ms_per_token=t["decode_s"] / t["decode_steps"] * 1e3,
+        decode_steps=t["decode_steps"], tokens_per_s=out.size / wall,
+        prompt_tokens_per_s=B * S / t["prefill_s"],
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        flash_launches=launches["flash_attention"])
+    print(f"lm_serve: {summary}", flush=True)
+    print(f"lm_serve: first request's tokens {out[0].tolist()}", flush=True)
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"lm_serve: {launches['flash_attention']} "
+                             f"flash launches, not {cfg.n_layers}")
+    if not ((out >= 0) & (out < cfg.vocab)).all():
+        raise AssertionError("lm_serve: token ids out of the vocabulary")
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    tok = torch.as_tensor(prompts, device="cuda")
+    with torch.no_grad():
+        lk, cache, pos = M.prefill(cfg, params, tok, S + new)
+        with mock.patch.object(ATT, "flash_attention", KF.plain_attention):
+            lp, _, _ = M.prefill(cfg, params, tok, S + new)
+        nxt = torch.argmax(lk[:, -1], dim=-1)[:, None].to(torch.int32)
+        ld, _ = M.decode_step(cfg, params, cache, nxt, torch.full(
+            (B, 1), pos, dtype=torch.int32, device="cuda"))
+        x, _ = M.forward_train(cfg, params, torch.cat([tok, nxt], dim=1))
+        lf = L.unembed_logits(params["embed"], x[:, -1:],
+                              real_vocab=cfg.vocab)
+    checks = dict(
+        prefill_rel_err_kernel_vs_plain=rel(lk, lp),
+        prefill_argmax_equal=int((lk.argmax(-1) == lp.argmax(-1)).sum()),
+        decode_rel_err_vs_full_forward=rel(ld, lf),
+        decode_argmax_equal=int((ld.argmax(-1) == lf.argmax(-1)).sum()),
+        tolerance=LM_TOL, logits_finite=bool(torch.isfinite(lk).all()
+                                             and torch.isfinite(ld).all()))
+    summary.update(checks)
+    print(f"lm_serve checks: {checks}", flush=True)
+    if not (checks["logits_finite"]
+            and checks["prefill_rel_err_kernel_vs_plain"] <= LM_TOL
+            and checks["decode_rel_err_vs_full_forward"] <= LM_TOL):
+        raise AssertionError("lm_serve: logits off their plain versions")
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device="cuda")
+    _profile("lm_serve decode step", lambda: M.decode_step(
+        cfg, params, cache, nxt, positions), torch, reps=3)
+    _profile("lm_serve prefill", lambda: M.prefill(
+        cfg, params, tok, S + new), torch, reps=1)
+    del params, engine, cache
+    torch.cuda.empty_cache()
+    return launches, summary
 
 
 def main() -> int:
@@ -414,10 +705,12 @@ def main() -> int:
     from repro_torch.grblas import SparseMatrix
     from repro_torch.kernels import bsr_spmm as KB
     from repro_torch.kernels import build_all
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import kmeans_assign as KK
     from repro_torch.kernels import plap_edge as KP
     from repro_torch.kernels import sellcs_spmm as K
 
-    counters = (K, KB, KP)
+    counters = (K, KB, KP, KK, KF)
     phase_s = {}
     t_phase = time.perf_counter()
 
@@ -455,7 +748,7 @@ def main() -> int:
     phase_done("sellcs_kernels")
     by_path, final_U = {}, {}
     for mode in ("graphblas", "matrix_free"):
-        used = ["sellcs_spmm", "sellcs_plap_apply"]
+        used = ["sellcs_spmm", "sellcs_plap_apply", "kmeans_assign"]
         if mode == "matrix_free":
             used.append("sellcs_plap_hvp")
         by_path[f"sellcs/{mode}"], res = flat_phase(
@@ -473,6 +766,7 @@ def main() -> int:
                                build_bsr=True, block_size=BLOCK,
                                device="cuda")
     torch.cuda.synchronize()
+    stage3_U = final_U["matrix_free"]
     del W, final_U
     nb = int(Wb.bsr_blocks.shape[0])
     print(f"bsr graph: n={Wb.n_rows} nnz={Wb.nnz} block_size={BLOCK} "
@@ -487,7 +781,7 @@ def main() -> int:
     phase_done("bsr_kernels")
     flat_rcut, final_U = None, {}
     for mode in ("graphblas", "matrix_free"):
-        used = ["bsr_spmm", "plap_apply"]
+        used = ["bsr_spmm", "plap_apply", "kmeans_assign"]
         if mode == "matrix_free":
             used.append("plap_hvp")
         by_path[f"bsr/{mode}"], res = flat_phase(
@@ -501,13 +795,27 @@ def main() -> int:
     by_path["multilevel_bsr/matrix_free"] = multilevel_phase(
         Wb, counters, torch, psc, flat_rcut, args)
     phase_done("multilevel_bsr_path")
+    del Wb
+    torch.cuda.empty_cache()
+
+    # ---- dense slice: flash attention, kmeans_assign, Gemma-2B serving
+    rows.append(kmeans_kernel_phase(stage3_U, torch, psc))
+    rows.append(flash_kernel_phase(torch))
+    phase_done("dense_kernels")
+    by_path["lm_serve"], lm = lm_serve_phase(torch, counters)
+    phase_done("lm_serve")
 
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+    print(f"kmeans_assign launches per solve: "
+          f"{ {p: c['kmeans_assign'] for p, c in by_path.items()} }",
+          flush=True)
     print(f"phase_seconds={phase_s} total_s={sum(phase_s.values())!r}",
           flush=True)
+    print(smi, flush=True)           # again, near the end of the output
+    print(json.dumps({"lm_serve": lm}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

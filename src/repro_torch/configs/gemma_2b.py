@@ -1,0 +1,19 @@
+"""Gemma-2B: GeGLU, head_dim=256, MQA (kv=1). [arXiv:2403.08295; hf]"""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="gemma-2b",
+    family="dense",
+    n_layers=18,
+    d_model=2048,
+    n_heads=8,
+    n_kv_heads=1,
+    head_dim=256,
+    d_ff=16384,
+    vocab=256000,
+    act="gelu",
+    gated=True,              # GeGLU
+    embed_scale=True,        # gemma multiplies embeddings by sqrt(d)
+    tie_embeddings=True,
+    rope_theta=10000.0,
+)

@@ -4,12 +4,13 @@ The tests feed both packages identical inputs through here: a host COO
 triple (what ``repro``'s ``SparseMatrix.host_coo()`` returns) with its
 shape and layout keyword arguments becomes a port ``SparseMatrix``, and
 start blocks, eigenvector guesses and centroids (``U0``, ``X0``, ``C0``)
-become tensors.  Nothing here imports ``repro``: the inputs are numpy
-arrays, whichever package made them.
+become tensors, and the reference's LM parameter tree becomes the
+port's ``state_dict`` (``lm_state_dict``).  Nothing here imports
+``repro``: the inputs are numpy arrays, whichever package made them.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -40,3 +41,40 @@ def tensor(a, *, device: DeviceLike = None, dtype=None) -> torch.Tensor:
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """Host numpy copy of a tensor."""
     return t.detach().cpu().numpy()
+
+
+def lm_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's LM ``state_dict`` from the reference's parameter tree
+    (nested dicts of arrays).  The reference stacks the blocks of a
+    layer scan on a leading axis (``params["blocks"]["attn"]["wq"]`` is
+    (L, d, H, hd)); the port holds one block per layer, so layer i's
+    leaf becomes ``blocks.i.attn.wq``.  Dtypes are kept."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping, prefix: str, layer=None):
+        for name, sub in tree.items():
+            if isinstance(sub, Mapping):
+                walk(sub, f"{prefix}{name}.", layer)
+                continue
+            a = np.asarray(sub)
+            a = np.array(a if layer is None else a[layer])   # a copy
+            out[f"{prefix}{name}"] = torch.from_numpy(a)
+
+    for name, sub in params.items():
+        if name == "blocks":
+            n = np.shape(next(_leaves(sub)))[0]
+            for i in range(n):
+                walk(sub, f"{name}.{i}.", i)
+        elif isinstance(sub, Mapping):
+            walk(sub, f"{name}.")
+        else:
+            out[name] = torch.from_numpy(np.array(sub))
+    return out
+
+
+def _leaves(tree: Mapping):
+    for sub in tree.values():
+        if isinstance(sub, Mapping):
+            yield from _leaves(sub)
+        else:
+            yield sub

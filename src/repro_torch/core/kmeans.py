@@ -1,11 +1,17 @@
 """k-means discretization of the spectral coordinates.
 
-Port of ``repro.core.kmeans``: d(x, c) = ||x||^2 + ||c||^2 - 2 x.c as one
-matmul, argmin assignment (ties go to the lowest index), kmeans++
-seeding, fixed-iteration Lloyd with empty clusters re-seeded at the
-farthest point, and several restarts keeping the best inertia.  The
-reference ``vmap``s its restarts; here they are a written-out leading
-batch dimension, and ``jax.random`` keys are a ``torch.Generator``.
+Port of ``repro.core.kmeans``: d(x, c) = ||x||^2 + ||c||^2 - 2 x.c,
+argmin assignment (ties go to the lowest index), kmeans++ seeding,
+fixed-iteration Lloyd with empty clusters re-seeded at the farthest
+point, and several restarts keeping the best inertia.  The reference
+``vmap``s its restarts; here they are a written-out leading batch
+dimension, and ``jax.random`` keys are a ``torch.Generator``.
+
+Every distance-and-argmin goes through the fused ``kmeans_assign`` op:
+on the card its kernel takes all restarts' centroids in one launch and
+writes only the labels and the min distance, never the (R, n, k)
+distances; on the CPU it is the plain version, the arithmetic this
+module always had.
 """
 from __future__ import annotations
 
@@ -13,19 +19,15 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.kmeans_assign import kmeans_assign, pairwise_sqdist
 
-def pairwise_sqdist(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
-    """(..., n, k_cent) squared distances via the matmul identity; C may
-    carry leading batch dimensions."""
-    xx = torch.sum(X * X, dim=-1, keepdim=True)
-    cc = torch.sum(C * C, dim=-1)[..., None, :]
-    return torch.clamp(xx + cc - 2.0 * (X @ C.transpose(-1, -2)), min=0.0)
+__all__ = ["pairwise_sqdist", "assign", "lloyd", "kmeans"]
 
 
 def assign(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
-    """Nearest centroid; torch.argmin returns the first (lowest) index
-    among equal minima."""
-    return torch.argmin(pairwise_sqdist(X, C), dim=-1)
+    """Nearest centroid (int32 labels; the lowest index among equal
+    minima)."""
+    return kmeans_assign(X, C)[0]
 
 
 def _plusplus_init(gen: torch.Generator, X: torch.Tensor, k: int,
@@ -35,10 +37,8 @@ def _plusplus_init(gen: torch.Generator, X: torch.Tensor, k: int,
     first = torch.randint(0, n, (restarts,), generator=gen, device=X.device)
     C = X[first][:, None, :].repeat(1, k, 1)
     for i in range(1, k):
-        d2 = pairwise_sqdist(X, C)                            # (R, n, k)
-        mask = torch.arange(k, device=X.device)[None, None, :] < i
-        dmin = torch.min(torch.where(mask, d2, torch.full_like(d2, float("inf"))),
-                         dim=-1).values                       # (R, n)
+        # distance to the nearest of the first i centroids
+        dmin = kmeans_assign(X, C[:, :i])[1]                 # (R, n)
         probs = dmin / torch.clamp(torch.sum(dmin, dim=-1, keepdim=True),
                                    min=1e-30)
         probs = torch.where(torch.sum(probs, dim=-1, keepdim=True) > 0, probs,
@@ -54,25 +54,24 @@ def lloyd(X: torch.Tensor, C0: torch.Tensor, iters: int = 50
     independent runs.  Returns (labels, centroids, inertia)."""
     k = C0.shape[-2]
     C = C0
+    cent = torch.arange(k, device=X.device)
     for _ in range(iters):
-        d2 = pairwise_sqdist(X, C)                            # (..., n, k)
-        a = torch.argmin(d2, dim=-1)
-        onehot = torch.nn.functional.one_hot(a, k).to(X.dtype)
+        a, dmin = kmeans_assign(X, C)                         # (..., n)
+        onehot = (a[..., None] == cent).to(X.dtype)           # (..., n, k)
         counts = torch.sum(onehot, dim=-2)                    # (..., k)
         sums = onehot.transpose(-1, -2) @ X                   # (..., k, d)
         newC = sums / torch.clamp(counts[..., None], min=1.0)
-        far = X[torch.argmax(torch.min(d2, dim=-1).values, dim=-1)]  # (..., d)
+        far = X[torch.argmax(dmin, dim=-1)]                   # (..., d)
         C = torch.where(counts[..., None] > 0, newC, far[..., None, :])
-    d2 = pairwise_sqdist(X, C)
-    a = torch.argmin(d2, dim=-1)
-    inertia = torch.sum(torch.min(d2, dim=-1).values, dim=-1)
+    a, dmin = kmeans_assign(X, C)
+    inertia = torch.sum(dmin, dim=-1)
     return a, C, inertia
 
 
 def kmeans(gen: torch.Generator, X: torch.Tensor, k: int, restarts: int = 8,
            iters: int = 50) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Multi-restart kmeans++: (labels (n,), centroids (k,d))."""
+    """Multi-restart kmeans++: (labels (n,) int64, centroids (k,d))."""
     C0 = _plusplus_init(gen, X, k, restarts)
     labels, Cs, inertias = lloyd(X, C0, iters)
     best = int(torch.argmin(inertias))
-    return labels[best], Cs[best]
+    return labels[best].long(), Cs[best]

@@ -38,9 +38,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """A torch dtype from a torch dtype, a numpy dtype or its name."""
+    """A torch dtype from a torch dtype, a numpy dtype or its name
+    (including "bfloat16", which numpy does not know)."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    if isinstance(dtype, str) and isinstance(getattr(torch, dtype, None),
+                                             torch.dtype):
+        return getattr(torch, dtype)
     return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
 
 

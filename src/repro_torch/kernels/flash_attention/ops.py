@@ -1,0 +1,64 @@
+"""Public attention entry point, the counterpart of the reference's
+``kernels/flash_attention/ops.py::flash_attention``.
+
+``flash_attention(q, k, v, causal=True, window=None)`` takes q
+(B, Hq, S, D) and k, v (B, Hkv, S, D) and returns (B, Hq, S, D).  A CUDA
+tensor goes to the hand-written kernel (``flash_attention_cuda``); a CPU
+tensor to the plain version, ``attention_ref`` up to S = 1024 and the
+query-chunked ``attention_ref_chunked`` above, as the reference's jnp
+path does; any other device raises.  It is differentiable: the forward
+is wrapped in a ``torch.autograd.Function`` whose backward recomputes
+through ``attention_ref``, as the reference's ``custom_vjp`` does.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention.flash_attention import (
+    check_operands, flash_attention_cuda)
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     attention_ref_chunked)
+
+CHUNKED_ABOVE = 1024     # the plain version chunks queries above this S
+
+
+def plain_attention(q, k, v, causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """The plain version the op runs for CPU tensors."""
+    if q.shape[2] > CHUNKED_ABOVE:
+        return attention_ref_chunked(q, k, v, causal=causal, window=window)
+    return attention_ref(q, k, v, causal=causal, window=window)
+
+
+def _forward(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
+    check_operands(q, k, v, window)
+    if q.device.type == "cpu":
+        return plain_attention(q, k, v, causal, window)
+    return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal, window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = attention_ref(*leaves, causal=ctx.causal,
+                                window=ctx.window)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None)
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """(B, Hq, S, D) attention output in q's dtype."""
+    return _FlashAttention.apply(q, k, v, causal, window)

@@ -1,13 +1,16 @@
-"""Each CUDA kernel of the port (SELL-C-σ and BSR) against its plain
-PyTorch twin, on the GPU.  Imports neither JAX nor the reference, so it runs on a GPU host
-that has only PyTorch:
+"""Each CUDA kernel of the port (SELL-C-σ, BSR, flash attention and the
+kmeans assignment) against its plain PyTorch twin, on the GPU.  Imports
+neither JAX nor the reference, so it runs on a GPU host that has only
+PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Every test here is marked ``cuda`` and skips without a CUDA device.
 Tolerances: fp64 to 1e-12; fp32 to rtol 2e-4 / atol 2e-5, the bounds of
 the CPU parity tests (the kernels sum in their own order, the twins
-pairwise)."""
+pairwise).  Flash attention in fp32 to 1e-5, in bf16 to 2^-6 (1 + |ref|)
+against fp32 math on the same inputs; kmeans distances to 8 ulps of the
+largest term their identity cancels."""
 import importlib
 
 import numpy as np
@@ -195,3 +198,192 @@ def test_cuda_pipeline_runs_through_the_bsr_kernels(cuda_device, multilevel):
     assert KP.LAUNCHES["plap_apply"] > 0 and KP.LAUNCHES["plap_hvp"] > 0
     if not multilevel:       # stage 1 on a BSR-and-COO graph: bsr_pallas
         assert KB.LAUNCHES["bsr_spmm"] > 0
+
+
+# ---------------------------------------------- flash attention, kmeans_assign
+
+KF = importlib.import_module(
+    "repro_torch.kernels.flash_attention.flash_attention")
+KK = importlib.import_module(
+    "repro_torch.kernels.kmeans_assign.kmeans_assign")
+
+
+def _bf16_close(got, want):
+    """bf16 keeps 8 significant bits (unit roundoff 2^-8); the kernel
+    rounds P and O to bf16 and the reference is fp32 math on the same
+    bf16 inputs, so |kernel - reference| <= 2^-6 (1 + |reference|)."""
+    err = (got.float() - want).abs() / (1 + want.abs())
+    assert bool(torch.isfinite(got).all())
+    assert float(err.max()) <= 2 ** -6, float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,causal,window", [
+    (2, 8, 1, 256, 256, True, None),      # Gemma's MQA at head_dim 256
+    (1, 8, 2, 200, 128, True, None),      # ragged S, GQA
+    (2, 4, 4, 129, 64, False, None),
+    (1, 4, 2, 300, 32, True, 50),         # sliding window
+    (1, 2, 1, 77, 16, False, 20),
+    (1, 2, 1, 1, 256, True, None),
+])
+def test_cuda_flash_matches_plain(cuda_device, dtype, B, Hq, Hkv, S, D,
+                                  causal, window):
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(S + D)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+               for shape in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    before = KF.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                         window=window)
+    torch.cuda.synchronize()
+    assert KF.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        np.testing.assert_allclose(convert.to_numpy(got),
+                                   convert.to_numpy(want), rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        _bf16_close(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_gradient_recomputes_through_the_plain_version(
+        cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    leaves = [torch.randn(s, generator=gen, device=cuda_device,
+                          dtype=torch.float64).float().requires_grad_()
+              for s in ((1, 4, 40, 16), (1, 2, 40, 16), (1, 2, 40, 16))]
+    flash_attention(*leaves, causal=True).square().sum().backward()
+    cpu = [t.detach().cpu().requires_grad_() for t in leaves]
+    flash_attention(*cpu, causal=True).square().sum().backward()
+    for a, b in zip(leaves, cpu):
+        np.testing.assert_allclose(convert.to_numpy(a.grad),
+                                   b.grad.numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wrapper_rejects_bad_operands(cuda_device):
+    q = torch.zeros((1, 2, 16, 32), device=cuda_device, dtype=torch.bfloat16)
+    k = torch.zeros((1, 1, 16, 32), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        KF.flash_attention_cuda(q.transpose(2, 3).contiguous()
+                                .transpose(2, 3), k, k)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        KF.flash_attention_cuda(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="head dim"):
+        KF.flash_attention_cuda(q[..., :12].contiguous(),
+                                k[..., :12].contiguous(),
+                                k[..., :12].contiguous())
+    big = torch.zeros((1, 2, 4, 264), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        KF.flash_attention_cuda(big, big[:, :1].contiguous(),
+                                big[:, :1].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        KF.flash_attention_cuda(q.cpu(), k.cpu(), k.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,d,kc,R", [(1 << 16, 4, 4, 8), (1000, 5, 7, 3),
+                                      (333, 64, 128, 1), (257, 16, 1, 2)])
+def test_cuda_kmeans_assign_matches_plain(cuda_device, dtype, n, d, kc, R):
+    from repro_torch.kernels.kmeans_assign import (kmeans_assign,
+                                                   kmeans_assign_ref,
+                                                   pairwise_sqdist)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(n + d)
+    X = torch.randn((n, d), generator=gen, device=cuda_device, dtype=dtype)
+    C = torch.randn((R, kc, d), generator=gen, device=cuda_device,
+                    dtype=dtype)
+    before = KK.LAUNCHES["kmeans_assign"]
+    lab, dist = kmeans_assign(X, C)
+    want_lab, want_dist = kmeans_assign_ref(X, C)
+    torch.cuda.synchronize()
+    assert KK.LAUNCHES["kmeans_assign"] == before + 1
+    assert lab.dtype == torch.int32 and lab.shape == (R, n)
+    # 8 ulps of the largest term the identity cancels
+    eps = torch.finfo(dtype).eps
+    scale = float((X * X).sum(1).max() + (C * C).sum(-1).max())
+    np.testing.assert_allclose(convert.to_numpy(dist),
+                               convert.to_numpy(want_dist), rtol=0,
+                               atol=8 * eps * scale)
+    # labels agree except where the two nearest centroids tie to that
+    if kc > 1:
+        top2 = pairwise_sqdist(X, C).topk(2, dim=-1, largest=False).values
+        tie = (top2[..., 1] - top2[..., 0]) <= 16 * eps * scale
+        assert not bool(((lab != want_lab) & ~tie).any())
+    lab1, dist1 = kmeans_assign(X, C[0])
+    assert torch.equal(lab1, lab[0]) and torch.equal(dist1, dist[0])
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_assign_rejects_bad_operands(cuda_device):
+    X = torch.zeros((10, 4), device=cuda_device)
+    with pytest.raises(ValueError, match="at most 128"):
+        KK.kmeans_assign_cuda(X, torch.zeros((129, 4), device=cuda_device))
+    wide = torch.zeros((10, 65), device=cuda_device)
+    with pytest.raises(ValueError, match="at most 64"):
+        KK.kmeans_assign_cuda(wide, wide[:2].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        KK.kmeans_assign_cuda(torch.zeros((4, 10), device=cuda_device).T,
+                              torch.zeros((2, 4), device=cuda_device))
+    with pytest.raises(ValueError, match="CUDA"):
+        KK.kmeans_assign_cuda(X.cpu(), torch.zeros((2, 4)))
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_launches_kmeans_assign_in_stage_3(cuda_device):
+    """Both kmeans stages (the p=2 start's and the final discretization)
+    assign through the kernel: per stage, k - 1 kmeans++ steps and
+    iters + 1 Lloyd assignments."""
+    from repro_torch.core.metrics import clustering_accuracy
+    from repro_torch.core.psc import PSCConfig, p_spectral_cluster
+    from repro_torch.graphs import ring_of_cliques
+
+    W, truth = ring_of_cliques(4, 300, device=cuda_device, build_sellcs=True)
+    KK.reset_launch_counts()
+    cfg = PSCConfig(k=4, p_target=1.4, newton_iters=10, tcg_iters=8,
+                    hvp_mode="matrix_free", backend="sellcs")
+    res = p_spectral_cluster(W, cfg)
+    assert clustering_accuracy(res.labels, truth, 4) == 1.0
+    assert KK.LAUNCHES["kmeans_assign"] == 2 * (cfg.kmeans_iters + 1
+                                                + cfg.k - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_cuda_engine_runs_through_the_flash_kernel(cuda_device,
+                                                   compute_dtype):
+    """A reduced Gemma-2B served on the card: one flash launch per layer
+    per prefill, and the greedy tokens of the CPU engine on the same
+    weights (fp32; in bf16, the prefill logits within 2^-6 relative)."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.serve import GenerationConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_reduced_config("gemma-2b"),
+                              compute_dtype=compute_dtype)
+    P = M.init_params(cfg, seed=1, device=cuda_device)
+    Pc = M.init_params(cfg, seed=1, device="cpu")
+    Pc.load_state_dict({k: v.cpu() for k, v in P.state_dict().items()})
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 150))
+    gen = GenerationConfig(max_new_tokens=5)
+    KF.reset_launch_counts()
+    out = ServeEngine(cfg, P, max_len=160).generate(prompts, gen)
+    assert KF.LAUNCHES["flash_attention"] == cfg.n_layers
+    if compute_dtype == "float32":
+        np.testing.assert_array_equal(
+            out, ServeEngine(cfg, Pc, max_len=160).generate(prompts, gen))
+    else:
+        tok = torch.as_tensor(prompts)
+        got = M.prefill(cfg, P, tok.to(cuda_device), 160)[0].float().cpu()
+        want = M.prefill(cfg, Pc, tok, 160)[0].float()
+        assert float((got - want).norm() / want.norm()) <= 2 ** -6

@@ -39,6 +39,12 @@ def test_import_repro_torch_loads_no_jax_or_reference():
             "plap_edge\n"
             "from repro_torch.graphs import reorder\n"
             "from repro_torch.multilevel import multilevel_cluster\n"
+            "from repro_torch.kernels import kmeans_assign, "
+            "flash_attention\n"
+            "from repro_torch.configs import get_config\n"
+            "from repro_torch.models import model, attention, layers\n"
+            "from repro_torch.serve import ServeEngine\n"
+            "from repro_torch.launch import serve\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -60,7 +66,8 @@ def test_import_builds_no_extension():
     assert K._extension.cache_info().currsize == 0
 
 
-@pytest.mark.parametrize("name", ["bsr_spmm", "plap_edge"])
+@pytest.mark.parametrize("name", ["bsr_spmm", "plap_edge", "kmeans_assign",
+                                  "flash_attention"])
 def test_import_builds_no_nvcc_library(name):
     import importlib
 
@@ -107,3 +114,28 @@ def test_bsr_wrappers_take_the_twin_only_for_cpu_tensors():
     assert check_operands(W, X) is False
     with pytest.raises(ValueError):
         check_operands(W, X.to("meta"))
+
+
+def test_dense_ops_take_the_plain_version_only_for_cpu_tensors():
+    """flash_attention and kmeans_assign run their plain versions for CPU
+    tensors and raise for a device that has no kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.kmeans_assign import kmeans_assign
+
+    q = torch.zeros((1, 2, 4, 8))
+    assert flash_attention(q, q, q).device.type == "cpu"
+    X = torch.zeros((5, 2))
+    assert kmeans_assign(X, X[:2])[0].device.type == "cpu"
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        kmeans_assign(X.to("meta"), X[:2].to("meta"))
+
+
+def test_lm_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import model as M
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.init_params(get_reduced_config("gemma-2b"))
