@@ -8,8 +8,8 @@ Phases, none of which catches its own failure:
   1. device: the card's name and power limit (nvidia-smi), the torch and
      CUDA versions, then the build of every kernel from the checkout's
      sources into ``build/torch_ext`` (``repro_torch.kernels.build_all``:
-     the two nvcc libraries of the BSR kernels compile while the
-     SELL-C-σ extension builds).
+     the five nvcc libraries compile at once while the SELL-C-σ
+     extension builds).
   2. SELL-C-σ kernels: on ``delaunay_graph(20)`` (n = 2^20, SELL-C-σ with
      C=32) and k=4 fp32 multivectors, each kernel's wrapper against its
      plain PyTorch version on the card, with the tolerance of the fp32
@@ -29,11 +29,13 @@ Phases, none of which catches its own failure:
   5. BSR graph: the same triangulation as BSR with 128 x 128 tiles and
      COO only (no ELL, no SELL-C-σ); its tile count, fill and bytes.
   6. BSR kernels: the three BSR kernels against their plain versions
-     (which process tiles in chunks) at full size, fp32, k=4, with the
-     same tolerance; their times, bounds and, for ``bsr_spmm``, the time
-     of ``torch.sparse_bsr_tensor(...) @ X`` on the same tiles (a
-     yardstick the port never calls) and a second check at k=24, the
-     width of stage 1's LOBPCG block.
+     (which process tiles in chunks) at full size, fp32, with the same
+     tolerance; their times and bounds.  ``bsr_spmm`` at every width the
+     main path gives it: k=4 and stage 1's LOBPCG matvec (8 columns) and
+     [X, R, P] block (24), each also against
+     ``torch.sparse_bsr_tensor(...) @ X`` on the same tiles (a yardstick
+     the port never calls, timed beside it), and two runs of one call
+     equal bit for bit.  The φ kernels at k=4.
   7. BSR path: ``PSCConfig(k=4, backend="edge_pallas")`` in both HVP
      modes with the checks of phase 3 (stage 1 runs on ``bsr_pallas``,
      the graph having no other reals layout), then the breakdown of
@@ -46,11 +48,14 @@ Phases, none of which catches its own failure:
      BSR solve's is printed, not asserted.
   9. dense kernels: flash attention at Gemma-2B's serve shape (B 4,
      Hq 8, Hkv 1, S 2048, D 256, bf16, causal), at a ragged S = 1000,
-     with window = 512 and at D 128 with group 4, each against fp32 math
-     on the same bf16 inputs (|d| <= 2^-6 (1 + |ref|): bf16 keeps 8
-     significant bits, and the kernel rounds P and O), timed beside the
-     plain version, its bound and ``F.scaled_dot_product_attention`` (a
-     yardstick the port never calls); kmeans_assign on the row-normalized
+     with window = 512 and at D 128 with group 4 (all four on the wgmma
+     kernel), then the mma.sync kernel at D 32 and the fp32 kernel at
+     D 128, each against fp32 math on the same inputs (bf16:
+     |d| <= 2^-6 (1 + |ref|): bf16 keeps 8 significant bits, and the
+     kernel rounds P and O; fp32: the parity tolerance), each printed
+     with the kernel that served it and timed beside the plain version,
+     its bound and ``F.scaled_dot_product_attention`` (a yardstick the
+     port never calls); kmeans_assign on the row-normalized
      stage-3 input (the final U of the SELL-C-σ matrix_free solve) with
      8 kmeans++ restarts, labels equal except where the plain version's
      two nearest centroids tie within 16 ulps, distances to the fp32
@@ -59,8 +64,8 @@ Phases, none of which catches its own failure:
  10. LM serve path: Gemma-2B at full width (2.51 B parameters, fp32
      params, bf16 compute) with seeded weights on the card; the
      ServeEngine answers 4 requests of 2048-token prompts with 32 greedy
-     new tokens.  It fails unless the prefill launched flash attention
-     once per layer (18), the last-token prefill logits through the
+     new tokens.  It fails unless the prefill launched the wgmma flash
+     kernel once per layer (18), the last-token prefill logits through the
      kernel are within 2^-5 relative of the same prefill through the
      plain attention, and one decode step's logits are within 2^-5
      relative of a full forward's over the same 2049 tokens.
@@ -68,7 +73,8 @@ Phases, none of which catches its own failure:
 Every clustering solve (3, 7, 8) also assigns its kmeans stages through
 ``kmeans_assign``, and fails if it did not launch.  The line before the
 last is a JSON object with one entry per kernel, its launches summed
-over the paths' runs (and split by path); the last line is ``{"ok":
+over the paths' runs (and split by path, and for ``bsr_spmm`` by
+width), and the card's name and power limit; the last line is ``{"ok":
 true, "device": {...}}``.  Without a CUDA device, or without
 ``src/repro_torch`` beside this script, it exits non-zero and prints no
 result.
@@ -93,6 +99,8 @@ BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 BF16_TOL = 2.0 ** -6           # 4 x bf16's unit roundoff 2^-8
 LM_TOL = 2.0 ** -5             # relative logit error, kernel vs plain
 RTOL, ATOL = 2e-4, 2e-5        # fp32 bounds of the kernel parity tests
+SPMM_WIDTHS = (4, 8, 24)       # bsr_spmm's widths: the k = 4 multivectors,
+                               # LOBPCG's matvec (8) and [X, R, P] block (24)
 P, EPS = 1.2, 1e-8             # PSCConfig's p_target and eps
 GRAPH_R = 20                   # delaunay_graph(20): n = 1,048,576
 BLOCK = 128                    # the reference's default BSR tile
@@ -239,7 +247,9 @@ def sellcs_kernel_phase(W, K, torch) -> list:
 
 
 def bsr_kernel_phase(W, KB, KP, torch) -> list:
-    """Each BSR kernel against its chunked plain version at full size."""
+    """Each BSR kernel against its chunked plain version at full size;
+    ``bsr_spmm`` at every width the main path gives it (4; LOBPCG's 8 and
+    24), each beside ``torch.sparse_bsr_tensor(...) @ X``."""
     n, k, item = W.n_rows, 4, 4
     nb, bs = int(W.bsr_blocks.shape[0]), W.block_size
     terms = nb * bs * bs * k
@@ -251,33 +261,47 @@ def bsr_kernel_phase(W, KB, KP, torch) -> list:
     gen, X, U, E = _inputs(n, torch)
     rows = []
 
-    err = _compare("bsr_spmm", KB.bsr_spmm(W, X), KB.bsr_spmm_plain(W, X))
-    # LOBPCG's [X, R, P] block: the widest multivector of stage 1
-    S = torch.randn((n, 24), generator=gen, device="cuda")
-    err_s = _compare("bsr_spmm k=24", KB.bsr_spmm(W, S),
-                     KB.bsr_spmm_plain(W, S))
-    block = dict(k=24, max_abs_err=err_s[0], max_rel_err=err_s[1],
-                 ms=_time_ms(lambda: KB.bsr_spmm(W, S)),
-                 plain_ms=_time_ms(lambda: KB.bsr_spmm_plain(W, S), 3, 3))
-    block["bound_ms"], block["bound_by"] = _bound(
-        layout + 2 * n * 24 * item, OPS["reals"] * nb * bs * bs * 24)
-    del S
     n_rb = len(W.bsr_indptr) - 1
     n_cb = -(-W.n_cols // bs)
     lib = torch.sparse_bsr_tensor(W.bsr_indptr_dev, W.bsr_indices,
                                   W.bsr_blocks, (n_rb * bs, n_cb * bs))
-    Xp = torch.nn.functional.pad(X, (0, 0, 0, n_cb * bs - n))
-    _compare("bsr_spmm vs torch.sparse_bsr_tensor @ X", KB.bsr_spmm(W, X),
-             (lib @ Xp)[:n])
+    widths = {}
+    for kw in SPMM_WIDTHS:
+        S = X if kw == k else torch.randn((n, kw), generator=gen,
+                                          device="cuda")
+        got = KB.bsr_spmm(W, S)
+        err = _compare(f"bsr_spmm k={kw}", got, KB.bsr_spmm_plain(W, S))
+        Sp = torch.nn.functional.pad(S, (0, 0, 0, n_cb * bs - n))
+        _compare(f"bsr_spmm k={kw} vs torch.sparse_bsr_tensor @ X", got,
+                 (lib @ Sp)[:n])
+        if not torch.equal(got, KB.bsr_spmm(W, S)):
+            raise AssertionError(f"bsr_spmm k={kw}: two runs differ")
+        bound = _bound(layout + 2 * n * kw * item,
+                       OPS["reals"] * nb * bs * bs * kw)
+        widths[kw] = dict(
+            max_abs_err=err[0], max_rel_err=err[1],
+            ms=_time_ms(lambda: KB.bsr_spmm(W, S)),
+            plain_ms=_time_ms(lambda: KB.bsr_spmm_plain(W, S), 3, 3),
+            bound_ms=bound[0], bound_by=bound[1],
+            library_ms=_time_ms(lambda: lib @ Sp))
+        print(f"bsr_spmm k={kw}: kernel_ms={widths[kw]['ms']!r} "
+              f"twin_ms={widths[kw]['plain_ms']!r} "
+              f"bound_ms={bound[0]!r} ({bound[1]}) "
+              f"library_ms={widths[kw]['library_ms']!r} "
+              f"(torch.sparse_bsr_tensor @ X)", flush=True)
+        del S, Sp
+    # the row's own numbers at LOBPCG's widest block, where stage 1
+    # spends the most; every width beside them
+    main = widths[max(SPMM_WIDTHS)]
     rows.append(_row(
         "bsr_spmm", "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
-        "src/repro/kernels/bsr_spmm/bsr_spmm.py:46", err,
-        _time_ms(lambda: KB.bsr_spmm(W, X)),
-        _time_ms(lambda: KB.bsr_spmm_plain(W, X), 3, 3),
-        _bound(layout + 2 * dense_bytes, OPS["reals"] * terms),
-        _time_ms(lambda: lib @ Xp)))
-    rows[-1]["lobpcg_block"] = block
-    del lib, Xp
+        "src/repro/kernels/bsr_spmm/bsr_spmm.py:46",
+        (main["max_abs_err"], main["max_rel_err"]), main["ms"],
+        main["plain_ms"], (main["bound_ms"], main["bound_by"]),
+        main["library_ms"]))
+    rows[-1]["k"] = max(SPMM_WIDTHS)
+    rows[-1]["widths"] = widths
+    del lib
 
     src = "src/repro_torch/kernels/plap_edge/csrc/plap_edge.cu"
     ref = "src/repro/kernels/plap_edge/plap_edge.py"
@@ -314,6 +338,9 @@ def solve_phase(tag, W, counters, torch, psc, cfg, used) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: c for K in counters for name, c in K.LAUNCHES.items()}
+    launches["bsr_spmm_by_width"] = {
+        kw: c for K in counters
+        for kw, c in getattr(K, "LAUNCHES_BY_WIDTH", {}).items()}
     orth = _orthonormality(res.U, torch)
     print(f"{tag}: wall_s={wall!r} stage_s={res.stage_seconds} "
           f"init_rcut={res.init_rcut!r} rcut={res.rcut!r} ncut={res.ncut!r} "
@@ -443,27 +470,43 @@ def _compare_bf16(name, got, ref32, torch) -> tuple:
 
 def flash_kernel_phase(torch) -> dict:
     """Flash attention against its plain version at the serve shape and
-    three variants; returns the kernel's row."""
+    three variants (all on the wgmma kernel), then the mma.sync and fp32
+    kernels at shapes routed to them; returns the row of the kernel the
+    serve path runs."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as KF
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    shapes = [  # (tag, B, Hq, Hkv, S, D, window)
-        ("serve", 4, 8, 1, 2048, 256, None),
-        ("ragged_S1000", 4, 8, 1, 1000, 256, None),
-        ("window512", 4, 8, 1, 2048, 256, 512),
-        ("D128_group4", 4, 8, 2, 2048, 128, None)]
+    shapes = [  # (tag, B, Hq, Hkv, S, D, window, dtype)
+        ("serve", 4, 8, 1, 2048, 256, None, torch.bfloat16),
+        ("ragged_S1000", 4, 8, 1, 1000, 256, None, torch.bfloat16),
+        ("window512", 4, 8, 1, 2048, 256, 512, torch.bfloat16),
+        ("D128_group4", 4, 8, 2, 2048, 128, None, torch.bfloat16),
+        # the kernels of the other routes: a head dim off wgmma's (the
+        # reduced test configs' 16 and 32), and fp32
+        ("mma_D32", 4, 8, 2, 2048, 32, None, torch.bfloat16),
+        ("f32_D128", 1, 8, 2, 2048, 128, None, torch.float32)]
     out = []
-    for tag, B, Hq, Hkv, S, D, window in shapes:
+    for tag, B, Hq, Hkv, S, D, window, dtype in shapes:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda",
-                               dtype=torch.bfloat16)
+                               dtype=dtype)
                    for shape in ((B, Hq, S, D), (B, Hkv, S, D),
                                  (B, Hkv, S, D)))
+        variant = KF.kernel_variant(dtype, D, S)
+        name = f"flash_attention_{variant}"
+        before = KF.LAUNCHES[name]
         got = KF.flash_attention(q, k, v, causal=True, window=window)
+        if KF.LAUNCHES[name] != before + 1:
+            raise AssertionError(f"flash_attention[{tag}]: {name} did not "
+                                 "launch")
         ref32 = KF.attention_ref(q.float(), k.float(), v.float(),
                                  causal=True, window=window)
-        err = _compare_bf16(f"flash_attention[{tag}]", got, ref32, torch)
+        if dtype == torch.float32:
+            err = _compare(f"flash_attention[{tag}] ({variant})", got, ref32)
+        else:
+            err = _compare_bf16(f"flash_attention[{tag}] ({variant})", got,
+                                ref32, torch)
         plain = KF.plain_attention(q, k, v, causal=True, window=window)
         err_plain = float((got.float() - plain.float()).abs().max())
         del ref32, plain
@@ -476,34 +519,38 @@ def flash_kernel_phase(torch) -> dict:
                                                  - window)
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, attn_mask=mask, enable_gqa=True)
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        item = q.element_size()
+        nbytes = item * (2 * q.numel() + k.numel() + v.numel())
         flops = 4 * B * Hq * D * _visible_pairs(S, window)
-        bound = _bound(nbytes, flops, BF16_OPS_PER_S)
+        bound = _bound(nbytes, flops, BF16_OPS_PER_S
+                       if dtype == torch.bfloat16 else FP32_OPS_PER_S)
         row = dict(shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, D=D, window=window,
-                              dtype="bfloat16", causal=True),
-                   max_abs_err=err[0], max_rel_err=err[1],
-                   max_abs_err_vs_bf16_plain=err_plain,
+                              dtype=str(dtype).split(".")[-1], causal=True),
+                   variant=variant, max_abs_err=err[0], max_rel_err=err[1],
+                   max_abs_err_vs_plain=err_plain,
                    ms=_time_ms(lambda: KF.flash_attention(
                        q, k, v, causal=True, window=window)),
                    plain_ms=_time_ms(lambda: KF.plain_attention(
                        q, k, v, causal=True, window=window), 3, 3),
                    bound_ms=bound[0], bound_by=bound[1], gflop=flops / 1e9,
                    library_ms=_time_ms(lib))
-        print(f"flash_attention[{tag}]: kernel_ms={row['ms']!r} "
-              f"plain_ms={row['plain_ms']!r} bound_ms={row['bound_ms']!r} "
-              f"({row['bound_by']}, {row['gflop']!r} GFLOP) "
-              f"sdpa_ms={row['library_ms']!r} "
-              f"|kernel-bf16 plain|={err_plain!r}", flush=True)
+        print(f"flash_attention[{tag}]: kernel={variant} "
+              f"kernel_ms={row['ms']!r} plain_ms={row['plain_ms']!r} "
+              f"bound_ms={row['bound_ms']!r} ({row['bound_by']}, "
+              f"{row['gflop']!r} GFLOP) sdpa_ms={row['library_ms']!r} "
+              f"|kernel-plain|={err_plain!r}", flush=True)
         out.append((tag, row))
         del q, k, v
     serve = out[0][1]
     row = _row("flash_attention",
                "src/repro_torch/kernels/flash_attention/csrc/"
-               "flash_attention.cu",
+               "flash_attention_wgmma.cu",
                "src/repro/kernels/flash_attention/flash_attention.py:74",
                (serve["max_abs_err"], serve["max_rel_err"]), serve["ms"],
                serve["plain_ms"], (serve["bound_ms"], serve["bound_by"]),
                serve["library_ms"])
+    # the serve path's kernel; its launches are read from this counter
+    row["counter"] = "flash_attention_wgmma"
     row["shape"] = serve["shape"]
     row["variants"] = {tag: r for tag, r in out[1:]}
     return row
@@ -638,12 +685,13 @@ def lm_serve_phase(torch, counters) -> tuple:
         decode_steps=t["decode_steps"], tokens_per_s=out.size / wall,
         prompt_tokens_per_s=B * S / t["prefill_s"],
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-        flash_launches=launches["flash_attention"])
+        flash_launches=launches["flash_attention_wgmma"])
     print(f"lm_serve: {summary}", flush=True)
     print(f"lm_serve: first request's tokens {out[0].tolist()}", flush=True)
-    if launches["flash_attention"] != cfg.n_layers:
-        raise AssertionError(f"lm_serve: {launches['flash_attention']} "
-                             f"flash launches, not {cfg.n_layers}")
+    if launches["flash_attention_wgmma"] != cfg.n_layers:
+        raise AssertionError(f"lm_serve: {launches['flash_attention_wgmma']}"
+                             f" launches of the wgmma flash kernel, not "
+                             f"{cfg.n_layers}")
     if not ((out >= 0) & (out < cfg.vocab)).all():
         raise AssertionError("lm_serve: token ids out of the vocabulary")
 
@@ -806,9 +854,13 @@ def main() -> int:
     phase_done("lm_serve")
 
     for row in rows:
-        row["launches_by_path"] = {p: c[row["name"]]
-                                   for p, c in by_path.items()}
+        counter = row.get("counter", row["name"])
+        row["launches_by_path"] = {p: c[counter] for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+        if row["name"] == "bsr_spmm":
+            row["launches_by_width"] = {p: c["bsr_spmm_by_width"]
+                                        for p, c in by_path.items()
+                                        if c.get("bsr_spmm_by_width")}
     print(f"kmeans_assign launches per solve: "
           f"{ {p: c['kmeans_assign'] for p, c in by_path.items()} }",
           flush=True)
@@ -816,7 +868,7 @@ def main() -> int:
           flush=True)
     print(smi, flush=True)           # again, near the end of the output
     print(json.dumps({"lm_serve": lm}), flush=True)
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": rows, "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

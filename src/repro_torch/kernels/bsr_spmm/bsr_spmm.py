@@ -4,15 +4,16 @@
 
 ``csrc/bsr_spmm.cu`` replaces the reference's Pallas
 ``bsr_spmm_pallas``.  The wrapper takes a SparseMatrix with the BSR
-layout built and an (n_cols, k) multivector and returns (n_rows, k).
-For CUDA tensors it launches the kernel (one launch per column window
-that fits the kernel's shared memory — one window for every k the
-pipeline uses — each counted in ``LAUNCHES``) or raises; it never falls
-back.  For CPU tensors it runs the plain version ``bsr_spmm_plain``:
-the multivector zero-padded to whole blocks, then ``bsr_spmm_ref``, the
-port of the reference's ``kernels/bsr_spmm/ref.py``.
+layout built (tiles of at most 128 x 128 for the kernel) and an
+(n_cols, k) multivector and returns (n_rows, k).  For CUDA tensors it
+launches the kernel, one launch per column window of ``spmm_windows``
+(one window for every k the pipeline uses: 4, 8 and 24), each counted
+in ``LAUNCHES``, or raises; it never falls back.  For CPU tensors it
+runs the plain version ``bsr_spmm_plain``: the multivector zero-padded
+to whole blocks, then ``bsr_spmm_ref``, the port of the reference's
+``kernels/bsr_spmm/ref.py``.
 
-The operand checks, the column windows and the padding here are shared
+The operand checks, ``column_windows`` and the padding here are shared
 with ``kernels/plap_edge``.  The library is built with nvcc at first
 CUDA use (``build``/``start_build``) into ``build/torch_ext/``;
 importing this module builds nothing.
@@ -21,28 +22,36 @@ from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Iterator, Tuple
+from typing import Dict, Iterator, Tuple
 
 import torch
 
-from repro_torch.kernels.nvcc import I32, PTR, NvccLibrary, check
+from repro_torch.kernels.nvcc import I32, I64, PTR, NvccLibrary, check
 
 LIBRARY = NvccLibrary(
     "bsr_spmm", Path(__file__).resolve().parent / "csrc" / "bsr_spmm.cu",
     {"bsr_spmm_launch": (I32, [I32, I32, PTR, PTR, PTR, PTR, PTR, I32, I32,
-                               I32, I32, I32, I32, I32, PTR])})
+                               I32, I32, I32, I32, I32, I32, I64, PTR])})
 
 # kernel launches per wrapper: incremented where the kernel is launched
-# and nowhere else
+# and nowhere else; the same launches by the window's column count
 LAUNCHES = {"bsr_spmm": 0}
+LAUNCHES_BY_WIDTH: Dict[int, int] = {}
 
 # shared memory one thread block may use on Hopper (bytes)
 SMEM_LIMIT = 232448
+# the SpMM kernel's tiles: 32 lanes of a warp x at most 4 rows each
+MAX_BLOCK = 128
+# the window widths the SpMM kernel is compiled for (its register tile's
+# columns); a window of kc columns runs on the narrowest width >= kc
+SPMM_WIDTHS = {torch.float32: (4, 8, 16, 24, 32),
+               torch.float64: (2, 4, 8, 16)}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_WIDTH.clear()
 
 
 def start_build() -> None:
@@ -135,6 +144,18 @@ def column_windows(A, k: int, buffers: int) -> Iterator[Tuple[int, int]]:
         yield c0, min(width, k - c0)
 
 
+def spmm_windows(k: int, dtype: torch.dtype) -> list:
+    """(c0, kc, width) launches of the SpMM kernel over k columns: windows
+    of the widest compiled width, the last one on the narrowest width
+    that holds it."""
+    widths = SPMM_WIDTHS[dtype]
+    out = []
+    for c0 in range(0, k, widths[-1]):
+        kc = min(widths[-1], k - c0)
+        out.append((c0, kc, min(w for w in widths if w >= kc)))
+    return out
+
+
 def launch_args(A, *tensors):
     """(device index, pointers of the layout and the tensors) and the
     current stream, for ctypes."""
@@ -149,14 +170,19 @@ def bsr_spmm(A, X: torch.Tensor) -> torch.Tensor:
     """Reals-ring SpMM over A's BSR tiles."""
     if not check_operands(A, X):
         return bsr_spmm_plain(A, X)
+    if A.block_size > MAX_BLOCK:
+        raise ValueError(f"block_size={A.block_size}: the bsr_spmm kernel "
+                         f"takes tiles of at most {MAX_BLOCK}")
     lib = LIBRARY.load()
     k = X.shape[1]
     Y = torch.empty((A.n_rows, k), dtype=X.dtype, device=X.device)
     args, stream = launch_args(A, X, Y)
-    for c0, kc in column_windows(A, k, buffers=2):
+    for c0, kc, width in spmm_windows(k, X.dtype):
         code = lib.bsr_spmm_launch(
             int(X.dtype == torch.float64), *args, len(A.bsr_indptr) - 1,
-            A.n_rows, A.n_cols, A.block_size, k, c0, kc, stream)
+            A.n_rows, A.n_cols, A.block_size, k, c0, kc, width,
+            int(A.bsr_blocks.shape[0]), stream)
         check(lib, code, "bsr_spmm")
         LAUNCHES["bsr_spmm"] += 1
+        LAUNCHES_BY_WIDTH[kc] = LAUNCHES_BY_WIDTH.get(kc, 0) + 1
     return Y

@@ -1,7 +1,6 @@
-// One kernel skeleton over the BSR layout (containers._build_bsr), shared
-// by bsr_spmm/csrc/bsr_spmm.cu and plap_edge/csrc/plap_edge.cu.
+// One kernel skeleton over the BSR layout (containers._build_bsr), used by
+// plap_edge/csrc/plap_edge.cu (bsr_spmm/csrc/bsr_spmm.cu has its own).
 //
-//   kReals  y_i = sum_j w_ij x_j                          (bsr_spmm)
 //   kApply  y_i = sum_j w_ij phi_p(x_i - x_j)             (plap_apply)
 //   kHvp    y_i = sum_j w_ij phi'_p(u_i - u_j) (e_i - e_j) (plap_hvp)
 //
@@ -42,7 +41,7 @@
 
 namespace bsr_tiles {
 
-enum Kind { kReals = 0, kApply = 1, kHvp = 2 };
+enum Kind { kApply = 1, kHvp = 2 };
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -52,7 +51,7 @@ constexpr int kColChunk = 4;
 // neighbour slice, X's own rows, E's neighbour slice, E's own rows
 template <int KIND>
 constexpr int staged_buffers() {
-  return KIND == kReals ? 2 : (KIND == kApply ? 3 : 5);
+  return KIND == kApply ? 3 : 5;
 }
 
 template <typename T>
@@ -66,9 +65,7 @@ __device__ __forceinline__ T warp_sum(T v) {
 template <typename T, int KIND>
 __device__ __forceinline__ T term(T w, T xi, T xj, T ei, T ej,
                                   const phi_p::Ring<T>& ring) {
-  if constexpr (KIND == kReals) {
-    return w * xj;
-  } else if constexpr (KIND == kApply) {
+  if constexpr (KIND == kApply) {
     return w * phi_p::phi(xi - xj, ring);
   } else {
     return w * phi_p::phi_prime(xi - xj, ring) * (ei - ej);
@@ -94,13 +91,11 @@ __global__ void __launch_bounds__(kThreads) tile_kernel(
 
   for (int t = threadIdx.x; t < bk; t += kThreads) {
     ys[t] = T(0);
-    if constexpr (KIND != kReals) {
-      const int r = t / kc;
-      const int64_t g = (row0 + r) * ld + c0 + (t - r * kc);
-      const bool in = row0 + r < n_x;
-      xr[t] = in ? X[g] : T(0);
-      if constexpr (KIND == kHvp) er[t] = in ? E[g] : T(0);
-    }
+    const int r = t / kc;
+    const int64_t g = (row0 + r) * ld + c0 + (t - r * kc);
+    const bool in = row0 + r < n_x;
+    xr[t] = in ? X[g] : T(0);
+    if constexpr (KIND == kHvp) er[t] = in ? E[g] : T(0);
   }
 
   const int32_t b_end = indptr[blockIdx.x + 1];
@@ -129,8 +124,8 @@ __global__ void __launch_bounds__(kThreads) tile_kernel(
           for (int q = 0; q < kColChunk; ++q) {
             const int c = cb + q;
             if (c < kc) {
-              T xi = T(0), ei = T(0), ej = T(0);
-              if constexpr (KIND != kReals) xi = xr[i * kc + c];
+              const T xi = xr[i * kc + c];
+              T ei = T(0), ej = T(0);
               if constexpr (KIND == kHvp) {
                 ei = er[i * kc + c];
                 ej = ec[c * bs + j];

@@ -29,7 +29,8 @@ CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 _NVCC_FLAGS = CUDA_FLAGS + ["-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
 
 # ctypes argument codes of the C interfaces
-PTR, I32, F64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_double
+PTR, I32, I64, F64 = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
+                      ctypes.c_double)
 
 
 def _nvcc() -> str:

@@ -128,6 +128,7 @@ def test_cuda_bsr_kernels_match_twins(cuda_device, dtype, p, bs):
                     dtype=tdt)                # LOBPCG's [X, R, P] width
     eps = 1e-8
     before = dict(KB.LAUNCHES, **KP.LAUNCHES)
+    windows = len(KB.spmm_windows(4, tdt)) + len(KB.spmm_windows(24, tdt))
     pairs = [(KB.bsr_spmm(W, U), KB.bsr_spmm_plain(W, U)),
              (KB.bsr_spmm(W, S), KB.bsr_spmm_plain(W, S)),
              (KP.plap_apply(W, U, p, eps), KP.plap_apply_plain(W, U, p, eps)),
@@ -138,14 +139,14 @@ def test_cuda_bsr_kernels_match_twins(cuda_device, dtype, p, bs):
         np.testing.assert_allclose(convert.to_numpy(got),
                                    convert.to_numpy(want), **TOL[dtype])
     assert float(pairs[0][0][0].abs().max()) == 0.0     # isolated vertex 0
-    assert KB.LAUNCHES["bsr_spmm"] == before["bsr_spmm"] + 2
+    assert KB.LAUNCHES["bsr_spmm"] == before["bsr_spmm"] + windows
     assert KP.LAUNCHES["plap_apply"] == before["plap_apply"] + 1
     assert KP.LAUNCHES["plap_hvp"] == before["plap_hvp"] + 1
 
 
 @pytest.mark.cuda
 def test_cuda_bsr_spmm_column_windows_and_rectangular(cuda_device):
-    """A multivector too wide for one launch's shared memory runs in
+    """A multivector wider than the kernel's widest register tile runs in
     column windows (one launch each); a rectangular matrix masks its
     ragged column block."""
     rng = np.random.default_rng(1)
@@ -157,10 +158,58 @@ def test_cuda_bsr_spmm_column_windows_and_rectangular(cuda_device):
     X = torch.randn(450, 120, device=cuda_device, dtype=torch.float64)
     before = KB.LAUNCHES["bsr_spmm"]
     got = KB.bsr_spmm(W, X)
-    assert KB.LAUNCHES["bsr_spmm"] == before + 2     # 113 + 7 columns
+    windows = KB.spmm_windows(120, torch.float64)   # 7 x 16 + 8 columns
+    assert len(windows) > 1
+    assert KB.LAUNCHES["bsr_spmm"] == before + len(windows)
     np.testing.assert_allclose(convert.to_numpy(got),
                                convert.to_numpy(KB.bsr_spmm_plain(W, X)),
                                **TOL[np.float64])
+
+
+def _graph_with_empty_row_block(n, bs, seed=0):
+    """_graph's pattern without any entry in rows [bs, 2 bs): a row-block
+    with no tiles, written as zeros."""
+    (rows, cols, vals), shape = _graph(n, seed)
+    keep = (rows < bs) | (rows >= 2 * bs)
+    return (rows[keep], cols[keep], vals[keep]), shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("bs", [32, 128])
+@pytest.mark.parametrize("k", [1, 4, 8, 24, 120])
+def test_cuda_bsr_spmm_widths_match_plain_and_repeat_bitwise(cuda_device,
+                                                             dtype, bs, k):
+    """Every width the main path uses (4, 8, 24), one column, and a
+    multivector cut into windows; one launch per window of the plan, and
+    the same call twice gives the same bits (no atomics)."""
+    coo, shape = _graph_with_empty_row_block(1000, bs)
+    W = convert.sparse_matrix(coo, shape, device=cuda_device, dtype=dtype,
+                              build_bsr=True, block_size=bs)
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    X = torch.randn(shape[0], k, generator=gen, device=cuda_device,
+                    dtype=W.vals.dtype)
+    before = KB.LAUNCHES["bsr_spmm"]
+    got = KB.bsr_spmm(W, X)
+    again = KB.bsr_spmm(W, X)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["bsr_spmm"] == \
+        before + 2 * len(KB.spmm_windows(k, X.dtype))
+    assert torch.equal(got, again)
+    assert float(got[bs:2 * bs].abs().max()) == 0.0     # no tiles there
+    np.testing.assert_allclose(convert.to_numpy(got),
+                               convert.to_numpy(KB.bsr_spmm_plain(W, X)),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_bsr_spmm_rejects_tiles_above_128(cuda_device):
+    coo, shape = _graph(300)
+    W = convert.sparse_matrix(coo, shape, device=cuda_device,
+                              dtype=np.float32, build_bsr=True,
+                              block_size=256)
+    with pytest.raises(ValueError, match="at most 128"):
+        KB.bsr_spmm(W, torch.zeros(shape[0], 4, device=cuda_device))
 
 
 @pytest.mark.cuda
@@ -235,12 +284,13 @@ def test_cuda_flash_matches_plain(cuda_device, dtype, B, Hq, Hkv, S, D,
     gen = torch.Generator(device=cuda_device).manual_seed(S + D)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
                for shape in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
-    before = KF.LAUNCHES["flash_attention"]
+    name = f"flash_attention_{KF.kernel_variant(dtype, D)}"
+    before = KF.LAUNCHES[name]
     got = flash_attention(q, k, v, causal=causal, window=window)
     want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
                          window=window)
     torch.cuda.synchronize()
-    assert KF.LAUNCHES["flash_attention"] == before + 1
+    assert KF.LAUNCHES[name] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     if dtype == torch.float32:
         np.testing.assert_allclose(convert.to_numpy(got),
@@ -248,6 +298,46 @@ def test_cuda_flash_matches_plain(cuda_device, dtype, B, Hq, Hkv, S, D,
                                    atol=1e-5)
     else:
         _bf16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,B,Hq,Hkv,S,causal,window", [
+    (256, 2, 8, 1, 1000, True, None),     # Gemma-2B: MQA, group 8, ragged
+    (256, 1, 4, 1, 77, True, 50),         # group 4, window
+    (256, 1, 7, 1, 1, True, None),        # group 7, one token
+    (256, 1, 2, 2, 200, False, None),     # group 1, non-causal
+    (128, 2, 8, 2, 1000, True, 512),      # group 4, window 512
+    (128, 1, 14, 2, 200, True, None),     # group 7
+    (128, 1, 8, 1, 77, False, None),      # group 8, non-causal
+    (128, 1, 3, 3, 1, True, None),        # group 1, one token
+    (64, 1, 14, 2, 1000, True, None),     # InternVL2: group 7
+    (64, 2, 4, 4, 200, True, 50),         # group 1, window
+    (64, 1, 8, 1, 77, True, 512),         # group 8, window past S
+    (64, 1, 16, 4, 1, False, None),       # group 4, one token
+    (256, 1, 16, 1, 129, True, None),     # group 16, one row past a tile
+])
+def test_cuda_flash_wgmma_matches_fp32_math(cuda_device, D, B, Hq, Hkv, S,
+                                            causal, window):
+    """The wgmma kernel (bf16, D in {64, 128, 256}) at every group the
+    port's configs use, ragged S, windows and non-causal masks."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+
+    assert KF.kernel_variant(torch.bfloat16, D) == "wgmma"
+    gen = torch.Generator(device=cuda_device).manual_seed(S + D + Hq)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               .to(torch.bfloat16)
+               for shape in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    before = dict(KF.LAUNCHES)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                         window=window)
+    torch.cuda.synchronize()
+    assert KF.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"] + 1
+    assert KF.LAUNCHES["flash_attention_mma"] == before["flash_attention_mma"]
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _bf16_close(got, want)
 
 
 @pytest.mark.cuda
@@ -378,7 +468,7 @@ def test_cuda_engine_runs_through_the_flash_kernel(cuda_device,
     gen = GenerationConfig(max_new_tokens=5)
     KF.reset_launch_counts()
     out = ServeEngine(cfg, P, max_len=160).generate(prompts, gen)
-    assert KF.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert sum(KF.LAUNCHES.values()) == cfg.n_layers
     if compute_dtype == "float32":
         np.testing.assert_array_equal(
             out, ServeEngine(cfg, Pc, max_len=160).generate(prompts, gen))
