@@ -35,7 +35,13 @@ Phases, none of which catches its own failure:
      [X, R, P] block (24), each also against
      ``torch.sparse_bsr_tensor(...) @ X`` on the same tiles (a yardstick
      the port never calls, timed beside it), and two runs of one call
-     equal bit for bit.  The φ kernels at k=4.
+     equal bit for bit.  The φ kernels at k=4: the share of stored entries
+     that are zero and the non-zeros per tile; both kernels in skip mode
+     (the main path's), two runs of one call equal bit for bit; a NaN in
+     one row-block of U giving NaN exactly where the plain versions do;
+     ``plap_hvp`` in full mode at eps = 0 (NaN pattern and values against
+     its plain version, and its time); and the divergent variant of both
+     (each lane tests its own weights), timed once against skip mode.
   7. BSR path: ``PSCConfig(k=4, backend="edge_pallas")`` in both HVP
      modes with the checks of phase 3 (stage 1 runs on ``bsr_pallas``,
      the graph having no other reals layout), then the breakdown of
@@ -45,7 +51,8 @@ Phases, none of which catches its own failure:
      every level built with BSR tiles; it fails on non-finite output,
      U^T U off I by more than 1e-4, labels missing a cluster, or no
      launch of the two p-Laplacian kernels.  Its RCut next to the flat
-     BSR solve's is printed, not asserted.
+     BSR solve's is printed, not asserted.  Every solve (3, 7, 8) fails
+     if a φ kernel launched in any mode but skip.
   9. dense kernels: flash attention at Gemma-2B's serve shape (B 4,
      Hq 8, Hkv 1, S 2048, D 256, bf16, causal), at a ragged S = 1000,
      with window = 512 and at D 128 with group 4 (all four on the wgmma
@@ -143,6 +150,26 @@ def _compare(name: str, got, want) -> tuple:
     if not bool(torch.isfinite(got).all()) or bool(bad.any()):
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return max_abs, max_rel
+
+
+def _compare_nan(name: str, got, want) -> float:
+    """NaN exactly where the plain version has it, the finite values
+    within the fp32 tolerance."""
+    import torch
+
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError(f"{name}: NaN pattern differs from the plain "
+                             "version's")
+    fin = ~nan
+    err = (got[fin] - want[fin]).abs()
+    bad = err > ATOL + RTOL * want[fin].abs()
+    max_abs = float(err.max()) if err.numel() else 0.0
+    print(f"{name}: nan={int(nan.sum())} of {want.numel()} (pattern equal) "
+          f"max_abs_err={max_abs!r} violations={int(bad.sum())}", flush=True)
+    if bool(bad.any()) or bool(torch.isinf(got[fin]).any()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return max_abs
 
 
 def _layout_bytes(L, itemsize: int) -> int:
@@ -249,10 +276,11 @@ def sellcs_kernel_phase(W, K, torch) -> list:
 def bsr_kernel_phase(W, KB, KP, torch) -> list:
     """Each BSR kernel against its chunked plain version at full size;
     ``bsr_spmm`` at every width the main path gives it (4; LOBPCG's 8 and
-    24), each beside ``torch.sparse_bsr_tensor(...) @ X``."""
+    24), each beside ``torch.sparse_bsr_tensor(...) @ X``; the φ kernels
+    in skip mode, in full mode and as the divergent variant."""
     n, k, item = W.n_rows, 4, 4
     nb, bs = int(W.bsr_blocks.shape[0]), W.block_size
-    terms = nb * bs * bs * k
+    terms = nb * bs * bs * k     # every stored entry, every column
     # bytes a launch must move: the tiles, the int32 tile column ids and
     # row pointers, each multivector read once, the output written once
     layout = (nb * bs * bs * item + 4 * nb
@@ -305,21 +333,65 @@ def bsr_kernel_phase(W, KB, KP, torch) -> list:
 
     src = "src/repro_torch/kernels/plap_edge/csrc/plap_edge.cu"
     ref = "src/repro/kernels/plap_edge/plap_edge.py"
-    err = _compare("plap_apply", KP.plap_apply(W, U, P, EPS),
-                   KP.plap_apply_plain(W, U, P, EPS))
-    rows.append(_row(
-        "plap_apply", src, f"{ref}:76", err,
-        _time_ms(lambda: KP.plap_apply(W, U, P, EPS)),
-        _time_ms(lambda: KP.plap_apply_plain(W, U, P, EPS), 3, 1),
-        _bound(layout + 2 * dense_bytes, OPS["apply"] * terms), None))
-    err = _compare("plap_hvp", KP.plap_hvp(W, U, E, P, EPS),
-                   KP.plap_hvp_plain(W, U, E, P, EPS))
-    rows.append(_row(
-        "plap_hvp", src, f"{ref}:96", err,
-        _time_ms(lambda: KP.plap_hvp(W, U, E, P, EPS)),
-        _time_ms(lambda: KP.plap_hvp_plain(W, U, E, P, EPS), 3, 1),
-        _bound(layout + 3 * dense_bytes, OPS["hvp"] * terms), None))
+    nnz_stored = int(torch.count_nonzero(W.bsr_blocks))
+    print(f"phi kernels: stored entries={nb * bs * bs} non-zero={nnz_stored}"
+          f" zero_share={1 - nnz_stored / (nb * bs * bs)!r} "
+          f"non_zeros_per_tile={nnz_stored / nb!r}", flush=True)
+    # skip mode evaluates phi on the non-zero terms only: the operation
+    # bound counts those (each stored value is still read once)
+    nz_terms = nnz_stored * k
+    calls = {"plap_apply": lambda Z: KP.plap_apply(W, Z, P, EPS),
+             "plap_hvp": lambda Z: KP.plap_hvp(W, Z, E, P, EPS)}
+    plains = {"plap_apply": lambda Z: KP.plap_apply_plain(W, Z, P, EPS),
+              "plap_hvp": lambda Z: KP.plap_hvp_plain(W, Z, E, P, EPS)}
+    dense = {"plap_apply": 2 * dense_bytes, "plap_hvp": 3 * dense_bytes}
+    line = {"plap_apply": 76, "plap_hvp": 96}
+    # a NaN in one row-block of U (vertex 777,777, column 2)
+    Un = U.clone()
+    Un[777777, 2] = float("nan")
+    for name in ("plap_apply", "plap_hvp"):
+        mode = KP.phi_mode(name, P, EPS, U.dtype)
+        if mode != "skip":
+            raise AssertionError(f"{name}: the main path's call is routed to "
+                                 f"{mode}, not skip")
+        got = calls[name](U)
+        err = _compare(name, got, plains[name](U))
+        if not torch.equal(got, calls[name](U)):
+            raise AssertionError(f"{name}: two runs differ")
+        _compare_nan(f"{name} with a NaN in one row-block", calls[name](Un),
+                     plains[name](Un))
+        op = name.split("_")[1]
+        rows.append(_row(
+            name, src, f"{ref}:{line[name]}", err, _time_ms(
+                lambda: calls[name](U)),
+            _time_ms(lambda: plains[name](U), 3, 1),
+            _bound(layout + dense[name], OPS[op] * nz_terms), None))
+        rows[-1].update(mode="skip", bound_ops="non-zero terms")
+        # the divergent variant: the same skeleton, no compaction
+        div = KP.run_divergent(name, W, U, E, P, EPS)
+        div_err = _compare(f"{name} divergent variant", div, plains[name](U))
+        rows[-1]["divergent"] = dict(
+            ms=_time_ms(lambda: KP.run_divergent(name, W, U, E, P, EPS), 3,
+                        5), max_abs_err=div_err[0])
+    del Un
+    # full mode: plap_hvp at eps = 0, every entry evaluated
+    if KP.phi_mode("plap_hvp", P, 0.0, U.dtype) != "full":
+        raise AssertionError("plap_hvp at eps = 0 is not routed to full mode")
+    full_err = _compare_nan("plap_hvp eps=0 (full mode)",
+                            KP.plap_hvp(W, U, E, P, 0.0),
+                            KP.plap_hvp_plain(W, U, E, P, 0.0))
+    full_bound = _bound(layout + dense["plap_hvp"], OPS["hvp"] * terms)
+    rows[-1]["full_mode"] = dict(
+        eps=0.0, max_abs_err=full_err,
+        ms=_time_ms(lambda: KP.plap_hvp(W, U, E, P, 0.0), 3, 3),
+        plain_ms=_time_ms(lambda: KP.plap_hvp_plain(W, U, E, P, 0.0), 3, 1),
+        bound_ms=full_bound[0], bound_by=full_bound[1],
+        bound_ops="every stored entry")
     _print_rows(rows)
+    for row in rows[-2:]:
+        print(f"{row['name']}: divergent variant ms="
+              f"{row['divergent']['ms']!r}", flush=True)
+    print(f"plap_hvp full mode (eps=0): {rows[-1]['full_mode']}", flush=True)
     return rows
 
 
@@ -350,6 +422,12 @@ def solve_phase(tag, W, counters, torch, psc, cfg, used) -> tuple:
     for name in used:
         if launches[name] < 1:
             raise AssertionError(f"{tag}: {name} never launched")
+    for name in ("plap_apply", "plap_hvp"):
+        for mode in ("full", "divergent"):
+            key = f"{name}_{mode}"
+            if launches[key]:
+                raise AssertionError(f"{tag}: {launches[key]} φ launches "
+                                     f"in {mode} mode ({key})")
     if not (math.isfinite(res.rcut) and bool(torch.isfinite(res.U).all())):
         raise AssertionError(f"{tag}: non-finite output (rcut {res.rcut})")
     if not orth <= 1e-4:

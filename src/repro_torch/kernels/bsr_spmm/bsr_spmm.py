@@ -13,16 +13,17 @@ runs the plain version ``bsr_spmm_plain``: the multivector zero-padded
 to whole blocks, then ``bsr_spmm_ref``, the port of the reference's
 ``kernels/bsr_spmm/ref.py``.
 
-The operand checks, ``column_windows`` and the padding here are shared
-with ``kernels/plap_edge``.  The library is built with nvcc at first
-CUDA use (``build``/``start_build``) into ``build/torch_ext/``;
-importing this module builds nothing.
+The operand checks, the tile limit (``MAX_BLOCK``), the padding and the
+launch arguments here are shared with ``kernels/plap_edge``.  The
+library is built with nvcc at first CUDA use (``build``/
+``start_build``) into ``build/torch_ext/``; importing this module builds
+nothing.
 """
 from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Dict, Iterator, Tuple
+from typing import Dict
 
 import torch
 
@@ -38,9 +39,8 @@ LIBRARY = NvccLibrary(
 LAUNCHES = {"bsr_spmm": 0}
 LAUNCHES_BY_WIDTH: Dict[int, int] = {}
 
-# shared memory one thread block may use on Hopper (bytes)
-SMEM_LIMIT = 232448
-# the SpMM kernel's tiles: 32 lanes of a warp x at most 4 rows each
+# the BSR kernels' tiles: for the SpMM 32 lanes of a warp x at most 4
+# rows each; the phi kernels pack a tile's (row, column) in 8 bits each
 MAX_BLOCK = 128
 # the window widths the SpMM kernel is compiled for (its register tile's
 # columns); a window of kc columns runs on the narrowest width >= kc
@@ -130,18 +130,6 @@ def check_operands(A, *Xs) -> bool:
     if max(A.n_rows, A.n_cols) >= 2 ** 31:
         raise ValueError("the BSR kernels index rows with int32")
     return True
-
-
-def column_windows(A, k: int, buffers: int) -> Iterator[Tuple[int, int]]:
-    """(c0, kc) windows of the k columns whose ``buffers`` staged
-    (bs, kc) slices fit the shared memory of one thread block."""
-    per_col = buffers * A.block_size * A.bsr_blocks.element_size()
-    width = SMEM_LIMIT // per_col
-    if width < 1:
-        raise ValueError(f"block_size={A.block_size} is too large for the "
-                         "kernels' shared memory")
-    for c0 in range(0, k, width):
-        yield c0, min(width, k - c0)
 
 
 def spmm_windows(k: int, dtype: torch.dtype) -> list:

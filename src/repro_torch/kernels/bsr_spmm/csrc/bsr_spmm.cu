@@ -44,94 +44,42 @@
 // window [c0, c0 + kc).  Columns past n_x of the last column-block read as
 // 0 and rows past n_rows of the last row-block are not written.  A
 // row-block without tiles is written as zeros.  bs is at most 128.  The
-// tensor map is encoded on the host at every launch (../../csrc/tma.cuh).
+// ring, its loads and the tensor map (encoded on the host at every launch)
+// are shared with the phi kernels (../../csrc/bsr_ring.cuh).
 #include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "tma.cuh"
+#include "bsr_ring.cuh"
 
 namespace {
 
-using namespace tma;
+using namespace bsr_ring;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSmemLimit = 232448;  // shared memory of one block
-constexpr int kRowBytes = 128;      // a tile box's row: 32 fp32, 16 fp64
-
-template <typename T>
-struct Vec;  // 16 bytes of T
-template <>
-struct Vec<float> {
-  using type = float4;
-};
-template <>
-struct Vec<double> {
-  using type = double2;
-};
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-// ``N`` bytes, of which the first ``src_bytes`` are read and the rest
-// zero-filled
-template <int N>
-__device__ __forceinline__ void cp_async_fill(uint32_t dst, const void* src,
-                                              int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
-               "l"(src), "n"(N), "r"(src_bytes)
-               : "memory");
-}
-
-// arrive on ``bar`` once this thread's earlier cp.async copies have
-// landed (counted among the barrier's expected arrivals)
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
-                   "r"(bar)
-               : "memory");
-}
 
 // Shared memory of one launch from a 1024-byte aligned base (the 128-byte
-// swizzle repeats every 8 rows of 128 bytes).  A stage is one tile, as
-// ``boxes`` boxes of 32 R rows x 128 bytes (rows past bs zero), then its
-// (bsv, KC) slice of X; after the last tile the ring holds the warps'
-// partial sums, (kWarps, KC, 32 R + 1); the stages' mbarriers follow.
+// swizzle repeats every 8 rows of 128 bytes): the ring
+// (../../csrc/bsr_ring.cuh), a stage being one tile as ``boxes`` boxes of
+// 32 R rows x 128 bytes (rows past bs zero) and its (bsv, KC) slice of X;
+// after the last tile the ring holds the warps' partial sums,
+// (kWarps, KC, 32 R + 1); the stages' mbarriers follow.
 struct Layout {
-  int boxes, bsv, stage, stages, bars, bytes;
+  Ring ring;
+  int bars, bytes;
 };
 
 template <typename T, int KC, int R>
 __host__ __device__ Layout layout(int bs) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int E = kRowBytes / sizeof(T);  // values per box row
   Layout L;
-  L.boxes = (bs + E - 1) / E;
-  L.bsv = (bs + V - 1) / V * V;
-  const int x_bytes = (L.bsv * KC * static_cast<int>(sizeof(T)) + 1023) /
-                      1024 * 1024;
-  L.stage = L.boxes * 32 * R * kRowBytes + x_bytes;  // bytes
-  L.stages = 2 * L.stage + 1024 + 16 <= kSmemLimit ? 2 : 1;
+  L.ring = ring_layout<T>(bs, 32 * R, KC, 1, 0);
+  const int ring = L.ring.stages * L.ring.stage;
   const int red = kWarps * KC * (32 * R + 1) * static_cast<int>(sizeof(T));
-  L.bars = L.stages * L.stage > red ? L.stages * L.stage : red;
-  L.bytes = L.bars + 8 * L.stages + 1024;  // + alignment slack
+  L.bars = ring > red ? ring : red;
+  L.bytes = L.bars + 8 * L.ring.stages + 1024;  // + alignment slack
   return L;
-}
-
-// Byte offset of tile value (m, j) in a stage: box j / E, row m, its
-// 16-byte chunk XOR-ed with m % 8 (the TMA's 128-byte swizzle).
-template <typename T>
-__device__ __forceinline__ uint32_t tile_at(int m, int j, int box_bytes) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int E = kRowBytes / sizeof(T);
-  const int box = j / E, w = j - box * E;
-  return box * box_bytes + m * kRowBytes +
-         ((((w / V) ^ (m & 7)) * 16) | ((w % V) * sizeof(T)));
 }
 
 template <typename T, int KC, int R>
@@ -147,33 +95,32 @@ __global__ void __launch_bounds__(kThreads) spmm_kernel(
   constexpr int kBoxBytes = kRows * kRowBytes;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const Layout L = layout<T, KC, R>(bs);
+  const Ring& G = L.ring;
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = (1024 - (raw & 1023)) & 1023;
   unsigned char* smem = smem_raw + pad;
   const uint32_t base = raw + pad;
   const uint32_t full = base + L.bars;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int x_off = L.boxes * kBoxBytes;
-  // X in 16-byte copies when its rows and the window are 16-byte aligned
-  const bool x16 = (ld * sizeof(T)) % 16 == 0 && (c0 * sizeof(T)) % 16 == 0 &&
-                   kc % V == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0;
+  const int x_off = G.boxes * kBoxBytes;
+  const bool x16 = slice16<T>(X, ld, c0, kc);
 
   // the pads are never copied into: zero them once (tile rows
   // [bs, 32 R) and, without the TMA, columns [bs, boxes E); X rows
   // [bs, bsv))
-  for (int st = 0; st < L.stages; ++st) {
-    unsigned char* stage = smem + st * L.stage;
-    const int width = L.boxes * (kRowBytes / sizeof(T));
+  for (int st = 0; st < G.stages; ++st) {
+    unsigned char* stage = smem + st * G.stage;
+    const int width = G.boxes * (kRowBytes / sizeof(T));
     for (int e = tid; e < kRows * width; e += kThreads) {
       const int m = e / width, j = e - m * width;
       if (m >= bs || (!tma && j >= bs))
         *reinterpret_cast<T*>(stage + tile_at<T>(m, j, kBoxBytes)) = T(0);
     }
     T* xs = reinterpret_cast<T*>(stage + x_off);
-    for (int e = bs * KC + tid; e < L.bsv * KC; e += kThreads) xs[e] = T(0);
+    for (int e = bs * KC + tid; e < G.bsv * KC; e += kThreads) xs[e] = T(0);
   }
   if (tid == 0) {
-    for (int st = 0; st < L.stages; ++st)
+    for (int st = 0; st < G.stages; ++st)
       mbar_init(full + 8 * st, 1 + kThreads);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -182,49 +129,14 @@ __global__ void __launch_bounds__(kThreads) spmm_kernel(
   const int32_t b_begin = indptr[blockIdx.x];
   const int n = indptr[blockIdx.x + 1] - b_begin;
 
-  // Tile t into stage st: thread 0 issues the TMA boxes (or, for tiles
-  // the TMA cannot take, every thread copies values); every thread
-  // copies its share of X's slice.  Lands on full[st].
+  // Tile t and its slice of X into stage st, landing on full[st]
   auto load = [&](int t, int st) {
-    const uint32_t stage = base + st * L.stage;
+    const uint32_t stage = base + st * G.stage;
     const uint32_t bar = full + 8 * st;
     const int32_t b = b_begin + t;
-    if (tma) {
-      if (tid == 0) {
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        mbar_expect_tx(bar, L.boxes * bs * kRowBytes);
-        for (int bx = 0; bx < L.boxes; ++bx)
-          load_2d(stage + bx * kBoxBytes, &tm_tiles, bar,
-                   bx * (kRowBytes / static_cast<int>(sizeof(T))), b * bs);
-      }
-    } else {
-      const T* tile = blocks + static_cast<int64_t>(b) * bs * bs;
-      for (int e = tid; e < bs * bs; e += kThreads) {
-        const int m = e / bs;
-        cp_async_fill<sizeof(T)>(stage + tile_at<T>(m, e - m * bs, kBoxBytes),
-                                 tile + e, sizeof(T));
-      }
-      if (tid == 0) mbar_expect_tx(bar, 0);
-    }
-    const int64_t col0 = static_cast<int64_t>(indices[b]) * bs;
-    const uint32_t xs = stage + x_off;
-    if (x16) {
-      constexpr int kChunks = KC / V;
-      for (int e = tid; e < bs * kChunks; e += kThreads) {
-        const int j = e / kChunks, c = (e - j * kChunks) * V;
-        const bool in = col0 + j < n_x && c < kc;
-        cp_async16(xs + (j * KC + c) * sizeof(T),
-                   in ? X + (col0 + j) * ld + c0 + c : X, in ? 16 : 0);
-      }
-    } else {
-      for (int e = tid; e < bs * KC; e += kThreads) {
-        const int j = e / KC, c = e - j * KC;
-        const bool in = col0 + j < n_x && c < kc;
-        cp_async_fill<sizeof(T)>(xs + e * sizeof(T),
-                                 in ? X + (col0 + j) * ld + c0 + c : X,
-                                 in ? sizeof(T) : 0);
-      }
-    }
+    load_tile<T, kThreads>(tma, &tm_tiles, blocks, b, bs, stage, bar, G, tid);
+    load_slice<T, KC, kThreads>(X, x16, static_cast<int64_t>(indices[b]) * bs,
+                                n_x, ld, c0, kc, bs, stage + x_off, tid);
     cp_async_arrive(bar);
   };
 
@@ -236,14 +148,14 @@ __global__ void __launch_bounds__(kThreads) spmm_kernel(
 
   if (n > 0) load(0, 0);
   for (int t = 0; t < n; ++t) {
-    const int st = t % L.stages;
+    const int st = t % G.stages;
     // the stage tile t - 1 used, freed by the barrier that ended it
-    if (L.stages > 1 && t + 1 < n) load(t + 1, (t + 1) % L.stages);
-    mbar_wait(full + 8 * st, (t / L.stages) & 1);
+    if (G.stages > 1 && t + 1 < n) load(t + 1, (t + 1) % G.stages);
+    mbar_wait(full + 8 * st, (t / G.stages) & 1);
 
-    const unsigned char* stage = smem + st * L.stage;
+    const unsigned char* stage = smem + st * G.stage;
     const T* xs = reinterpret_cast<const T*>(stage + x_off);
-    for (int q = warp; q < L.bsv / V; q += kWarps) {
+    for (int q = warp; q < G.bsv / V; q += kWarps) {
       const int j0 = q * V;
       VecT w[R];
 #pragma unroll
@@ -269,7 +181,7 @@ __global__ void __launch_bounds__(kThreads) spmm_kernel(
       }
     }
     __syncthreads();  // stage st is free for tile t + stages
-    if (L.stages == 1 && t + 1 < n) load(t + 1, 0);
+    if (G.stages == 1 && t + 1 < n) load(t + 1, 0);
   }
 
   // the warps' partial sums, added in warp order
@@ -290,34 +202,6 @@ __global__ void __launch_bounds__(kThreads) spmm_kernel(
     for (int w = 0; w < kWarps; ++w) s += red[(w * KC + c) * kRed + i];
     if (row0 + i < n_rows) Y[(row0 + i) * ld + c0 + c] = s;
   }
-}
-
-// The tiles as a 2-D tensor (bs columns, n_blocks bs rows): boxes of 128
-// bytes by bs rows, 128-byte swizzle.  Encoded only when the TMA can take
-// the tiles (16-byte rows); returns whether it did.
-template <typename T>
-int encode_tiles(CUtensorMap* map, const void* blocks, int64_t n_blocks,
-                 int bs, int* tma) {
-  *tma = (bs * sizeof(T)) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(blocks) % 16 == 0 && n_blocks > 0;
-  if (!*tma) return 0;
-  EncodeTiled fn;
-  const int err = encoder(&fn);
-  if (err != 0) return err;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(bs),
-                              static_cast<cuuint64_t>(n_blocks) * bs};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(bs) * sizeof(T)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kRowBytes / sizeof(T)),
-                             static_cast<cuuint32_t>(bs)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(
-      map,
-      sizeof(T) == 8 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
-                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-      2, const_cast<void*>(blocks), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return encode_result(r);
 }
 
 template <typename T, int KC, int R>

@@ -127,7 +127,7 @@ def test_cuda_bsr_kernels_match_twins(cuda_device, dtype, p, bs):
     S = torch.randn(shape[0], 24, generator=gen, device=cuda_device,
                     dtype=tdt)                # LOBPCG's [X, R, P] width
     eps = 1e-8
-    before = dict(KB.LAUNCHES, **KP.LAUNCHES)
+    before, spmm_before = dict(KP.LAUNCHES), KB.LAUNCHES["bsr_spmm"]
     windows = len(KB.spmm_windows(4, tdt)) + len(KB.spmm_windows(24, tdt))
     pairs = [(KB.bsr_spmm(W, U), KB.bsr_spmm_plain(W, U)),
              (KB.bsr_spmm(W, S), KB.bsr_spmm_plain(W, S)),
@@ -139,9 +139,10 @@ def test_cuda_bsr_kernels_match_twins(cuda_device, dtype, p, bs):
         np.testing.assert_allclose(convert.to_numpy(got),
                                    convert.to_numpy(want), **TOL[dtype])
     assert float(pairs[0][0][0].abs().max()) == 0.0     # isolated vertex 0
-    assert KB.LAUNCHES["bsr_spmm"] == before["bsr_spmm"] + windows
-    assert KP.LAUNCHES["plap_apply"] == before["plap_apply"] + 1
-    assert KP.LAUNCHES["plap_hvp"] == before["plap_hvp"] + 1
+    assert KB.LAUNCHES["bsr_spmm"] == spmm_before + windows
+    # k = 4 is one window of the phi kernels, in skip mode at eps = 1e-8
+    assert KP.LAUNCHES == dict(before, plap_apply=before["plap_apply"] + 1,
+                               plap_hvp=before["plap_hvp"] + 1)
 
 
 @pytest.mark.cuda
@@ -212,6 +213,219 @@ def test_cuda_bsr_spmm_rejects_tiles_above_128(cuda_device):
         KB.bsr_spmm(W, torch.zeros(shape[0], 4, device=cuda_device))
 
 
+# ------------------------------------------------- the BSR phi kernels
+
+def _phi_matrix(device, dtype, bs, n=1000, seed=0):
+    """_graph's pattern at n = 1000 (a ragged last block at bs 32 and 128)
+    with no entry in rows [bs, 2 bs) (a row-block without tiles) and its
+    first stored tile off the diagonal zeroed (a stored tile that is
+    entirely zero).  Vertex 0 has no edge: its column is reached only
+    through the zero weights of the tiles of column block 0."""
+    coo, shape = _graph_with_empty_row_block(n, bs, seed)
+    W = convert.sparse_matrix(coo, shape, device=device, dtype=dtype,
+                              build_bsr=True, block_size=bs)
+    rb = np.repeat(np.arange(len(W.bsr_indptr) - 1), np.diff(W.bsr_indptr))
+    off = np.nonzero(rb != convert.to_numpy(W.bsr_indices))[0]
+    W.bsr_blocks[int(off[0])].zero_()
+    return W
+
+
+def _multivectors(W, k, seed):
+    gen = torch.Generator(device=W.bsr_blocks.device).manual_seed(seed)
+    return [torch.randn(W.n_rows, k, generator=gen, device=W.bsr_blocks.device,
+                        dtype=W.bsr_blocks.dtype) for _ in range(2)]
+
+
+def _assert_matches_plain(got, want, dtype):
+    """NaN exactly where the plain version has it, the rest within the
+    tolerance."""
+    got, want = convert.to_numpy(got), convert.to_numpy(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, equal_nan=True, **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("bs", [32, 128])
+@pytest.mark.parametrize("p", [1.2, 1.5, 2.0])
+@pytest.mark.parametrize("k", [1, 4, 8, 20])
+def test_cuda_phi_kernels_match_plain_and_repeat_bitwise(cuda_device, dtype,
+                                                        bs, p, k):
+    """Both phi kernels in skip mode at one column, the main path's 4, 8
+    (two windows in fp64) and 20 (three fp32 windows, five fp64): within
+    the tolerance of their plain versions, the row-block without tiles
+    zero, one launch per window under the skip counters, and the same
+    call twice gives the same bits."""
+    W = _phi_matrix(cuda_device, dtype, bs)
+    U, E = _multivectors(W, k, seed=k)
+    eps = 1e-8
+    windows = len(KP.phi_windows(k, U.dtype))
+    before = dict(KP.LAUNCHES)
+    got_a, again_a = KP.plap_apply(W, U, p, eps), KP.plap_apply(W, U, p, eps)
+    got_h, again_h = (KP.plap_hvp(W, U, E, p, eps),
+                      KP.plap_hvp(W, U, E, p, eps))
+    torch.cuda.synchronize()
+    assert KP.LAUNCHES == dict(
+        before, plap_apply=before["plap_apply"] + 2 * windows,
+        plap_hvp=before["plap_hvp"] + 2 * windows)
+    assert torch.equal(got_a, again_a) and torch.equal(got_h, again_h)
+    for got, want in ((got_a, KP.plap_apply_plain(W, U, p, eps)),
+                      (got_h, KP.plap_hvp_plain(W, U, E, p, eps))):
+        assert bool(torch.isfinite(got).all())
+        assert float(got[bs:2 * bs].abs().max()) == 0.0   # no tiles there
+        _assert_matches_plain(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("bs", [32, 128])
+def test_cuda_phi_eps_zero_hvp_full_mode_nan_where_plain(cuda_device, dtype,
+                                                        bs):
+    """At eps = 0 the hvp runs in full mode and returns NaN exactly where
+    its plain version does (a stored column j with u_j = u_i, the
+    diagonal included; U repeats values so off-diagonal columns meet it
+    too); the apply stays in skip mode and finite."""
+    W = _phi_matrix(cuda_device, dtype, bs)
+    U, E = _multivectors(W, 4, seed=5)
+    U[1::5] = U[0::5][:U[1::5].shape[0]]         # u_j = u_i off the diagonal
+    before = dict(KP.LAUNCHES)
+    got_h = KP.plap_hvp(W, U, E, 1.5, 0.0)
+    got_a = KP.plap_apply(W, U, 1.5, 0.0)
+    torch.cuda.synchronize()
+    assert KP.LAUNCHES == dict(
+        before, plap_hvp_full=before["plap_hvp_full"] + 1,
+        plap_apply=before["plap_apply"] + 1)
+    want_h = KP.plap_hvp_plain(W, U, E, 1.5, 0.0)
+    assert bool(torch.isnan(want_h).any())
+    assert not bool(torch.isnan(want_h).all())
+    _assert_matches_plain(got_h, want_h, dtype)
+    assert bool(torch.isfinite(got_a).all())
+    _assert_matches_plain(got_a, KP.plap_apply_plain(W, U, 1.5, 0.0), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("bs", [32, 128])
+@pytest.mark.parametrize("where", ["U", "E"])
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+def test_cuda_phi_nonfinite_reached_through_zero_weights(cuda_device, dtype,
+                                                         bs, where, value):
+    """A NaN or +-inf at vertex 0, which only zero weights reach: in skip
+    mode the tiles that stage it are evaluated in full, so the kernels
+    give NaN exactly where the plain versions do (every row of a
+    row-block with a tile in column block 0, in that column) and agree
+    elsewhere."""
+    W = _phi_matrix(cuda_device, dtype, bs)
+    U, E = _multivectors(W, 4, seed=6)
+    (U if where == "U" else E)[0, 1] = float(value)
+    p, eps = 1.2, 1e-8
+    before = dict(KP.LAUNCHES)
+    got_h = KP.plap_hvp(W, U, E, p, eps)
+    want_h = KP.plap_hvp_plain(W, U, E, p, eps)
+    assert bool(torch.isnan(want_h[:, 1]).any())
+    assert bool(torch.isfinite(want_h[:, [0, 2, 3]]).all())
+    _assert_matches_plain(got_h, want_h, dtype)
+    if where == "U":
+        got_a = KP.plap_apply(W, U, p, eps)
+        want_a = KP.plap_apply_plain(W, U, p, eps)
+        assert bool(torch.isnan(want_a[:, 1]).any())
+        _assert_matches_plain(got_a, want_a, dtype)
+    assert KP.LAUNCHES["plap_hvp"] == before["plap_hvp"] + 1
+    assert KP.LAUNCHES["plap_hvp_full"] == before["plap_hvp_full"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("scale", [0.5, 1.0, 2.0, 4.0])
+def test_cuda_phi_values_near_the_overflow_threshold(cuda_device, dtype,
+                                                     scale):
+    """Inputs of magnitude scale x OVERFLOW_AT, signs alternating, at the
+    vertices 0, 7, 14, ..., which lose their edges (only zero weights
+    reach them), in column 0 of U and column 2 of E.  Below the threshold
+    (0.5) skip mode proper; at and above it the tiles that stage them are
+    evaluated in full: with the same finite result at 1.0 and 2.0 (where
+    d^2 overflows but (p - 2) d^2 does not, so phi' = 0), and at 4.0,
+    where both overflow, with phi' and a zero weight's term NaN, as in the
+    plain version (E's differences stay finite)."""
+    (rows, cols, vals), shape = _graph(1000)
+    keep = (rows % 7 != 0) & (cols % 7 != 0)
+    W = convert.sparse_matrix((rows[keep], cols[keep], vals[keep]), shape,
+                              device=cuda_device, dtype=dtype,
+                              build_bsr=True, block_size=128)
+    U, E = _multivectors(W, 4, seed=7)
+    big = scale * KP.OVERFLOW_AT[U.dtype]
+    signs = torch.ones(U[::7].shape[0], device=cuda_device, dtype=U.dtype)
+    signs[1::2] = -1.0
+    U[::7, 0] = big * signs
+    E[::7, 2] = big * signs
+    p, eps = 1.2, 1e-8
+    got_a, got_h = KP.plap_apply(W, U, p, eps), KP.plap_hvp(W, U, E, p, eps)
+    want_a = KP.plap_apply_plain(W, U, p, eps)
+    want_h = KP.plap_hvp_plain(W, U, E, p, eps)
+    assert bool(torch.isfinite(want_a).all())
+    if scale <= 2.0:
+        assert bool(torch.isfinite(want_h).all())
+    else:
+        assert bool(torch.isnan(want_h[:, 0]).any())
+    _assert_matches_plain(got_a, want_a, dtype)
+    _assert_matches_plain(got_h, want_h, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,p,eps", [("plap_apply", 2.5, 1e-8),
+                                        ("plap_hvp", 2.5, 1e-8),
+                                        ("plap_hvp", 1.5, 0.0),
+                                        ("plap_apply", 1.2, 1e-50)])
+def test_cuda_phi_full_mode_counts_its_launches(cuda_device, name, p, eps):
+    """Calls outside skip mode's conditions run the full mode, one launch
+    per window under the ``_full`` counter, and match the plain version."""
+    W = _phi_matrix(cuda_device, np.float32, 128)
+    U, E = _multivectors(W, 8, seed=8)
+    assert KP.phi_mode(name, p, eps, U.dtype) == "full"
+    before = dict(KP.LAUNCHES)
+    if name == "plap_apply":
+        got, want = (KP.plap_apply(W, U, p, eps),
+                     KP.plap_apply_plain(W, U, p, eps))
+    else:
+        got, want = (KP.plap_hvp(W, U, E, p, eps),
+                     KP.plap_hvp_plain(W, U, E, p, eps))
+    key = KP.counter(name, "full")
+    assert KP.LAUNCHES == dict(before, **{key: before[key] + 1})
+    _assert_matches_plain(got, want, np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [32, 128])
+def test_cuda_phi_divergent_variant_matches_plain(cuda_device, bs):
+    """The variant kept for timing (each lane tests its own weights)
+    computes the same function, counted apart from the routed modes."""
+    W = _phi_matrix(cuda_device, np.float32, bs)
+    U, E = _multivectors(W, 4, seed=9)
+    before = dict(KP.LAUNCHES)
+    got_a = KP.run_divergent("plap_apply", W, U, U, 1.2, 1e-8)
+    got_h = KP.run_divergent("plap_hvp", W, U, E, 1.2, 1e-8)
+    assert KP.LAUNCHES == dict(
+        before, plap_apply_divergent=before["plap_apply_divergent"] + 1,
+        plap_hvp_divergent=before["plap_hvp_divergent"] + 1)
+    _assert_matches_plain(got_a, KP.plap_apply_plain(W, U, 1.2, 1e-8),
+                          np.float32)
+    _assert_matches_plain(got_h, KP.plap_hvp_plain(W, U, E, 1.2, 1e-8),
+                          np.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_phi_kernels_reject_tiles_above_128(cuda_device):
+    coo, shape = _graph(300)
+    W = convert.sparse_matrix(coo, shape, device=cuda_device,
+                              dtype=np.float32, build_bsr=True,
+                              block_size=256)
+    X = torch.zeros(shape[0], 4, device=cuda_device)
+    with pytest.raises(ValueError, match="at most 128"):
+        KP.plap_apply(W, X, 1.5, 1e-8)
+    with pytest.raises(ValueError, match="at most 128"):
+        KP.plap_hvp(W, X, X, 1.5, 1e-8)
+
+
 @pytest.mark.cuda
 def test_cuda_bsr_wrappers_reject_bad_operands(cuda_device):
     coo, shape = _graph(300)
@@ -245,6 +459,9 @@ def test_cuda_pipeline_runs_through_the_bsr_kernels(cuda_device, multilevel):
         multilevel=MultilevelConfig(coarse_size=256) if multilevel else None))
     assert clustering_accuracy(res.labels, truth, 4) == 1.0
     assert KP.LAUNCHES["plap_apply"] > 0 and KP.LAUNCHES["plap_hvp"] > 0
+    # every phi launch of the solve skips zero weights
+    assert sum(KP.LAUNCHES.values()) == (KP.LAUNCHES["plap_apply"]
+                                         + KP.LAUNCHES["plap_hvp"])
     if not multilevel:       # stage 1 on a BSR-and-COO graph: bsr_pallas
         assert KB.LAUNCHES["bsr_spmm"] > 0
 

@@ -1,18 +1,24 @@
-"""The pure-Python plans of the port's two redesigned kernels, and their
+"""The pure-Python plans of the port's redesigned kernels, and their
 plain versions at the shapes those plans serve, on the CPU.
 
   * flash attention: which kernel serves (dtype, head dim, key length),
     how the wgmma kernel pairs the q heads of a GQA group in one block,
     and its grid;
   * BSR SpMM: the column windows and register-tile widths of a launch;
+  * the BSR phi kernels (plap_apply, plap_hvp): the mode a call is routed
+    to (skip zero weights, or evaluate every entry), the premise that
+    makes skipping exact (a zero weight's term is exactly +-0, through
+    the port's and the reference's phi), the column windows, and the tile
+    limit;
   * the plain versions at the head dims and group sizes the wgmma kernel
-    serves, and at the widths the main path gives the SpMM (4, 8, 24),
+    serves, and at the widths the main path gives the BSR kernels,
     against the reference's oracles and its Pallas kernels in interpret
     mode.
 
 Tolerances: fp32 flash to 1e-5 (the bound of
 tests/test_torch_dense_kernels.py); BSR fp32 to rtol 2e-4 / atol 2e-5 and
-fp64 to 1e-12 (the bounds of tests/test_torch_bsr.py)."""
+fp64 to 1e-12 (the bounds of tests/test_torch_bsr.py); the premise
+exactly (== 0)."""
 import importlib
 
 import numpy as np
@@ -21,12 +27,16 @@ import pytest
 torch = pytest.importorskip("torch")  # the reference-only CI has no torch
 
 import jax.numpy as jnp
+from repro.core import phi as REF_PHI
 from repro.kernels.bsr_spmm import bsr_spmm_pallas, bsr_spmm_ref
 from repro.kernels.flash_attention.flash_attention import \
     flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_ref as ref_attention
+from repro.kernels.plap_edge import (plap_apply_pallas, plap_apply_ref,
+                                     plap_hvp_edge_ref, plap_hvp_pallas)
 
 from repro_torch import convert
+from repro_torch.core import phi as PHI
 from repro_torch.kernels.flash_attention import flash_attention
 
 torch.set_num_threads(1)
@@ -34,6 +44,7 @@ torch.set_num_threads(1)
 KF = importlib.import_module(
     "repro_torch.kernels.flash_attention.flash_attention")
 KB = importlib.import_module("repro_torch.kernels.bsr_spmm.bsr_spmm")
+KP = importlib.import_module("repro_torch.kernels.plap_edge.plap_edge")
 
 BSR_TOL = {np.float32: dict(rtol=2e-4, atol=2e-5),
            np.float64: dict(rtol=1e-12, atol=1e-12)}
@@ -201,3 +212,204 @@ def test_bsr_spmm_plain_at_main_path_widths_matches_reference(dtype, k):
                                **BSR_TOL[dtype])
     np.testing.assert_allclose(got, np.asarray(oracle)[:ref.n_rows],
                                **BSR_TOL[dtype])
+
+
+# ---------------------------------------------------- BSR phi: the modes
+
+@pytest.mark.parametrize("name,p,eps,dtype,want", [
+    # the main path: p from 2 down to 1.2 at PSCConfig's eps = 1e-8
+    ("plap_apply", 2.0, 1e-8, torch.float32, "skip"),
+    ("plap_apply", 1.2, 1e-8, torch.float32, "skip"),
+    ("plap_hvp", 2.0, 1e-8, torch.float32, "skip"),
+    ("plap_hvp", 1.2, 1e-8, torch.float32, "skip"),
+    ("plap_hvp", 1.2, 1e-12, torch.float64, "skip"),
+    ("plap_hvp", 1.0, 1e-8, torch.float64, "skip"),
+    # eps = 0: phi(0) = 0 (the apply skips), phi'(0) = inf (the hvp not)
+    ("plap_apply", 1.5, 0.0, torch.float32, "skip"),
+    ("plap_apply", 1.0, 0.0, torch.float64, "skip"),
+    ("plap_hvp", 1.5, 0.0, torch.float32, "full"),
+    ("plap_hvp", 2.0, 0.0, torch.float64, "full"),
+    # p outside [1, 2]: pows of large differences overflow, phi(0) = NaN
+    ("plap_apply", 2.5, 1e-8, torch.float32, "full"),
+    ("plap_hvp", 3.0, 1e-8, torch.float64, "full"),
+    ("plap_apply", 0.9, 0.0, torch.float64, "full"),
+    # eps that fp32 cannot hold (rounds to 0), or whose eps^((p-4)/2)
+    # overflows fp32 but not fp64
+    ("plap_apply", 1.2, 1e-50, torch.float32, "full"),
+    ("plap_apply", 1.2, 1e-50, torch.float64, "skip"),
+    ("plap_hvp", 1.2, 1e-30, torch.float32, "full"),
+    ("plap_hvp", 1.2, 1e-30, torch.float64, "skip"),
+    # a negative eps: (x^2 + eps) < 0 near x = 0
+    ("plap_apply", 1.5, -1e-8, torch.float32, "full"),
+    ("plap_hvp", 1.5, -1e-8, torch.float64, "full"),
+])
+def test_phi_mode_routes_by_the_calls_arguments(name, p, eps, dtype, want):
+    assert KP.phi_mode(name, p, eps, dtype) == want
+
+
+def test_phi_every_mode_has_a_launch_count():
+    keys = {KP.counter(name, mode) for name in ("plap_apply", "plap_hvp")
+            for mode in ("skip", "full", "divergent")}
+    assert keys == set(KP.LAUNCHES)
+    assert KP.counter("plap_hvp", "skip") == "plap_hvp"
+    assert KP.counter("plap_hvp", "full") == "plap_hvp_full"
+
+
+def _premise_values(dtype):
+    """Differences and E differences the skip mode can meet: 0, the
+    smallest subnormal, tiny, unit and large values, and the largest
+    below 2 x OVERFLOW_AT (the most a difference of two inputs below the
+    threshold can reach), with both signs."""
+    np_dt = np.dtype(dtype)
+    top = np.nextafter(np_dt.type(2 * KP.OVERFLOW_AT[
+        torch.float32 if np_dt == np.float32 else torch.float64]),
+        np_dt.type(0))
+    mags = np.array([0.0, np.finfo(np_dt).smallest_subnormal, 1e-30, 1e-4,
+                     1.0, 3.5, 1e6, 1e15, top / 2, top], np_dt)
+    return np.concatenate([mags, -mags[1:]])
+
+
+def _zero_weight_terms(impl, name, d, de, p, eps):
+    """(0 * phi(d)) or (0 * phi'(d)) * de, through the port's phi or the
+    reference's, in d's dtype."""
+    if impl == "port":
+        d, de = torch.from_numpy(d), torch.from_numpy(de)
+        zero = torch.zeros((), dtype=d.dtype)
+        if name == "plap_apply":
+            return (zero * PHI.phi(d, p, eps)).numpy()
+        return (zero * PHI.phi_prime(d, p, eps) * de).numpy()
+    d, de = jnp.asarray(d), jnp.asarray(de)
+    zero = jnp.zeros((), d.dtype)
+    if name == "plap_apply":
+        return np.asarray(zero * REF_PHI.phi(d, p, eps))
+    return np.asarray(zero * REF_PHI.phi_prime(d, p, eps) * de)
+
+
+@pytest.mark.parametrize("impl", ["port", "reference"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("eps", [1e-8, 1e-12])
+@pytest.mark.parametrize("p", [1.1, 1.2, 1.5, 2.0])
+def test_zero_weight_terms_are_exactly_zero_in_skip_mode(impl, dtype, eps,
+                                                         p):
+    """The premise of the skip mode: for finite differences below the
+    threshold, 0 * phi(d) and (0 * phi'(d)) * de are exactly +-0, so
+    skipping a zero weight leaves every partial sum as it was."""
+    vals = _premise_values(dtype)
+    d, de = np.meshgrid(vals, vals, indexing="ij")
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    for name in ("plap_apply", "plap_hvp"):
+        assert KP.phi_mode(name, p, eps, tdt) == "skip"
+        terms = _zero_weight_terms(impl, name, d.ravel(), de.ravel(), p, eps)
+        assert terms.dtype == dtype
+        assert np.all(terms == 0), (name, d.ravel()[terms != 0])
+
+
+@pytest.mark.parametrize("impl", ["port", "reference"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("p", [1.1, 1.2, 1.5, 2.0])
+def test_zero_weight_apply_terms_are_exactly_zero_at_eps_zero(impl, dtype,
+                                                              p):
+    """At eps = 0 the apply stays in skip mode: |d|^(p-1) sign(d) is finite
+    for 1 <= p <= 2, 0 at d = 0."""
+    vals = _premise_values(dtype)
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    assert KP.phi_mode("plap_apply", p, 0.0, tdt) == "skip"
+    terms = _zero_weight_terms(impl, "plap_apply", vals, vals, p, 0.0)
+    assert np.all(terms == 0)
+
+
+@pytest.mark.parametrize("impl", ["port", "reference"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("p", [1.1, 1.5])
+def test_zero_weight_hvp_term_at_eps_zero_is_nan(impl, dtype, p):
+    """Why the hvp at eps = 0 runs in full mode: phi'(0) = inf for p < 2,
+    and a zero weight's term is 0 * inf = NaN in the reference."""
+    zero = np.zeros(1, dtype)
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    assert KP.phi_mode("plap_hvp", p, 0.0, tdt) == "full"
+    assert np.isnan(_zero_weight_terms(impl, "plap_hvp", zero, zero + 1.0,
+                                       p, 0.0)).all()
+
+
+# -------------------------------------------- BSR phi: windows and tiles
+
+@pytest.mark.parametrize("dtype,k,want", [
+    (torch.float32, 1, [(0, 1, 1)]),
+    (torch.float32, 3, [(0, 3, 4)]),
+    (torch.float32, 4, [(0, 4, 4)]),
+    (torch.float32, 8, [(0, 8, 8)]),
+    (torch.float32, 20, [(0, 8, 8), (8, 8, 8), (16, 4, 4)]),
+    (torch.float32, 120, [(c0, 8, 8) for c0 in range(0, 120, 8)]),
+    (torch.float64, 1, [(0, 1, 1)]),
+    (torch.float64, 2, [(0, 2, 2)]),
+    (torch.float64, 4, [(0, 4, 4)]),
+    (torch.float64, 8, [(0, 4, 4), (4, 4, 4)]),
+    (torch.float64, 13, [(0, 4, 4), (4, 4, 4), (8, 4, 4), (12, 1, 1)]),
+])
+def test_phi_window_plan(dtype, k, want):
+    windows = KP.phi_windows(k, dtype)
+    assert windows == want
+    for (c0, kc, width), nxt in zip(windows, windows[1:] + [(k, 0, 0)]):
+        assert c0 + kc == nxt[0] and kc <= width
+        assert width in KP.PHI_WIDTHS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_phi_main_path_width_is_one_launch(dtype):
+    """The k = 4 multivectors of the continuation take one launch, on the
+    width-4 instance."""
+    assert KP.phi_windows(4, dtype) == [(0, 4, 4)]
+
+
+@pytest.mark.parametrize("name", ["plap_apply", "plap_hvp"])
+def test_phi_launch_plan_takes_tiles_up_to_128(name):
+    mode, windows = KP.launch_plan(name, 128, 4, torch.float32, 1.2, 1e-8)
+    assert (mode, windows) == ("skip", [(0, 4, 4)])
+    with pytest.raises(ValueError, match="at most 128"):
+        KP.launch_plan(name, 256, 4, torch.float32, 1.2, 1e-8)
+
+
+# ------------------------------------- BSR phi: the plain versions served
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_plap_plain_at_phi_widths_matches_reference(dtype, k):
+    """The CPU ops (the plain versions) against the reference's Pallas
+    kernels in interpret mode and its oracles, at widths of one window
+    (1, 4) and of more than one in fp64 (8), on a Delaunay mesh with a
+    ragged last block."""
+    from repro.graphs import delaunay_graph
+
+    ref, _ = delaunay_graph(8, build_bsr=True, block_size=32, dtype=dtype)
+    W = convert.sparse_matrix(ref.host_coo(), (ref.n_rows, ref.n_cols),
+                              device="cpu", build_bsr=True, block_size=32,
+                              dtype=dtype)
+    rng = np.random.default_rng(10 + k)
+    X = rng.standard_normal((ref.n_rows, k)).astype(dtype)
+    E = rng.standard_normal((ref.n_rows, k)).astype(dtype)
+    p, eps = 1.3, 1e-8
+    got_a = convert.to_numpy(KP.plap_apply(
+        W, convert.tensor(X, device="cpu"), p, eps))
+    got_h = convert.to_numpy(KP.plap_hvp(
+        W, convert.tensor(X, device="cpu"), convert.tensor(E, device="cpu"),
+        p, eps))
+    n_rb = len(ref.bsr_indptr) - 1
+    Xp, Ep = (np.zeros((n_rb * 32, k), dtype) for _ in range(2))
+    Xp[:ref.n_rows], Ep[:ref.n_rows] = X, E
+    args = [jnp.asarray(np.asarray(a)) for a in (ref.bsr_blocks,
+                                                 ref.bsr_indices,
+                                                 ref.bsr_row_ids)]
+    jX, jE = jnp.asarray(Xp), jnp.asarray(Ep)
+    for got, pallas, oracle in (
+            (got_a,
+             plap_apply_pallas(*args, jX, n_row_blocks=n_rb, block_size=32,
+                               p=p, eps=eps, interpret=True),
+             plap_apply_ref(*args, jX, n_rb, 32, p, eps)),
+            (got_h,
+             plap_hvp_pallas(*args, jX, jE, n_row_blocks=n_rb,
+                             block_size=32, p=p, eps=eps, interpret=True),
+             plap_hvp_edge_ref(*args, jX, jE, n_rb, 32, p, eps))):
+        np.testing.assert_allclose(got, np.asarray(pallas)[:ref.n_rows],
+                                   **BSR_TOL[dtype])
+        np.testing.assert_allclose(got, np.asarray(oracle)[:ref.n_rows],
+                                   **BSR_TOL[dtype])
