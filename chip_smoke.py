@@ -2,21 +2,36 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--newton-iters 30] [--tcg-iters 20]
+    python3 chip_smoke.py --sellcs-src SRC
+
+The second form only times the SELL-C-σ kernels of the tree whose
+``src`` directory is SRC (this one, or an older commit unpacked with
+``git archive``) at the shapes of phase 2 and prints one JSON line; to
+compare two trees, run them in turns on one card, one after the other:
+old, new, new, old.
 
 Phases, none of which catches its own failure:
 
   1. device: the card's name and power limit (nvidia-smi), the torch and
      CUDA versions, then the build of every kernel from the checkout's
      sources into ``build/torch_ext`` (``repro_torch.kernels.build_all``:
-     the five nvcc libraries compile at once while the SELL-C-σ
-     extension builds).
+     the six nvcc libraries compile at once).
   2. SELL-C-σ kernels: on ``delaunay_graph(20)`` (n = 2^20, SELL-C-σ with
-     C=32) and k=4 fp32 multivectors, each kernel's wrapper against its
-     plain PyTorch version on the card, with the tolerance of the fp32
-     parity tests (|kernel - plain| <= 2e-5 + 2e-4 |plain|), and its time
-     (median of CUDA-event timed runs), the plain version's time, the
-     bound of the card and, for the reals ring, ``torch.sparse.mm`` on the
-     CSR form of W (timed only as a yardstick; the port never calls it).
+     C=32) and fp32 multivectors, each kernel's wrapper against its plain
+     PyTorch version on the card, with the tolerance of the fp32 parity
+     tests (|kernel - plain| <= 2e-5 + 2e-4 |plain|), and its time (median
+     of CUDA-event timed runs), the plain version's time and the bound of
+     the card, at the shapes the main path launches: ``sellcs_spmm`` with
+     scalar values at k = 4, 8 and 24 (each also against
+     ``torch.sparse.mm`` on the CSR form of W, a yardstick the port never
+     calls) and with (nnz, 4) multivalues, the apply and the HVP at
+     k = 4.  The two redesigned kernels (``sellcs_spmm``, the apply) run
+     twice, equal bit for bit, and with a NaN in one row of X, NaN where
+     the plain versions put it.  Then the COO backend's reals SpMM with
+     full-size W-hat multivalues and ``row_sums``, each twice, equal bit
+     for bit (the fixed-order segmented sum), and the sum timed beside
+     ``index_add_``, also on rows of about a thousand entries (a planted
+     partition with dense blocks), by rows and by columns.
   3. SELL-C-σ path: ``p_spectral_cluster(W, PSCConfig(k=4,
      backend="sellcs"))`` with ``hvp_mode="graphblas"`` and
      ``"matrix_free"``.  Each run starts from zeroed launch counts; it
@@ -52,7 +67,11 @@ Phases, none of which catches its own failure:
      U^T U off I by more than 1e-4, labels missing a cluster, or no
      launch of the two p-Laplacian kernels.  Its RCut next to the flat
      BSR solve's is printed, not asserted.  Every solve (3, 7, 8) fails
-     if a φ kernel launched in any mode but skip.
+     if a φ kernel launched in any mode but skip.  Then the same graph as
+     BSR with 256 x 256 tiles, above the kernels' limit: ``api.mxm`` under
+     ``auto`` runs the reals SpMM and the apply on ``coo`` and matches the
+     BSR plain versions, and a named ``bsr_pallas`` / ``edge_pallas``
+     raises BackendUnavailableError.
   9. dense kernels: flash attention at Gemma-2B's serve shape (B 4,
      Hq 8, Hkv 1, S 2048, D 256, bf16, causal), at a ragged S = 1000,
      with window = 512 and at D 128 with group 4 (all four on the wgmma
@@ -67,7 +86,12 @@ Phases, none of which catches its own failure:
      8 kmeans++ restarts, labels equal except where the plain version's
      two nearest centroids tie within 16 ulps, distances to the fp32
      bound above; and stage 3 (``psc.discretize``) on that U through the
-     plain assignment and through the kernel, in turns.
+     plain assignment and through the kernel, in turns.  Then the
+     assignment at k = 48 fp64 (the narrow kernel, restarts in two
+     launches) and k = 70 fp32 (the wide variant) on 2^20 points with 8
+     kmeans++ restarts, against the plain version (distances to 8 ulps of
+     the largest term, in each dtype), and stage 3 at each k, every
+     assignment through the kernels.
  10. LM serve path: Gemma-2B at full width (2.51 B parameters, fp32
      params, bf16 compute) with seeded weights on the card; the
      ServeEngine answers 4 requests of 2048-token prompts with 32 greedy
@@ -78,7 +102,9 @@ Phases, none of which catches its own failure:
      relative of a full forward's over the same 2049 tokens.
 
 Every clustering solve (3, 7, 8) also assigns its kmeans stages through
-``kmeans_assign``, and fails if it did not launch.  The line before the
+``kmeans_assign``, and fails if it did not launch; the bsr graphblas
+solve fails unless its W-hat SpMMs ran through the fixed-order sum.  The
+HVP count of every flat solve is printed.  The line before the
 last is a JSON object with one entry per kernel, its launches summed
 over the paths' runs (and split by path, and for ``bsr_spmm`` by
 width), and the card's name and power limit; the last line is ``{"ok":
@@ -103,6 +129,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+FP64_OPS_PER_S = 67e12         # H100 SXM fp64 tensor cores (DMMA)
 BF16_TOL = 2.0 ** -6           # 4 x bf16's unit roundoff 2^-8
 LM_TOL = 2.0 ** -5             # relative logit error, kernel vs plain
 RTOL, ATOL = 2e-4, 2e-5        # fp32 bounds of the kernel parity tests
@@ -137,15 +164,16 @@ def _time_ms(fn, reps: int = 5, inner: int = 20) -> float:
     return times[len(times) // 2]
 
 
-def _compare(name: str, got, want) -> tuple:
+def _compare(name: str, got, want, atol: float = ATOL,
+             rtol: float = RTOL) -> tuple:
     import torch
 
     err = (got - want).abs()
-    bad = err > ATOL + RTOL * want.abs()
+    bad = err > atol + rtol * want.abs()
     max_abs = float(err.max())
     max_rel = float((err / want.abs().clamp(min=1e-30)).max())
     print(f"{name}: max_abs_err={max_abs!r} max_rel_err={max_rel!r} "
-          f"tolerance=|d|<={ATOL}+{RTOL}|plain| "
+          f"tolerance=|d|<={atol!r}+{rtol!r}|plain| "
           f"violations={int(bad.sum())}", flush=True)
     if not bool(torch.isfinite(got).all()) or bool(bad.any()):
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
@@ -209,58 +237,110 @@ def _inputs(n, torch):
     return gen, X, U.contiguous(), E
 
 
+def _repeat(name, fn) -> None:
+    """Two calls of one kernel on the same inputs, equal bit for bit."""
+    import torch
+
+    if not torch.equal(fn(), fn()):
+        raise AssertionError(f"{name}: two runs differ")
+    print(f"{name}: two runs equal bit for bit", flush=True)
+
+
 def sellcs_kernel_phase(W, K, torch) -> list:
     """Each SELL-C-σ kernel against its plain version at the main path's
-    shapes."""
+    shapes: ``sellcs_spmm`` with scalar values at k = 4 and LOBPCG's 8 and
+    24 (each beside ``torch.sparse.mm``) and with the graphblas HVP's
+    (nnz, 4) multivalues; the apply and the HVP at k = 4.  The two
+    redesigned kernels also run twice (bit for bit) and with a NaN in one
+    row of X (NaN where the plain versions put it)."""
     n, k = W.n_rows, 4
     L = W.sell_kernel
     item = 4
-    terms = L.slots * k
     gen, X, U, E = _inputs(n, torch)
     dense_bytes = n * k * item
     src = "src/repro_torch/kernels/sellcs_spmm/csrc/sellcs_kernels.cu"
     ref = "src/repro/kernels/sellcs_spmm/sellcs_spmm.py"
     rows = []
+    # a NaN in one row of X (vertex 777,777, column 2)
+    Xn = X.clone()
+    Xn[777777, 2] = float("nan")
 
-    # reals ring, scalar values (the LOBPCG Laplacian matvec)
-    got, want = K.sellcs_spmm(W, X), K.sellcs_spmm_plain(W, X)
-    err = _compare("sellcs_spmm", got, want)
+    # reals ring, scalar values: the LOBPCG Laplacian matvec at every
+    # width stage 1 gives it
     csr = torch.sparse_coo_tensor(
         torch.stack([W.rows.long(), W.cols.long()]), W.vals,
         (n, n)).coalesce().to_sparse_csr()
-    _compare("sellcs_spmm vs torch.sparse.mm", got, torch.sparse.mm(csr, X))
-    bound = _bound(_layout_bytes(L, item) + 2 * dense_bytes,
-                   OPS["reals"] * terms)
+    widths = {}
+    for kw in SPMM_WIDTHS:
+        S = X if kw == k else torch.randn((n, kw), generator=gen,
+                                          device="cuda")
+        got = K.sellcs_spmm(W, S)
+        err = _compare(f"sellcs_spmm k={kw}", got, K.sellcs_spmm_plain(W, S))
+        _compare(f"sellcs_spmm k={kw} vs torch.sparse.mm", got,
+                 torch.sparse.mm(csr, S))
+        _repeat(f"sellcs_spmm k={kw}", lambda: K.sellcs_spmm(W, S))
+        bound = _bound(_layout_bytes(L, item) + 2 * n * kw * item,
+                       OPS["reals"] * L.slots * kw)
+        widths[kw] = dict(
+            max_abs_err=err[0], max_rel_err=err[1],
+            plan=K.launch_plan("sellcs_spmm", n, kw, S.dtype)._asdict(),
+            ms=_time_ms(lambda: K.sellcs_spmm(W, S)),
+            plain_ms=_time_ms(lambda: K.sellcs_spmm_plain(W, S), 3, 3),
+            bound_ms=bound[0], bound_by=bound[1],
+            library_ms=_time_ms(lambda: torch.sparse.mm(csr, S)))
+        print(f"sellcs_spmm k={kw}: kernel_ms={widths[kw]['ms']!r} "
+              f"twin_ms={widths[kw]['plain_ms']!r} bound_ms={bound[0]!r} "
+              f"({bound[1]}) library_ms={widths[kw]['library_ms']!r} "
+              f"(torch.sparse.mm, CSR)", flush=True)
+        del S
+    _compare_nan("sellcs_spmm with a NaN in one row", K.sellcs_spmm(W, Xn),
+                 K.sellcs_spmm_plain(W, Xn))
     # reals ring, (nnz, k) multivalues (the Algorithm-1 W-hat SpMM)
     mv = torch.rand((W.nnz, k), generator=gen, device="cuda")
     Wh = W.with_vals(mv)
     got_mv, want_mv = K.sellcs_spmm(Wh, X), K.sellcs_spmm_plain(Wh, X)
     err_mv = _compare("sellcs_spmm multivalue", got_mv, want_mv)
+    _repeat("sellcs_spmm multivalue", lambda: K.sellcs_spmm(Wh, X))
+    _compare_nan("sellcs_spmm multivalue with a NaN in one row",
+                 K.sellcs_spmm(Wh, Xn), K.sellcs_spmm_plain(Wh, Xn))
     bound_mv = _bound(_layout_bytes(Wh.sell_kernel, item) + 2 * dense_bytes,
-                      OPS["reals"] * terms)
-    row = _row("sellcs_spmm", src, f"{ref}:95", err,
-               _time_ms(lambda: K.sellcs_spmm(W, X)),
-               _time_ms(lambda: K.sellcs_spmm_plain(W, X), 3, 3), bound,
-               _time_ms(lambda: torch.sparse.mm(csr, X)))
+                      OPS["reals"] * L.slots * k)
+    main = widths[k]
+    row = _row("sellcs_spmm", src, f"{ref}:95",
+               (main["max_abs_err"], main["max_rel_err"]), main["ms"],
+               main["plain_ms"], (main["bound_ms"], main["bound_by"]),
+               main["library_ms"])
+    row["widths"] = widths
     row["multivalue"] = dict(
         max_abs_err=err_mv[0], max_rel_err=err_mv[1],
         ms=_time_ms(lambda: K.sellcs_spmm(Wh, X)),
         plain_ms=_time_ms(lambda: K.sellcs_spmm_plain(Wh, X), 3, 3),
-        bound_ms=bound_mv[0], bound_by=bound_mv[1])
+        bound_ms=bound_mv[0], bound_by=bound_mv[1], library_ms=None)
+    print(f"sellcs_spmm multivalue k=4: kernel_ms="
+          f"{row['multivalue']['ms']!r} twin_ms="
+          f"{row['multivalue']['plain_ms']!r} bound_ms={bound_mv[0]!r} "
+          f"({bound_mv[1]})", flush=True)
     rows.append(row)
     del csr, mv, Wh
 
     # p-Laplacian apply (the gradient op)
     err = _compare("sellcs_plap_apply", K.sellcs_plap_apply(W, U, P, EPS),
                    K.sellcs_plap_apply_plain(W, U, P, EPS))
+    _repeat("sellcs_plap_apply", lambda: K.sellcs_plap_apply(W, U, P, EPS))
+    Un = U.clone()
+    Un[777777, 2] = float("nan")
+    _compare_nan("sellcs_plap_apply with a NaN in one row",
+                 K.sellcs_plap_apply(W, Un, P, EPS),
+                 K.sellcs_plap_apply_plain(W, Un, P, EPS))
     rows.append(_row(
         "sellcs_plap_apply", src, f"{ref}:109", err,
         _time_ms(lambda: K.sellcs_plap_apply(W, U, P, EPS)),
         _time_ms(lambda: K.sellcs_plap_apply_plain(W, U, P, EPS), 3, 3),
         _bound(_layout_bytes(L, item) + 2 * dense_bytes,
-               OPS["apply"] * terms), None))
+               OPS["apply"] * L.slots * k), None))
+    del Xn, Un
 
-    # matrix-free Newton HVP
+    # matrix-free Newton HVP (the element kernel)
     err = _compare("sellcs_plap_hvp", K.sellcs_plap_hvp(W, U, E, P, EPS),
                    K.sellcs_plap_hvp_plain(W, U, E, P, EPS))
     rows.append(_row(
@@ -268,9 +348,71 @@ def sellcs_kernel_phase(W, K, torch) -> list:
         _time_ms(lambda: K.sellcs_plap_hvp(W, U, E, P, EPS)),
         _time_ms(lambda: K.sellcs_plap_hvp_plain(W, U, E, P, EPS), 3, 3),
         _bound(_layout_bytes(L, item) + 3 * dense_bytes,
-               OPS["hvp"] * terms), None))
+               OPS["hvp"] * L.slots * k), None))
     _print_rows(rows)
     return rows
+
+
+def coo_sum_phase(W, KS, torch, api) -> dict:
+    """The COO backend's reals SpMM with full-size W-hat multivalues, and
+    ``row_sums``, each run twice: equal bit for bit (the fixed-order
+    segmented sum); the sum's time beside ``index_add_``'s (atomic)."""
+    from repro_torch.grblas import Descriptor
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    X = torch.randn((W.n_rows, 4), generator=gen, device="cuda")
+    Wh = W.with_vals(torch.rand((W.nnz, 4), generator=gen, device="cuda"))
+    desc = Descriptor(backend="coo")
+    before = KS.LAUNCHES["segment_sum"]
+    _repeat("api.mxm coo W-hat multivalues",
+            lambda: api.mxm(Wh, X, desc=desc))
+    _repeat("row_sums", W.row_sums)
+    if KS.LAUNCHES["segment_sum"] != before + 4:
+        raise AssertionError("the COO sum did not run through segment_sum")
+    contrib = Wh.vals * X[W.cols.long()]
+    rows = W.rows.long()
+    out = dict(
+        segment_sum_ms=_time_ms(lambda: KS.segment_sum(
+            contrib, rows, W.n_rows, W.row_ptr)),
+        index_add_ms=_time_ms(lambda: torch.zeros_like(X).index_add_(
+            0, rows, contrib)),
+        coo_mxm_ms=_time_ms(lambda: api.mxm(Wh, X, desc=desc), 3, 5))
+    print(f"coo sum: {out}", flush=True)
+    del Wh, contrib, rows
+    out["long_rows"] = _long_row_sum(KS, torch, gen)
+    return out
+
+
+def _long_row_sum(KS, torch, gen) -> dict:
+    """The sum where rows hold about a thousand entries (a planted
+    partition of 4 blocks of 4096 vertices, about 1000 neighbours inside
+    a block and 20 outside), where one thread adds a row's entries in
+    turn: by the row pointers, and by columns after a sort (the
+    transposed product), each beside ``index_add_`` and the byte bound."""
+    from repro_torch.graphs import sbm_graph_sparse
+
+    S, _ = sbm_graph_sparse([4096] * 4, deg_in=1000, deg_out=20,
+                            device="cuda", build_ell=False,
+                            build_sellcs=False)
+    n, k = S.n_rows, 4
+    vals = torch.rand((S.nnz, k), generator=gen, device="cuda")
+    rows, cols = S.rows.long(), S.cols.long()
+    deg = S.row_ptr[1:] - S.row_ptr[:-1]
+    _compare("segment_sum long rows vs index_add_",
+             KS.segment_sum(vals, rows, n, S.row_ptr),
+             torch.zeros((n, k), device="cuda").index_add_(0, rows, vals))
+    bound = _bound(4 * S.nnz * k + 8 * (n + 1) + 4 * n * k, S.nnz * k)
+    out = dict(
+        n=n, nnz=S.nnz, max_row=int(deg.max()), mean_row=S.nnz / n,
+        segment_sum_ms=_time_ms(lambda: KS.segment_sum(vals, rows, n,
+                                                       S.row_ptr)),
+        segment_sum_by_cols_ms=_time_ms(lambda: KS.segment_sum(vals, cols,
+                                                               n)),
+        index_add_ms=_time_ms(lambda: torch.zeros(
+            (n, k), device="cuda").index_add_(0, rows, vals)),
+        bound_ms=bound[0], bound_by=bound[1])
+    print(f"coo sum, long rows: {out}", flush=True)
+    return out
 
 
 def bsr_kernel_phase(W, KB, KP, torch) -> list:
@@ -413,6 +555,9 @@ def solve_phase(tag, W, counters, torch, psc, cfg, used) -> tuple:
     launches["bsr_spmm_by_width"] = {
         kw: c for K in counters
         for kw, c in getattr(K, "LAUNCHES_BY_WIDTH", {}).items()}
+    launches["sellcs_spmm_by_shape"] = {
+        shape: c for K in counters
+        for shape, c in getattr(K, "LAUNCHES_BY_SHAPE", {}).items()}
     orth = _orthonormality(res.U, torch)
     print(f"{tag}: wall_s={wall!r} stage_s={res.stage_seconds} "
           f"init_rcut={res.init_rcut!r} rcut={res.rcut!r} ncut={res.ncut!r} "
@@ -691,6 +836,135 @@ def kmeans_kernel_phase(U, torch, psc) -> dict:
     return row
 
 
+def kmeans_large_k_phase(torch, psc) -> dict:
+    """Stage 3's assignment where the main path's kernel alone would
+    refuse it: k = 48 in fp64 (the narrow kernel, the 8 restarts split
+    into two launches) and k = 70 in fp32 (the wide variant), on 2^20
+    row-normalized points with 8 kmeans++ restarts, held against the
+    plain version; then stage 3 (``psc.discretize``) at each k from
+    zeroed counts, every assignment through the kernels."""
+    from repro_torch.core import kmeans as KM
+    from repro_torch.kernels import kmeans_assign as KK
+
+    out = {}
+    n, R = 1 << 20, 8
+    for k, dtype in ((48, torch.float64), (70, torch.float32)):
+        tag = f"kmeans_assign k={k} {str(dtype).split('.')[-1]}"
+        gen = torch.Generator(device="cuda").manual_seed(k)
+        U = torch.randn((n, k), generator=gen, device="cuda", dtype=dtype)
+        X = U / torch.linalg.norm(U, dim=1, keepdim=True)
+        C = KM._plusplus_init(gen, X, k, R)
+        plan = KK.launch_plan(R, k, k, X.element_size())
+        KK.reset_launch_counts()
+        lab, dist = KK.kmeans_assign(X, C)
+        launches = dict(KK.LAUNCHES)
+        want_lab, want_dist = KK.kmeans_assign_ref(X, C)
+        eps = torch.finfo(dtype).eps
+        scale = float((X * X).sum(1).max() + (C * C).sum(-1).max())
+        # 8 ulps of the largest term the distance identity cancels, in
+        # this dtype (the cuda tests' limit)
+        err = _compare(tag, dist, want_dist, atol=8 * eps * scale, rtol=0.0)
+        top2 = KK.pairwise_sqdist(X, C).topk(2, dim=-1, largest=False).values
+        tie = (top2[..., 1] - top2[..., 0]) <= 16 * eps * scale
+        diff = lab != want_lab
+        print(f"{tag}: plan={plan} launches={launches} label differences="
+              f"{int(diff.sum())} (at ties {int((diff & tie).sum())}) of "
+              f"{lab.numel()}", flush=True)
+        if bool((diff & ~tie).any()):
+            raise AssertionError(f"{tag}: labels differ off a tie")
+        for variant, name in (("narrow", "kmeans_assign"),
+                              ("wide", "kmeans_assign_wide")):
+            if launches[name] != sum(v == variant for v, _, _ in plan):
+                raise AssertionError(f"{tag}: {name} launched "
+                                     f"{launches[name]} times, plan {plan}")
+        del top2, tie, diff, want_lab, want_dist
+        item = X.element_size()
+        nbytes = item * (X.numel() + C.numel() + R * n) + 4 * R * n
+        ops = R * n * k * (2 * k + 4) + 2 * n * k
+        bound = _bound(nbytes, ops, FP64_OPS_PER_S
+                       if dtype == torch.float64 else FP32_OPS_PER_S)
+        entry = dict(
+            shape=dict(n=n, d=k, restarts=R, kc=k,
+                       dtype=str(dtype).split(".")[-1]),
+            variant=plan[0][0], launches_per_assignment=len(plan),
+            max_abs_err=err[0], max_rel_err=err[0] / scale,
+            ms=_time_ms(lambda: KK.kmeans_assign(X, C)),
+            plain_ms=_time_ms(lambda: KK.kmeans_assign_ref(X, C), 3, 2),
+            bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+        print(f"{tag}: kernel_ms={entry['ms']!r} twin_ms="
+              f"{entry['plain_ms']!r} bound_ms={bound[0]!r} ({bound[1]})",
+              flush=True)
+        # stage 3 at this k, every assignment through the kernels
+        KK.reset_launch_counts()
+        t0 = time.perf_counter()
+        labels = psc.discretize(U, k, torch.Generator(device="cuda")
+                                .manual_seed(6))
+        torch.cuda.synchronize()
+        entry["stage3_s"] = time.perf_counter() - t0
+        entry["stage3_launches"] = dict(KK.LAUNCHES)
+        used = "kmeans_assign_wide" if plan[0][0] == "wide" \
+            else "kmeans_assign"
+        if KK.LAUNCHES[used] < (k - 1) + 51 or \
+                sum(KK.LAUNCHES.values()) != KK.LAUNCHES[used]:
+            raise AssertionError(f"{tag}: stage 3 launches "
+                                 f"{entry['stage3_launches']}")
+        if not (labels.shape == (n,) and int(labels.min()) >= 0
+                and int(labels.max()) < k):
+            raise AssertionError(f"{tag}: stage 3 labels out of range")
+        print(f"{tag}: stage 3 (discretize) s={entry['stage3_s']!r} "
+              f"launches={entry['stage3_launches']}", flush=True)
+        out[f"k{k}_{entry['shape']['dtype']}"] = entry
+        del U, X, C, lab, dist, labels
+    torch.cuda.empty_cache()
+    return out
+
+
+def bsr_large_tile_phase(coo, shape, torch, api) -> dict:
+    """The triangulation as BSR with 256 x 256 tiles and COO only: the BSR
+    kernels take tiles of at most 128, so ``auto`` runs the reals SpMM and
+    the p-Laplacian apply on ``coo``, and they match the BSR plain
+    versions; a named ``bsr_pallas`` or ``edge_pallas`` raises
+    BackendUnavailableError."""
+    from repro_torch.grblas import (BackendUnavailableError, Descriptor,
+                                    SparseMatrix, plap_edge_semiring,
+                                    reals_ring)
+    from repro_torch.grblas import backends as BE
+    from repro_torch.kernels import bsr_spmm as KB
+    from repro_torch.kernels import plap_edge as KP
+
+    W = SparseMatrix.from_coo(*coo, shape, build_ell=False,
+                              build_sellcs=False, build_bsr=True,
+                              block_size=256, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    X = torch.randn((W.n_rows, 4), generator=gen, device="cuda")
+    ring = plap_edge_semiring(P, EPS)
+    chosen = {"reals": BE.select_backend(W, X, reals_ring,
+                                         Descriptor()).name,
+              "plap_apply": BE.select_backend(W, X, ring,
+                                              Descriptor()).name}
+    if chosen != {"reals": "coo", "plap_apply": "coo"}:
+        raise AssertionError(f"bsr block 256: auto chose {chosen}")
+    err = _compare("bsr block 256 api.mxm (auto -> coo) vs bsr_spmm_plain",
+                   api.mxm(W, X), KB.bsr_spmm_plain(W, X))
+    err_a = _compare("bsr block 256 api.mxm plap_apply (auto -> coo) vs "
+                     "plap_apply_plain", api.mxm(W, X, ring),
+                     KP.plap_apply_plain(W, X, P, EPS))
+    for name, r in (("bsr_pallas", reals_ring), ("edge_pallas", ring)):
+        try:
+            api.mxm(W, X, r, desc=Descriptor(backend=name))
+        except BackendUnavailableError as e:
+            print(f"bsr block 256: named {name} raises "
+                  f"BackendUnavailableError ({str(e)[:60]}...)", flush=True)
+        else:
+            raise AssertionError(f"bsr block 256: named {name} ran")
+    out = dict(n_blocks=int(W.bsr_blocks.shape[0]), chosen=chosen,
+               max_abs_err=err[0], max_abs_err_apply=err_a[0])
+    print(f"bsr block 256: {out}", flush=True)
+    del W
+    torch.cuda.empty_cache()
+    return out
+
+
 def _profile(tag, fn, torch, reps: int) -> None:
     """Device busy share of ``reps`` calls and the kernels that take the
     most device time."""
@@ -810,10 +1084,50 @@ def lm_serve_phase(torch, counters) -> tuple:
     return launches, summary
 
 
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def sellcs_times(src: Path, torch) -> int:
+    """``--sellcs-src``: time the SELL-C-σ kernels of the tree at ``src``
+    (its ``repro_torch`` imported and built) at the main path's shapes on
+    ``delaunay_graph(20)``, with the inputs and timer of the full run,
+    and print one JSON line with the card's name and power limit."""
+    sys.path.insert(0, str(src.resolve()))
+    from repro_torch.graphs import delaunay_graph
+    from repro_torch.kernels import sellcs_spmm as K
+
+    K.build()
+    W, _ = delaunay_graph(GRAPH_R, device="cuda", build_sellcs=True,
+                          sell_c=32)
+    gen, X, U, E = _inputs(W.n_rows, torch)
+    Xs = {kw: X if kw == 4 else torch.randn((W.n_rows, kw), generator=gen,
+                                            device="cuda")
+          for kw in SPMM_WIDTHS}
+    Wh = W.with_vals(torch.rand((W.nnz, 4), generator=gen, device="cuda"))
+    calls = {f"sellcs_spmm scalar k={kw}": (lambda S=S: K.sellcs_spmm(W, S))
+             for kw, S in Xs.items()}
+    calls["sellcs_spmm multivalue k=4"] = lambda: K.sellcs_spmm(Wh, X)
+    calls["sellcs_plap_apply k=4"] = lambda: K.sellcs_plap_apply(
+        W, U, P, EPS)
+    calls["sellcs_plap_hvp k=4"] = lambda: K.sellcs_plap_hvp(
+        W, U, E, P, EPS)
+    print(json.dumps({"src": str(src), "card": _card(),
+                      "ms": {name: _time_ms(fn)
+                             for name, fn in calls.items()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--newton-iters", type=int, default=30)
     ap.add_argument("--tcg-iters", type=int, default=20)
+    ap.add_argument("--sellcs-src", type=Path, metavar="SRC",
+                    help="only time the SELL-C-σ kernels of the tree whose "
+                    "src directory is SRC and print one JSON line")
     args = ap.parse_args()
 
     import torch
@@ -821,6 +1135,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.sellcs_src is not None:
+        return sellcs_times(args.sellcs_src, torch)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -828,15 +1144,16 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import psc
     from repro_torch.graphs import delaunay_graph
-    from repro_torch.grblas import SparseMatrix
+    from repro_torch.grblas import SparseMatrix, api
     from repro_torch.kernels import bsr_spmm as KB
     from repro_torch.kernels import build_all
     from repro_torch.kernels import flash_attention as KF
     from repro_torch.kernels import kmeans_assign as KK
     from repro_torch.kernels import plap_edge as KP
+    from repro_torch.kernels import segment_sum as KS
     from repro_torch.kernels import sellcs_spmm as K
 
-    counters = (K, KB, KP, KK, KF)
+    counters = (K, KB, KP, KK, KF, KS)
     phase_s = {}
     t_phase = time.perf_counter()
 
@@ -847,10 +1164,7 @@ def main() -> int:
         t_phase = now
         print(f"phase {name}: {phase_s[name]!r} s", flush=True)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = _card()
     print(smi, flush=True)
     print(f"torch={torch.__version__} cuda={torch.version.cuda} "
           f"device={torch.cuda.get_device_name(0)}", flush=True)
@@ -872,7 +1186,9 @@ def main() -> int:
           flush=True)
     rows = sellcs_kernel_phase(W, K, torch)
     phase_done("sellcs_kernels")
-    by_path, final_U = {}, {}
+    coo_sum = coo_sum_phase(W, KS, torch, api)
+    phase_done("coo_sum")
+    by_path, final_U, hvp_counts = {}, {}, {}
     for mode in ("graphblas", "matrix_free"):
         used = ["sellcs_spmm", "sellcs_plap_apply", "kmeans_assign"]
         if mode == "matrix_free":
@@ -880,6 +1196,13 @@ def main() -> int:
         by_path[f"sellcs/{mode}"], res = flat_phase(
             "main", W, counters, torch, psc, "sellcs", mode, used, args)
         final_U[mode] = res.U
+        hvp_counts[f"sellcs/{mode}"] = res.hvp_counts
+        shapes = by_path[f"sellcs/{mode}"]["sellcs_spmm_by_shape"]
+        want = {"scalar k=8", "scalar k=24"} | (
+            {"multivalue k=4"} if mode == "graphblas" else set())
+        if not want <= set(shapes):
+            raise AssertionError(f"main[{mode}]: sellcs_spmm shapes "
+                                 f"{shapes}, expected {sorted(want)}")
     phase_done("sellcs_path")
     for mode, U in final_U.items():
         breakdown_phase("breakdown", W, torch, "sellcs", mode, U)
@@ -910,9 +1233,12 @@ def main() -> int:
         used = ["bsr_spmm", "plap_apply", "kmeans_assign"]
         if mode == "matrix_free":
             used.append("plap_hvp")
+        else:       # the W-hat SpMMs on coo: the fixed-order sum
+            used.append("segment_sum")
         by_path[f"bsr/{mode}"], res = flat_phase(
             "bsr", Wb, counters, torch, psc, "edge_pallas", mode, used, args)
         flat_rcut, final_U[mode] = res.rcut, res.U
+        hvp_counts[f"bsr/{mode}"] = res.hvp_counts
     phase_done("bsr_path")
     for mode, U in final_U.items():
         breakdown_phase("bsr breakdown", Wb, torch, "edge_pallas", mode, U)
@@ -921,11 +1247,16 @@ def main() -> int:
     by_path["multilevel_bsr/matrix_free"] = multilevel_phase(
         Wb, counters, torch, psc, flat_rcut, args)
     phase_done("multilevel_bsr_path")
+    coo, shape = Wb.host_coo(), (Wb.n_rows, Wb.n_cols)
     del Wb
     torch.cuda.empty_cache()
+    bsr256 = bsr_large_tile_phase(coo, shape, torch, api)
+    del coo
+    phase_done("bsr_block_256")
 
     # ---- dense slice: flash attention, kmeans_assign, Gemma-2B serving
     rows.append(kmeans_kernel_phase(stage3_U, torch, psc))
+    rows[-1]["large_k"] = kmeans_large_k_phase(torch, psc)
     rows.append(flash_kernel_phase(torch))
     phase_done("dense_kernels")
     by_path["lm_serve"], lm = lm_serve_phase(torch, counters)
@@ -939,13 +1270,23 @@ def main() -> int:
             row["launches_by_width"] = {p: c["bsr_spmm_by_width"]
                                         for p, c in by_path.items()
                                         if c.get("bsr_spmm_by_width")}
+        if row["name"] == "sellcs_spmm":
+            row["launches_by_shape"] = {p: c["sellcs_spmm_by_shape"]
+                                        for p, c in by_path.items()
+                                        if c.get("sellcs_spmm_by_shape")}
     print(f"kmeans_assign launches per solve: "
           f"{ {p: c['kmeans_assign'] for p, c in by_path.items()} }",
           flush=True)
+    coo_sum["launches_by_path"] = {p: c["segment_sum"]
+                                   for p, c in by_path.items()}
+    hvps = {p: sum(c) for p, c in hvp_counts.items()}
+    print(f"hvp counts per solve: {hvps}", flush=True)
     print(f"phase_seconds={phase_s} total_s={sum(phase_s.values())!r}",
           flush=True)
     print(smi, flush=True)           # again, near the end of the output
     print(json.dumps({"lm_serve": lm}), flush=True)
+    print(json.dumps({"coo_sum": coo_sum, "bsr_block_256": bsr256,
+                      "hvp_counts": hvps}), flush=True)
     print(json.dumps({"kernels": rows, "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,10 +11,16 @@ order:
   sellcs       SELL-C-σ       reals (incl. (nnz,k) multivalues),    0
                               plap_apply, plap_hvp
   ell          padded ELL     rings with a padded reducer          10
-  bsr_pallas   BSR tiles      reals, (n,k) multivector             15
-  edge_pallas  BSR tiles      plap_apply, plap_hvp; square         16
+  bsr_pallas   BSR tiles*     reals, (n,k) multivector             15
+  edge_pallas  BSR tiles*     plap_apply, plap_hvp; square         16
   coo          COO (always)   any ring, transpose, multivalues     20
   spgemm       COO (always)   reals, X a SparseMatrix              25
+
+* CUDA tiles of at most ``MAX_BLOCK`` (128), the kernels' limit
+(``bsr_tiles_fit``); above it the two BSR backends decline, so ``auto``
+falls through to ``coo`` and a named BSR backend raises
+BackendUnavailableError.  CPU tiles, run by the plain versions, have no
+limit.
 
 The port's ``auto`` picks ``sellcs`` whenever that layout is built: its
 SpMMs run as the hand-written CUDA kernels of ``kernels/sellcs_spmm``.
@@ -37,8 +43,11 @@ import dataclasses
 from typing import Callable, Dict
 
 import numpy as np
+import torch
 
 from repro_torch.grblas.containers import SparseMatrix
+from repro_torch.kernels.bsr_spmm.bsr_spmm import MAX_BLOCK
+from repro_torch.kernels.segment_sum import segment_sum
 from repro_torch.grblas.semiring import (
     EdgeSemiring,
     PairEdgeSemiring,
@@ -165,17 +174,28 @@ def _coo_execute(A, X, ring, desc):
     out_idx, src_idx = (A.cols, A.rows) if desc.transpose else (A.rows, A.cols)
     out_idx, src_idx = out_idx.long(), src_idx.long()
     n_out = A.n_cols if desc.transpose else A.n_rows
+    # the entries are grouped by row already; by column only after a sort
+    ptr = None if desc.transpose else A.row_ptr
     if isinstance(ring, PairEdgeSemiring):
         U, E = X
         vals = _broadcast_vals(A.vals, U.ndim)
         contrib = ring.edge_mul(vals, U[src_idx], U[out_idx],
                                 E[src_idx], E[out_idx])
-        return ring.base.segment_reduce(contrib, out_idx, n_out)
+        return _segment_reduce(ring.base, contrib, out_idx, n_out, ptr)
     vals = _broadcast_vals(A.vals, X.ndim)
     if isinstance(ring, EdgeSemiring):
         contrib = ring.edge_mul(vals, X[src_idx], X[out_idx])
-        return ring.base.segment_reduce(contrib, out_idx, n_out)
+        return _segment_reduce(ring.base, contrib, out_idx, n_out, ptr)
     contrib = ring.mul(vals, X[src_idx])
+    return _segment_reduce(ring, contrib, out_idx, n_out, ptr)
+
+
+def _segment_reduce(ring, contrib, out_idx, n_out, ptr):
+    """The ring's segment reduction; the reals sum (``segment_sum``, a sum
+    in entry order on every device) is handed the row pointers where the
+    outputs are the matrix's rows, and skips its sort."""
+    if ptr is not None and fast_paths(ring).segment is segment_sum:
+        return segment_sum(contrib, out_idx, n_out, ptr)
     return ring.segment_reduce(contrib, out_idx, n_out)
 
 
@@ -245,9 +265,18 @@ def _sellcs_execute(A, X, ring, desc):
 
 # ----------------------------------------------------- bsr_pallas backend
 
+def bsr_tiles_fit(block_size: int, device) -> bool:
+    """Can the BSR kernels take tiles of ``block_size`` on ``device``?
+    The CUDA kernels take at most ``MAX_BLOCK`` (128); the plain versions
+    that run CPU tiles have no limit.  Decided by the tiles' device, not
+    the multivector's: ``can_execute`` probes with meta tensors."""
+    return torch.device(device).type != "cuda" or block_size <= MAX_BLOCK
+
+
 def _bsr_supports(A, X, ring, desc):
     return (isinstance(A, SparseMatrix)
             and A.bsr_blocks is not None
+            and bsr_tiles_fit(A.block_size, A.bsr_blocks.device)
             and A.vals.ndim == 1
             and isinstance(ring, Semiring)
             and ring.name == "reals_+x"
@@ -269,6 +298,7 @@ def _bsr_execute(A, X, ring, desc):
 
 def _edge_pallas_supports(A, X, ring, desc):
     if not (isinstance(A, SparseMatrix) and A.bsr_blocks is not None
+            and bsr_tiles_fit(A.block_size, A.bsr_blocks.device)
             and A.vals.ndim == 1 and not desc.transpose and _square(A)):
         return False
     if isinstance(ring, EdgeSemiring) and ring.kind == "plap_apply":

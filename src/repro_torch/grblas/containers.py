@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, numpy_dtype, resolve_device, torch_dtype
+from repro_torch.kernels.segment_sum import segment_sum
 
 # When full-ELL padding would store more than this multiple of nnz,
 # from_coo builds the SELL-C-σ layout as well (the reference's policy).
@@ -71,7 +72,9 @@ class SellKernelLayout:
     holds ORIGINAL column ids (pads: the row's own original id, value 0)
     and ``perm[r]`` is the original id of permuted row r.  ``vals`` is
     (slots,) or (slots, k) multivalues; ``scatter`` maps each slot to
-    its COO nnz index (pads -> nnz).
+    its COO nnz index (pads -> nnz).  ``block_orders`` caches the
+    kernels' block schedules, which depend on ``perm`` alone; a
+    ``with_vals`` copy shares the cache.
     """
 
     n: int
@@ -82,6 +85,7 @@ class SellKernelLayout:
     cols: torch.Tensor        # (slots,) int32
     vals: torch.Tensor        # (slots,) or (slots, k)
     scatter: torch.Tensor     # (slots,) int64
+    block_orders: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def slots(self) -> int:
@@ -101,6 +105,9 @@ class SparseMatrix:
     rows: torch.Tensor                       # (nnz,) int32
     cols: torch.Tensor                       # (nnz,) int32
     vals: torch.Tensor                       # (nnz,) or (nnz, k)
+    # entries are sorted by (row, col): row r holds [row_ptr[r],
+    # row_ptr[r+1]), (n_rows + 1,) int64
+    row_ptr: Optional[torch.Tensor] = None
     ell_cols: Optional[torch.Tensor] = None  # (n_rows, max_nnz) int32
     ell_vals: Optional[torch.Tensor] = None  # (n_rows, max_nnz)
     block_size: int = 0
@@ -172,6 +179,9 @@ class SparseMatrix:
             rows=torch.as_tensor(rows.astype(np.int32), device=dev),
             cols=torch.as_tensor(cols.astype(np.int32), device=dev),
             vals=torch.as_tensor(vals.astype(np_dtype), device=dev),
+            row_ptr=torch.as_tensor(
+                np.searchsorted(rows, np.arange(n_rows + 1)).astype(np.int64),
+                device=dev),
         )
         counts = pos_in_row = None
         if build_ell is not False or build_sellcs is not False:
@@ -363,7 +373,7 @@ class SparseMatrix:
         (the per-run ``sell_vals`` wait until they are read)."""
         m = SparseMatrix(n_rows=self.n_rows, n_cols=self.n_cols,
                          nnz=self.nnz, rows=self.rows, cols=self.cols,
-                         vals=vals)
+                         vals=vals, row_ptr=self.row_ptr)
         if self.sell_scatter is not None:
             pad = torch.zeros((1,) + tuple(vals.shape[1:]), dtype=vals.dtype,
                               device=vals.device)
@@ -393,10 +403,9 @@ class SparseMatrix:
                             accumulate=True)
 
     def row_sums(self) -> torch.Tensor:
-        return torch.zeros((self.n_rows,) + tuple(self.vals.shape[1:]),
-                           dtype=self.vals.dtype,
-                           device=self.device).index_add_(
-            0, self.rows.long(), self.vals)
+        """Sum of each row's stored values, added in (row, col) order: the
+        same bit for bit on every run (``kernels.segment_sum``)."""
+        return segment_sum(self.vals, self.rows, self.n_rows, self.row_ptr)
 
     # ---- layout cost metrics (stored values / nnz; 1.0 = no padding) ----
     def ell_fill_ratio(self) -> float:

@@ -29,6 +29,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import phi as PHI
+from repro_torch.kernels.segment_sum import segment_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,17 +116,13 @@ def _mul(a, b):
     return a * b
 
 
-def _segment_sum(values, segment_ids, num_segments):
-    out = torch.zeros((num_segments,) + tuple(values.shape[1:]),
-                      dtype=values.dtype, device=values.device)
-    return out.index_add_(0, segment_ids.long(), values)
-
-
 reals_ring = Semiring(add=_add, mul=_mul, zero=0.0, one=1.0, name="reals_+x")
 
 register_ring_fast_paths(
     "reals_+x",
-    segment=_segment_sum,
+    # a sum in entry order, the same bit for bit on every run (a float
+    # index_add_ on the card would add in atomic order)
+    segment=segment_sum,
     dense=lambda a, axis: torch.sum(a) if axis is None else torch.sum(a, dim=axis),
     padded=lambda contrib: torch.sum(contrib, dim=1),  # pads are exact no-ops
 )

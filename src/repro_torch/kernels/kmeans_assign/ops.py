@@ -2,9 +2,10 @@
 
 ``kmeans_assign(X, C)`` returns (labels int32, min sqdist) for X (n, d)
 and C (kc, d) or a batch (R, kc, d).  A CUDA tensor goes to the
-hand-written kernel (``kmeans_assign.kmeans_assign_cuda``), a CPU
-tensor to the plain version (``ref.kmeans_assign_ref``); any other
-device raises.
+hand-written kernels (``kmeans_assign.kmeans_assign_planned``: the
+narrow variant in groups of restarts that fit its shared memory, or the
+wide variant for d > 64 or kc > 128), a CPU tensor to the plain version
+(``ref.kmeans_assign_ref``); any other device raises.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.kmeans_assign.kmeans_assign import (
-    check_operands, kmeans_assign_cuda)
+    check_operands, kmeans_assign_planned)
 from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_ref
 
 
@@ -22,4 +23,4 @@ def kmeans_assign(X: torch.Tensor, C: torch.Tensor
     check_operands(X, C)
     if X.device.type == "cpu":
         return kmeans_assign_ref(X, C)
-    return kmeans_assign_cuda(X.contiguous(), C.contiguous())
+    return kmeans_assign_planned(X.contiguous(), C.contiguous())

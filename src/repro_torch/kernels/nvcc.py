@@ -1,5 +1,5 @@
 """Build a CUDA source into a shared library with a plain C interface and
-open it with ctypes — the build route of the BSR kernels.
+open it with ctypes — the build route of every kernel of the port.
 
 ``NvccLibrary(name, source, functions)`` compiles ``source`` with
 ``nvcc`` (``kernels/csrc`` on the include path) into
@@ -9,9 +9,6 @@ unchanged library is built once per checkout.  ``start()`` launches
 nvcc in the background, so several libraries build at once;
 ``load()`` waits for the build and opens the library with the argument
 types of ``functions``.  Nothing is built when a module is imported.
-
-The SELL-C-σ extension (``kernels/sellcs_spmm``) shares the build
-directory, the target flags and the shared headers.
 """
 from __future__ import annotations
 
@@ -25,8 +22,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 SHARED_CSRC = Path(__file__).resolve().parent / "csrc"
-CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
-_NVCC_FLAGS = CUDA_FLAGS + ["-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+_NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-shared", "-Xcompiler", "-fPIC"]
 
 # ctypes argument codes of the C interfaces
 PTR, I32, I64, F64 = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,

@@ -18,52 +18,121 @@ through the per-run twins ``*_ref`` — the port of the reference's
 ``kernels/sellcs_spmm/ref.py`` — then un-permuted, exactly the
 computation of the reference's ``backends.sellcs_run``.
 
-The extension is built with ``torch.utils.cpp_extension.load`` at first
-CUDA use (or by ``build()``) into ``build/torch_ext/`` at the root of the
-checkout; importing this module builds nothing.
+``launch_plan`` routes a launch: ``sellcs_spmm`` and
+``sellcs_plap_apply`` run the row kernel at a compiled width (k = 4, 8,
+16, 24, with 16-byte loads; ``lanes`` threads a row, one per 32 bytes of
+it) or its generic variant (chunks of 4 columns, scalar loads); how many
+slots a thread takes at once is the kernel's own choice.  The reals ring
+visits the blocks in the order ``block_order`` gives (by the original id of their first row,
+cached on the layout); ``sellcs_plap_hvp`` runs the element kernel (a
+thread owns one output element).
+
+The library is built with nvcc (``kernels/nvcc.py``) at first CUDA use
+(or by ``build``/``start_build``) into ``build/torch_ext/`` at the root
+of the checkout and opened with ctypes; importing this module builds
+nothing.
 """
 from __future__ import annotations
 
-import functools
-import os
 import time
 from pathlib import Path
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.core import phi as PHI
+from repro_torch.kernels.nvcc import F64, I32, PTR, NvccLibrary, check
 
-from repro_torch.kernels.nvcc import BUILD_DIR, CUDA_FLAGS, SHARED_CSRC
-
-_CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = [_CSRC / "binding.cpp", _CSRC / "sellcs_kernels.cu"]
+LIBRARY = NvccLibrary(
+    "sellcs_spmm",
+    Path(__file__).resolve().parent / "csrc" / "sellcs_kernels.cu",
+    {"sellcs_launch": (I32, [I32, I32, I32, I32, I32, I32, PTR, PTR, PTR,
+                             PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, I32,
+                             F64, F64, PTR])})
 
 # kernel launches per wrapper: incremented where the kernel is launched
-# and nowhere else
+# and nowhere else; sellcs_spmm's launches also by shape ("scalar k=8",
+# "multivalue k=4")
 LAUNCHES = {"sellcs_spmm": 0, "sellcs_plap_apply": 0, "sellcs_plap_hvp": 0}
+LAUNCHES_BY_SHAPE: Dict[str, int] = {}
+
+_KIND = {"sellcs_spmm": 0, "sellcs_plap_apply": 1, "sellcs_plap_hvp": 2}
+# the widths the row kernel is compiled for (16-byte loads); any other k
+# runs the generic variant on chunks of GENERIC_WIDTH columns
+ROW_WIDTHS = (4, 8, 16, 24)
+GENERIC_WIDTH = 4
+THREADS = 256       # threads per block (kThreads)
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_SHAPE.clear()
 
 
-@functools.cache
-def _extension():
-    from torch.utils.cpp_extension import load
-
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    return load(name="repro_torch_sellcs", sources=[str(s) for s in _SOURCES],
-                build_directory=str(BUILD_DIR), extra_cflags=["-O2"],
-                extra_cuda_cflags=CUDA_FLAGS,
-                extra_include_paths=[str(SHARED_CSRC)], verbose=False)
+def start_build() -> None:
+    """Start nvcc in the background (returns at once)."""
+    LIBRARY.start()
 
 
 def build() -> float:
-    """Build (or load the cached build of) the extension; seconds taken."""
+    """Build (or open the cached build of) the library; seconds taken."""
     t0 = time.perf_counter()
-    _extension()
+    LIBRARY.load()
     return time.perf_counter() - t0
+
+
+class Plan(NamedTuple):
+    variant: str        # "row" | "row_generic" | "element"
+    width: int          # columns a launch covers per row: k, 4 (generic), 1
+    lanes: int          # threads per row (row kernels), else 1
+    grid: Tuple[int, int]
+    threads: int
+    ordered: bool       # blocks visited in ``block_order``
+
+
+def lanes(row_bytes: int) -> int:
+    """Threads that share a row of ``row_bytes``: one per 32 bytes.  The
+    kernel compiles each width for these lanes and refuses a launch
+    planned for others."""
+    return 1 if row_bytes <= 32 else row_bytes // 32
+
+
+def launch_plan(name: str, n: int, k: int, dtype: torch.dtype,
+                aligned: bool = True) -> Plan:
+    """The launch of wrapper ``name`` over n rows and k columns: variant,
+    columns, threads per row, grid, block size and block order.  ``aligned``: every dense operand starts on a 16-byte boundary
+    (the compiled widths read rows with 16-byte loads).  The slice height
+    C does not enter: the row kernels take any C."""
+    if name not in _KIND:
+        raise ValueError(f"unknown SELL-C-σ kernel {name!r}")
+    if name == "sellcs_plap_hvp":
+        return Plan("element", 1, 1, (-(-n * k // THREADS), 1), THREADS,
+                    False)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    ordered = name == "sellcs_spmm"
+    if k in ROW_WIDTHS and aligned:
+        g = lanes(k * itemsize)
+        return Plan("row", k, g, (-(-n * g // THREADS), 1), THREADS,
+                    ordered)
+    return Plan("row_generic", GENERIC_WIDTH, 1,
+                (-(-n // THREADS), -(-k // GENERIC_WIDTH)), THREADS, ordered)
+
+
+def block_order(L, plan: Plan) -> torch.Tensor:
+    """The row kernel's blocks sorted by the original id of their first
+    row (int32, on the layout's device), cached on the layout per threads
+    per row.  The global degree sort of SELL-C-σ interleaves rows from all
+    over X; visiting the blocks in this order keeps the rows they gather
+    in L2."""
+    order = L.block_orders.get(plan.lanes)
+    if order is None:
+        blocks = torch.arange(plan.grid[0], device=L.perm.device)
+        first = (blocks * plan.threads // plan.lanes).clamp(max=L.n - 1)
+        order = torch.argsort(L.perm[first].long(), stable=True).to(
+            torch.int32)
+        L.block_orders[plan.lanes] = order
+    return order
 
 
 # ------------------------------------------------------------ plain twins
@@ -141,6 +210,8 @@ def _check(A, *Xs) -> bool:
         if Z.device != L.vals.device:
             raise ValueError(f"multivector on {Z.device}, matrix on "
                              f"{L.vals.device}")
+    if not L.vals.is_contiguous():
+        raise ValueError("the layout's values must be contiguous")
     if L.vals.ndim == 2 and L.vals.shape[1] != X.shape[1]:
         raise ValueError(f"(nnz, {L.vals.shape[1]}) multivalues against a "
                          f"(n, {X.shape[1]}) multivector")
@@ -151,16 +222,42 @@ def _check(A, *Xs) -> bool:
     return True
 
 
+def _launch(name: str, A, X: torch.Tensor, E: torch.Tensor, p: float = 0.0,
+            eps: float = 0.0) -> torch.Tensor:
+    """One launch of wrapper ``name``'s kernel over the whole layout."""
+    L = A.sell_kernel
+    n, k = X.shape
+    if n * k >= 2 ** 31 * THREADS:
+        raise ValueError("multivector too large for the kernels' grid")
+    Y = torch.empty_like(X)
+    multivalue = L.vals.ndim == 2
+    vector_operands = (X, Y, L.vals) if multivalue else (X, Y)
+    aligned = all(t.data_ptr() % 16 == 0 for t in vector_operands)
+    plan = launch_plan(name, n, k, X.dtype, aligned)
+    order = block_order(L, plan) if plan.ordered else None
+    lib = LIBRARY.load()
+    dev = X.device.index if X.device.index is not None \
+        else torch.cuda.current_device()
+    code = lib.sellcs_launch(
+        _KIND[name], int(X.dtype == torch.float64), int(multivalue),
+        plan.width if plan.variant == "row" else 0, plan.lanes, dev, L.slice_ptr.data_ptr(), L.slice_w.data_ptr(), L.perm.data_ptr(),
+        L.cols.data_ptr(), L.vals.data_ptr(), X.data_ptr(), E.data_ptr(),
+        Y.data_ptr(), None if order is None else order.data_ptr(), n, L.C,
+        k, float(p), float(eps),
+        torch.cuda.current_stream(X.device).cuda_stream)
+    check(lib, code, name)
+    LAUNCHES[name] += 1
+    if name == "sellcs_spmm":
+        shape = f"{'multivalue' if multivalue else 'scalar'} k={k}"
+        LAUNCHES_BY_SHAPE[shape] = LAUNCHES_BY_SHAPE.get(shape, 0) + 1
+    return Y
+
+
 def sellcs_spmm(A, X: torch.Tensor) -> torch.Tensor:
     """Reals-ring SpMM over the whole SELL-C-σ layout (one launch)."""
     if not _check(A, X):
         return sellcs_spmm_plain(A, X)
-    L = A.sell_kernel
-    Y = torch.empty_like(X)
-    _extension().spmm(L.slice_ptr, L.slice_w, L.perm, L.cols, L.vals, X, Y,
-                      L.C)
-    LAUNCHES["sellcs_spmm"] += 1
-    return Y
+    return _launch("sellcs_spmm", A, X, X)
 
 
 def sellcs_plap_apply(A, X: torch.Tensor, p: float, eps: float) -> torch.Tensor:
@@ -169,12 +266,7 @@ def sellcs_plap_apply(A, X: torch.Tensor, p: float, eps: float) -> torch.Tensor:
         raise ValueError("the p-Laplacian apply takes scalar edge weights")
     if not _check(A, X):
         return sellcs_plap_apply_plain(A, X, p, eps)
-    L = A.sell_kernel
-    Y = torch.empty_like(X)
-    _extension().plap_apply(L.slice_ptr, L.slice_w, L.perm, L.cols, L.vals,
-                            X, Y, L.C, float(p), float(eps))
-    LAUNCHES["sellcs_plap_apply"] += 1
-    return Y
+    return _launch("sellcs_plap_apply", A, X, X, p, eps)
 
 
 def sellcs_plap_hvp(A, U: torch.Tensor, E: torch.Tensor, p: float,
@@ -184,9 +276,4 @@ def sellcs_plap_hvp(A, U: torch.Tensor, E: torch.Tensor, p: float,
         raise ValueError("the p-Laplacian HVP takes scalar edge weights")
     if not _check(A, U, E):
         return sellcs_plap_hvp_plain(A, U, E, p, eps)
-    L = A.sell_kernel
-    Y = torch.empty_like(U)
-    _extension().plap_hvp(L.slice_ptr, L.slice_w, L.perm, L.cols, L.vals, U,
-                          E, Y, L.C, float(p), float(eps))
-    LAUNCHES["sellcs_plap_hvp"] += 1
-    return Y
+    return _launch("sellcs_plap_hvp", A, U, E, p, eps)

@@ -694,3 +694,315 @@ def test_cuda_engine_runs_through_the_flash_kernel(cuda_device,
         got = M.prefill(cfg, P, tok.to(cuda_device), 160)[0].float().cpu()
         want = M.prefill(cfg, Pc, tok, 160)[0].float()
         assert float((got - want).norm() / want.norm()) <= 2 ** -6
+
+
+# ------------------------------------- SELL-C-σ: the redesigned row kernels
+
+def _sell_operands(W, k, seed):
+    gen = torch.Generator(device=W.vals.device).manual_seed(seed)
+    tdt = W.vals.dtype
+    X = torch.randn(W.n_rows, k, generator=gen, device=W.vals.device,
+                    dtype=tdt)
+    mv = torch.rand(W.nnz, k, generator=gen, device=W.vals.device, dtype=tdt)
+    return X, W.with_vals(mv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("eps", [1e-8, 0.0])
+@pytest.mark.parametrize("k", [1, 4, 8, 24, 33])
+@pytest.mark.parametrize("C", [8, 32])
+def test_cuda_sellcs_row_kernels_match_plain_and_repeat_bitwise(
+        cuda_device, dtype, eps, k, C):
+    """sellcs_spmm (scalar values and (nnz, k) multivalues) and
+    sellcs_plap_apply at compiled widths (4, 8, 24) and through the
+    generic variant (1, 33), against their plain versions; two calls equal
+    bit for bit; one launch each."""
+    coo, shape = _graph(1000)
+    W = convert.sparse_matrix(coo, shape, device=cuda_device, dtype=dtype,
+                              build_sellcs=True, sell_c=C)
+    X, Wh = _sell_operands(W, k, seed=k)
+    calls = [(lambda: K.sellcs_spmm(W, X), K.sellcs_spmm_plain(W, X),
+              "sellcs_spmm"),
+             (lambda: K.sellcs_spmm(Wh, X), K.sellcs_spmm_plain(Wh, X),
+              "sellcs_spmm"),
+             (lambda: K.sellcs_plap_apply(W, X, 1.2, eps),
+              K.sellcs_plap_apply_plain(W, X, 1.2, eps), "sellcs_plap_apply")]
+    for call, want, name in calls:
+        before = K.LAUNCHES[name]
+        got = call()
+        again = call()
+        torch.cuda.synchronize()
+        assert K.LAUNCHES[name] == before + 2
+        assert torch.equal(got, again)
+        np.testing.assert_allclose(convert.to_numpy(got),
+                                   convert.to_numpy(want), **TOL[dtype])
+    # the isolated vertex 0 has only pads: exactly 0
+    assert float(calls[0][0]()[0].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [4, 8, 24])
+def test_cuda_sellcs_misaligned_operands_take_the_generic_variant(
+        cuda_device, dtype, k):
+    """A contiguous multivector that does not start on a 16-byte boundary
+    runs the generic variant and matches the plain version."""
+    coo, shape = _graph(500)
+    W = convert.sparse_matrix(coo, shape, device=cuda_device, dtype=dtype,
+                              build_sellcs=True, sell_c=32)
+    X, _ = _sell_operands(W, k, seed=1)
+    buf = torch.empty(X.numel() + 1, dtype=X.dtype, device=cuda_device)
+    Xm = buf[1:].view(X.shape)
+    Xm.copy_(X)
+    assert Xm.is_contiguous() and Xm.data_ptr() % 16 != 0
+    assert K.launch_plan("sellcs_spmm", W.n_rows, k, X.dtype,
+                         aligned=False).variant == "row_generic"
+    for got, want in ((K.sellcs_spmm(W, Xm), K.sellcs_spmm_plain(W, X)),
+                      (K.sellcs_plap_apply(W, Xm, 1.5, 1e-8),
+                       K.sellcs_plap_apply_plain(W, X, 1.5, 1e-8))):
+        np.testing.assert_allclose(convert.to_numpy(got),
+                                   convert.to_numpy(want), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("C", [8, 32])
+@pytest.mark.parametrize("value", [np.nan, np.inf])
+def test_cuda_sellcs_nonfinite_lands_where_plain(cuda_device, dtype, C,
+                                                 value):
+    """A NaN or inf in one row of X: NaN and inf exactly where the plain
+    versions put them (the row's neighbours; its own row where a pad or
+    phi meets it), the rest within the tolerance."""
+    coo, shape = _graph(1000)
+    W = convert.sparse_matrix(coo, shape, device=cuda_device, dtype=dtype,
+                              build_sellcs=True, sell_c=C)
+    X, Wh = _sell_operands(W, 4, seed=2)
+    X[1, 1] = float(value)     # vertex 1 is a hub
+    for got, want in ((K.sellcs_spmm(W, X), K.sellcs_spmm_plain(W, X)),
+                      (K.sellcs_spmm(Wh, X), K.sellcs_spmm_plain(Wh, X)),
+                      (K.sellcs_plap_apply(W, X, 1.2, 1e-8),
+                       K.sellcs_plap_apply_plain(W, X, 1.2, 1e-8))):
+        assert not bool(torch.isfinite(want).all())
+        _assert_matches_plain(got, want, dtype)
+        np.testing.assert_array_equal(convert.to_numpy(torch.isinf(got)),
+                                      convert.to_numpy(torch.isinf(want)))
+
+
+# --------------------------------------------- kmeans: the wide variant
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,d,kc,R", [
+    (torch.float32, 3000, 70, 70, 8),      # stage 3 at k = 70
+    (torch.float64, 3000, 48, 48, 8),      # stage 3 at k = 48: 7 + 1
+    (torch.float32, 1000, 70, 1, 8),       # kmeans++'s first step at k = 70
+    (torch.float32, 500, 100, 3, 2),
+    (torch.float64, 333, 4, 200, 1),       # more than 128 centroids
+    (torch.float32, 257, 65, 129, 3),
+    (torch.float64, 129, 33, 31, 2),
+])
+def test_cuda_kmeans_planned_launches_match_plain(cuda_device, dtype, n, d,
+                                                  kc, R):
+    """Every launch of the plan, narrow or wide, against the plain
+    version: distances to 8 ulps of the largest term their identity
+    cancels, labels equal except at ties to 16."""
+    from repro_torch.kernels.kmeans_assign import (kmeans_assign,
+                                                   kmeans_assign_ref,
+                                                   pairwise_sqdist)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(n + d)
+    X = torch.randn((n, d), generator=gen, device=cuda_device, dtype=dtype)
+    C = torch.randn((R, kc, d), generator=gen, device=cuda_device,
+                    dtype=dtype)
+    plan = KK.launch_plan(R, kc, d, X.element_size())
+    before = dict(KK.LAUNCHES)
+    lab, dist = kmeans_assign(X, C)
+    want_lab, want_dist = kmeans_assign_ref(X, C)
+    torch.cuda.synchronize()
+    for variant, name in (("narrow", "kmeans_assign"),
+                          ("wide", "kmeans_assign_wide")):
+        assert KK.LAUNCHES[name] == before[name] + sum(
+            v == variant for v, _, _ in plan)
+    eps = torch.finfo(dtype).eps
+    scale = float((X * X).sum(1).max() + (C * C).sum(-1).max())
+    np.testing.assert_allclose(convert.to_numpy(dist),
+                               convert.to_numpy(want_dist), rtol=0,
+                               atol=8 * eps * scale)
+    if kc > 1:
+        top2 = pairwise_sqdist(X, C).topk(2, dim=-1, largest=False).values
+        tie = (top2[..., 1] - top2[..., 0]) <= 16 * eps * scale
+        assert not bool(((lab != want_lab) & ~tie).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_kmeans_wide_variant_agrees_with_narrow(cuda_device, dtype):
+    """On a shape both take, the two variants add the same products in
+    the same order: the same labels, distances within 2 ulps of the
+    largest term (the compiler may contract the last step differently)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    X = torch.randn((2000, 16), generator=gen, device=cuda_device,
+                    dtype=dtype)
+    C = torch.randn((4, 40, 16), generator=gen, device=cuda_device,
+                    dtype=dtype)
+    lab_n, dist_n = KK.kmeans_assign_cuda(X, C)
+    lab_w, dist_w = KK.kmeans_assign_wide_cuda(X, C)
+    torch.cuda.synchronize()
+    assert torch.equal(lab_n, lab_w)
+    scale = float((X * X).sum(1).max() + (C * C).sum(-1).max())
+    assert float((dist_n - dist_w).abs().max()) <= \
+        2 * torch.finfo(dtype).eps * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,dtype", [(70, torch.float32),
+                                     (48, torch.float64)])
+def test_cuda_stage3_at_large_k_runs_through_the_kernels(cuda_device, k,
+                                                         dtype):
+    """Stage 3 (kmeans++ and Lloyd over 8 restarts) at k = 70 fp32 and
+    k = 48 fp64 on the card: every assignment through the kernels, and
+    Lloyd from one C0 gives the labels of Lloyd through the plain
+    assignment, on well-separated points."""
+    from unittest import mock
+
+    from repro_torch.core import kmeans as KM
+    from repro_torch.core import psc
+    from repro_torch.kernels.kmeans_assign import kmeans_assign_ref
+
+    rng = np.random.default_rng(k)
+    centers = rng.standard_normal((k, k))
+    X = centers[rng.integers(0, k, 20000)] + 0.05 * rng.standard_normal(
+        (20000, k))
+    U = torch.as_tensor(X, dtype=dtype, device=cuda_device)
+    KK.reset_launch_counts()
+    labels = psc.discretize(U, k, torch.Generator(device=cuda_device)
+                            .manual_seed(0))
+    assert labels.shape == (20000,) and int(labels.max()) < k
+    wide = k > 64
+    assert KK.LAUNCHES["kmeans_assign_wide" if wide else "kmeans_assign"] \
+        >= (k - 1) + 51
+    assert KK.LAUNCHES["kmeans_assign" if wide else "kmeans_assign_wide"] \
+        == 0
+    # every restart starts next to the k centres: no point near a tie
+    C0 = torch.as_tensor(centers[None] + 0.01 * rng.standard_normal(
+        (8, k, k)), dtype=dtype, device=cuda_device)
+    got, _, _ = KM.lloyd(U, C0, iters=10)
+    with mock.patch.object(KM, "kmeans_assign", kmeans_assign_ref):
+        want, _, _ = KM.lloyd(U, C0, iters=10)
+    assert torch.equal(got, want)
+
+
+# ------------------------------------- BSR tiles above the kernels' limit
+
+@pytest.mark.cuda
+def test_cuda_bsr_block_256_goes_through_auto_to_coo(cuda_device):
+    from repro_torch.grblas import (BackendUnavailableError, Descriptor, mxm,
+                                    plap_edge_semiring, reals_ring)
+    from repro_torch.grblas import backends as BE
+
+    coo, shape = _graph(1000)
+    W = convert.sparse_matrix(coo, shape, device=cuda_device,
+                              dtype=np.float32, build_ell=False,
+                              build_sellcs=False, build_bsr=True,
+                              block_size=256)
+    X = torch.randn(shape[0], 4, device=cuda_device)
+    assert BE.select_backend(W, X, reals_ring, Descriptor()).name == "coo"
+    np.testing.assert_allclose(convert.to_numpy(mxm(W, X)),
+                               convert.to_numpy(KB.bsr_spmm_plain(W, X)),
+                               **TOL[np.float32])
+    ring = plap_edge_semiring(1.5, 1e-8)
+    np.testing.assert_allclose(
+        convert.to_numpy(mxm(W, X, ring)),
+        convert.to_numpy(KP.plap_apply_plain(W, X, 1.5, 1e-8)),
+        **TOL[np.float32])
+    with pytest.raises(BackendUnavailableError):
+        mxm(W, X, desc=Descriptor(backend="bsr_pallas"))
+    with pytest.raises(BackendUnavailableError):
+        mxm(W, X, ring, desc=Descriptor(backend="edge_pallas"))
+
+
+@pytest.mark.cuda
+def test_cuda_bsr_solve_at_block_256(cuda_device):
+    """A graph built with BSR at block_size 256 and COO only: the auto
+    solve runs on coo and clusters it; naming edge_pallas raises before
+    any work."""
+    from repro_torch.core.metrics import clustering_accuracy
+    from repro_torch.core.psc import PSCConfig, p_spectral_cluster
+    from repro_torch.graphs import ring_of_cliques
+    from repro_torch.grblas import BackendUnavailableError
+
+    W, truth = ring_of_cliques(4, 300, device=cuda_device, build_bsr=True,
+                               block_size=256, build_ell=False,
+                               build_sellcs=False)
+    KB.reset_launch_counts()
+    KP.reset_launch_counts()
+    res = p_spectral_cluster(W, PSCConfig(k=4, p_target=1.4, newton_iters=10,
+                                          tcg_iters=8))
+    assert clustering_accuracy(res.labels, truth, 4) == 1.0
+    assert sum(KB.LAUNCHES.values()) == 0 and sum(KP.LAUNCHES.values()) == 0
+    with pytest.raises(BackendUnavailableError):
+        p_spectral_cluster(W, PSCConfig(k=4, backend="edge_pallas"))
+
+
+# --------------------------------------------- fixed-order float sums
+
+KS = importlib.import_module("repro_torch.kernels.segment_sum.segment_sum")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_cuda_coo_sum_repeats_bitwise_and_equals_cpu(cuda_device, dtype,
+                                                     transpose):
+    """The COO backend's reals SpMM with (nnz, 4) multivalues, twice:
+    equal bit for bit, and to the CPU's sequential index_add_."""
+    from repro_torch.grblas import Descriptor, mxm
+
+    coo, shape = _graph(3000)
+    W = convert.sparse_matrix(coo, shape, device=cuda_device, dtype=dtype)
+    X, Wh = _sell_operands(W, 4, seed=3)
+    desc = Descriptor(backend="coo", transpose=transpose)
+    before = KS.LAUNCHES["segment_sum"]
+    got = mxm(Wh, X, desc=desc)
+    again = mxm(Wh, X, desc=desc)
+    torch.cuda.synchronize()
+    assert KS.LAUNCHES["segment_sum"] == before + 2
+    assert torch.equal(got, again)
+    Wc = convert.sparse_matrix(coo, shape, device="cpu", dtype=dtype)
+    Wc = Wc.with_vals(Wh.vals.cpu())
+    np.testing.assert_array_equal(convert.to_numpy(got),
+                                  convert.to_numpy(mxm(Wc, X.cpu(),
+                                                       desc=desc)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cuda_row_sums_repeat_bitwise_and_equal_cpu(cuda_device, dtype):
+    coo, shape = _graph(3000)
+    W = convert.sparse_matrix(coo, shape, device=cuda_device, dtype=dtype)
+    d1, d2 = W.row_sums(), W.row_sums()
+    torch.cuda.synchronize()
+    assert torch.equal(d1, d2)
+    Wc = convert.sparse_matrix(coo, shape, device="cpu", dtype=dtype)
+    np.testing.assert_array_equal(convert.to_numpy(d1),
+                                  convert.to_numpy(Wc.row_sums()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sorted_ids", [True, False])
+@pytest.mark.parametrize("shape", [(5000,), (5000, 3)])
+def test_cuda_segment_sum_equals_index_add_on_cpu(cuda_device, sorted_ids,
+                                                  shape):
+    rng = np.random.default_rng(8)
+    ids = rng.integers(0, 700, 5000)
+    if sorted_ids:
+        ids = np.sort(ids)
+    vals = rng.standard_normal(shape) * 10.0 ** rng.uniform(-4, 4, shape)
+    V = torch.as_tensor(vals, dtype=torch.float32)
+    I = torch.as_tensor(ids)
+    I_dev = I.to(cuda_device)
+    ptr = KS.csr_pointers(I_dev, 703) if sorted_ids else None
+    got = KS.segment_sum(V.to(cuda_device), I_dev, 703, ptr)
+    want = torch.zeros((703,) + shape[1:]).index_add_(0, I, V)
+    np.testing.assert_array_equal(convert.to_numpy(got),
+                                  convert.to_numpy(want))
