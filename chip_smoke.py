@@ -3,12 +3,18 @@
 
     python3 chip_smoke.py [--newton-iters 30] [--tcg-iters 20]
     python3 chip_smoke.py --sellcs-src SRC
+    python3 chip_smoke.py --kmeans-src SRC
 
 The second form only times the SELL-C-σ kernels of the tree whose
 ``src`` directory is SRC (this one, or an older commit unpacked with
-``git archive``) at the shapes of phase 2 and prints one JSON line; to
-compare two trees, run them in turns on one card, one after the other:
-old, new, new, old.
+``git archive``) at the shapes of phase 2, the third ``kmeans_assign``
+at the main path's shape, at stage 3's k = 48 fp64 and k = 70 fp32 and
+at k = 16, 17, 24 and 32 in both dtypes (2^20 points, 8 sets), also by
+the profiler's device time; each prints one JSON line with every call's
+time and a digest of its outputs (equal digests: equal bits), the third
+also a line with the seconds of stage 3 at k = 4, 48 and 70.  To compare two
+trees, run them in turns on one card, one after the other: old, new,
+new, old.
 
 Phases, none of which catches its own failure:
 
@@ -25,9 +31,9 @@ Phases, none of which catches its own failure:
      scalar values at k = 4, 8 and 24 (each also against
      ``torch.sparse.mm`` on the CSR form of W, a yardstick the port never
      calls) and with (nnz, 4) multivalues, the apply and the HVP at
-     k = 4.  The two redesigned kernels (``sellcs_spmm``, the apply) run
-     twice, equal bit for bit, and with a NaN in one row of X, NaN where
-     the plain versions put it.  Then the COO backend's reals SpMM with
+     k = 4.  Every kernel runs twice, equal bit for bit, and with a NaN
+     in one row of X (the HVP: one row of U and one of E), NaN where the
+     plain versions put it.  Then the COO backend's reals SpMM with
      full-size W-hat multivalues and ``row_sums``, each twice, equal bit
      for bit (the fixed-order segmented sum), and the sum timed beside
      ``index_add_``, also on rows of about a thousand entries (a planted
@@ -85,13 +91,15 @@ Phases, none of which catches its own failure:
      stage-3 input (the final U of the SELL-C-σ matrix_free solve) with
      8 kmeans++ restarts, labels equal except where the plain version's
      two nearest centroids tie within 16 ulps, distances to the fp32
-     bound above; and stage 3 (``psc.discretize``) on that U through the
+     bound above, twice bit for bit, and each set alone equal to the
+     batch; and stage 3 (``psc.discretize``) on that U through the
      plain assignment and through the kernel, in turns.  Then the
-     assignment at k = 48 fp64 (the narrow kernel, restarts in two
-     launches) and k = 70 fp32 (the wide variant) on 2^20 points with 8
-     kmeans++ restarts, against the plain version (distances to 8 ulps of
-     the largest term, in each dtype), and stage 3 at each k, every
-     assignment through the kernels.
+     assignment at k = 48 fp64 and k = 70 fp32 (the tiled variant, one
+     launch) on 2^20 points with 8 kmeans++ restarts, against the plain
+     version (distances to 8 ulps of the largest term, in each dtype),
+     twice bit for bit, a set alone equal to the batch, and stage 3 at
+     each k, every assignment through the kernels.  Every assignment's
+     device time (the profiler's) is printed beside its CUDA-event time.
  10. LM serve path: Gemma-2B at full width (2.51 B parameters, fp32
      params, bf16 compute) with seeded weights on the card; the
      ServeEngine answers 4 requests of 2048-token prompts with 32 greedy
@@ -115,6 +123,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import subprocess
@@ -162,6 +171,32 @@ def _time_ms(fn, reps: int = 5, inner: int = 20) -> float:
         times.append(a.elapsed_time(b) / inner)
     times.sort()
     return times[len(times) // 2]
+
+
+def _device_ms(fn, calls: int = 20) -> dict:
+    """The device time of ``calls`` calls as torch.profiler (CUPTI) sees
+    it, by kernel [launches recorded, ms in all], and per call: each
+    kernel's mean time a launch times its launches a call (the profiler
+    may drop a few events late in a long run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = kernels.get(e.name[:60], (0, 0.0))
+            kernels[e.name[:60]] = (n + 1, us + e.time_range.elapsed_us())
+    per_call_us = sum(us / n * max(1, round(n / calls))
+                      for n, us in kernels.values())
+    return {"per_call_ms": per_call_us / 1000,
+            "kernels": {k: [n, us / 1000] for k, (n, us) in kernels.items()}}
 
 
 def _compare(name: str, got, want, atol: float = ATOL,
@@ -250,9 +285,10 @@ def sellcs_kernel_phase(W, K, torch) -> list:
     """Each SELL-C-σ kernel against its plain version at the main path's
     shapes: ``sellcs_spmm`` with scalar values at k = 4 and LOBPCG's 8 and
     24 (each beside ``torch.sparse.mm``) and with the graphblas HVP's
-    (nnz, 4) multivalues; the apply and the HVP at k = 4.  The two
-    redesigned kernels also run twice (bit for bit) and with a NaN in one
-    row of X (NaN where the plain versions put it)."""
+    (nnz, 4) multivalues; the apply and the HVP at k = 4.  Each kernel
+    also runs twice (bit for bit) and with a NaN in one row of X, or of U
+    and of E (NaN where the plain versions put it); the HVP is timed in
+    both block orders."""
     n, k = W.n_rows, 4
     L = W.sell_kernel
     item = 4
@@ -338,18 +374,28 @@ def sellcs_kernel_phase(W, K, torch) -> list:
         _time_ms(lambda: K.sellcs_plap_apply_plain(W, U, P, EPS), 3, 3),
         _bound(_layout_bytes(L, item) + 2 * dense_bytes,
                OPS["apply"] * L.slots * k), None))
-    del Xn, Un
 
-    # matrix-free Newton HVP (the element kernel)
+    # matrix-free Newton HVP (the row kernel)
     err = _compare("sellcs_plap_hvp", K.sellcs_plap_hvp(W, U, E, P, EPS),
                    K.sellcs_plap_hvp_plain(W, U, E, P, EPS))
+    _repeat("sellcs_plap_hvp", lambda: K.sellcs_plap_hvp(W, U, E, P, EPS))
+    # a NaN in one row of U (777,777, column 2) and one of E (555,555, 1)
+    En = E.clone()
+    En[555555, 1] = float("nan")
+    _compare_nan("sellcs_plap_hvp with a NaN in one row of U and one of E",
+                 K.sellcs_plap_hvp(W, Un, En, P, EPS),
+                 K.sellcs_plap_hvp_plain(W, Un, En, P, EPS))
+    del Xn, Un, En
     rows.append(_row(
         "sellcs_plap_hvp", src, f"{ref}:124", err,
         _time_ms(lambda: K.sellcs_plap_hvp(W, U, E, P, EPS)),
         _time_ms(lambda: K.sellcs_plap_hvp_plain(W, U, E, P, EPS), 3, 3),
         _bound(_layout_bytes(L, item) + 3 * dense_bytes,
                OPS["hvp"] * L.slots * k), None))
+    rows[-1]["plan"] = K.launch_plan("sellcs_plap_hvp", n, k,
+                                     U.dtype)._asdict()
     _print_rows(rows)
+    print(f"sellcs_plap_hvp: plan={rows[-1]['plan']}", flush=True)
     return rows
 
 
@@ -787,7 +833,12 @@ def kmeans_kernel_phase(U, torch, psc) -> dict:
     from repro_torch.core import kmeans as KM
     from repro_torch.kernels import kmeans_assign as KK
 
-    X = U / torch.clamp(torch.linalg.norm(U, dim=1, keepdim=True), min=1e-12)
+    # contiguous: stage 3's X keeps U's column-major layout (stage 3
+    # measured 2-4% faster so than on one contiguous copy of X), and
+    # ``ops.kmeans_assign`` copies it before each launch; the kernel is
+    # timed on the copy
+    X = (U / torch.clamp(torch.linalg.norm(U, dim=1, keepdim=True),
+                         min=1e-12)).contiguous()
     gen = torch.Generator(device="cuda").manual_seed(3)
     C = KM._plusplus_init(gen, X, U.shape[1], 8)            # (8, 4, 4)
     lab, dist = KK.kmeans_assign(X, C)
@@ -801,6 +852,9 @@ def kmeans_kernel_phase(U, torch, psc) -> dict:
           f"{int((diff & tie).sum())}) of {lab.numel()}", flush=True)
     if bool((diff & ~tie).any()):
         raise AssertionError("kmeans_assign: labels differ off a tie")
+    _repeat("kmeans_assign", lambda: torch.cat(
+        [t.view(-1).double() for t in KK.kmeans_assign(X, C)]))
+    _sets_alone(KK, X, C, lab, dist, "kmeans_assign", torch)
     R, n, kc, d = C.shape[0], X.shape[0], C.shape[1], X.shape[1]
     nbytes = 4 * (X.numel() + C.numel() + 2 * R * n)
     ops = R * n * kc * (2 * d + 4) + 2 * n * d
@@ -813,8 +867,12 @@ def kmeans_kernel_phase(U, torch, psc) -> dict:
     # distances near 0 make |d| / |plain| meaningless: the error relative
     # to the largest term the identity cancels instead
     row["max_rel_err"] = err[0] / scale
+    # the kernels' own time, without the wrapper's host work
+    row["device_ms"] = _device_ms(lambda: KK.kmeans_assign(X, C))
     row["shape"] = dict(n=n, d=d, restarts=R, kc=kc, dtype="float32")
+    row["plan"] = KK.launch_plan(R, kc, d, X.element_size())
     _print_rows([row])
+    print(f"kmeans_assign: device_ms={row['device_ms']}", flush=True)
 
     def stage3():
         t0 = time.perf_counter()
@@ -836,10 +894,20 @@ def kmeans_kernel_phase(U, torch, psc) -> dict:
     return row
 
 
+def _sets_alone(KK, X, C, lab, dist, tag, torch) -> None:
+    """The first and the last set taken alone give the batch's result
+    bit for bit."""
+    for r in (0, C.shape[0] - 1):
+        lab1, dist1 = KK.kmeans_assign(X, C[r])
+        if not (torch.equal(lab1, lab[r]) and torch.equal(dist1, dist[r])):
+            raise AssertionError(f"{tag}: set {r} alone differs from the "
+                                 "batch")
+    print(f"{tag}: sets alone equal to the batch bit for bit", flush=True)
+
+
 def kmeans_large_k_phase(torch, psc) -> dict:
-    """Stage 3's assignment where the main path's kernel alone would
-    refuse it: k = 48 in fp64 (the narrow kernel, the 8 restarts split
-    into two launches) and k = 70 in fp32 (the wide variant), on 2^20
+    """Stage 3's assignment on the tiled variant: k = 48 in fp64 and
+    k = 70 in fp32 (one launch for the 8 restarts each), on 2^20
     row-normalized points with 8 kmeans++ restarts, held against the
     plain version; then stage 3 (``psc.discretize``) at each k from
     zeroed counts, every assignment through the kernels."""
@@ -873,11 +941,14 @@ def kmeans_large_k_phase(torch, psc) -> dict:
         if bool((diff & ~tie).any()):
             raise AssertionError(f"{tag}: labels differ off a tie")
         for variant, name in (("narrow", "kmeans_assign"),
-                              ("wide", "kmeans_assign_wide")):
+                              ("tiled", "kmeans_assign_tiled")):
             if launches[name] != sum(v == variant for v, _, _ in plan):
                 raise AssertionError(f"{tag}: {name} launched "
                                      f"{launches[name]} times, plan {plan}")
         del top2, tie, diff, want_lab, want_dist
+        _repeat(tag, lambda: torch.cat(
+            [t.view(-1).to(dtype) for t in KK.kmeans_assign(X, C)]))
+        _sets_alone(KK, X, C, lab, dist, tag, torch)
         item = X.element_size()
         nbytes = item * (X.numel() + C.numel() + R * n) + 4 * R * n
         ops = R * n * k * (2 * k + 4) + 2 * n * k
@@ -890,10 +961,11 @@ def kmeans_large_k_phase(torch, psc) -> dict:
             max_abs_err=err[0], max_rel_err=err[0] / scale,
             ms=_time_ms(lambda: KK.kmeans_assign(X, C)),
             plain_ms=_time_ms(lambda: KK.kmeans_assign_ref(X, C), 3, 2),
-            bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+            bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+            device_ms=_device_ms(lambda: KK.kmeans_assign(X, C)))
         print(f"{tag}: kernel_ms={entry['ms']!r} twin_ms="
-              f"{entry['plain_ms']!r} bound_ms={bound[0]!r} ({bound[1]})",
-              flush=True)
+              f"{entry['plain_ms']!r} bound_ms={bound[0]!r} ({bound[1]}) "
+              f"device_ms={entry['device_ms']}", flush=True)
         # stage 3 at this k, every assignment through the kernels
         KK.reset_launch_counts()
         t0 = time.perf_counter()
@@ -902,7 +974,7 @@ def kmeans_large_k_phase(torch, psc) -> dict:
         torch.cuda.synchronize()
         entry["stage3_s"] = time.perf_counter() - t0
         entry["stage3_launches"] = dict(KK.LAUNCHES)
-        used = "kmeans_assign_wide" if plan[0][0] == "wide" \
+        used = "kmeans_assign_tiled" if plan[0][0] == "tiled" \
             else "kmeans_assign"
         if KK.LAUNCHES[used] < (k - 1) + 51 or \
                 sum(KK.LAUNCHES.values()) != KK.LAUNCHES[used]:
@@ -1091,6 +1163,27 @@ def _card() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def _digest(out) -> str:
+    """A digest of the bytes of a tensor or a tuple of tensors: equal
+    digests, equal bits."""
+    h = hashlib.sha1()
+    for t in out if isinstance(out, tuple) else (out,):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _ab_line(src: Path, calls: dict, device: bool = False) -> None:
+    """One JSON line: each call's time (CUDA events) and the digest of
+    its output; ``device``: also its device time by the profiler."""
+    line = {"src": str(src), "card": _card(),
+            "ms": {name: _time_ms(fn) for name, fn in calls.items()},
+            "digest": {name: _digest(fn()) for name, fn in calls.items()}}
+    if device:
+        line["device_ms"] = {name: _device_ms(fn)
+                             for name, fn in calls.items()}
+    print(json.dumps(line), flush=True)
+
+
 def sellcs_times(src: Path, torch) -> int:
     """``--sellcs-src``: time the SELL-C-σ kernels of the tree at ``src``
     (its ``repro_torch`` imported and built) at the main path's shapes on
@@ -1115,9 +1208,56 @@ def sellcs_times(src: Path, torch) -> int:
         W, U, P, EPS)
     calls["sellcs_plap_hvp k=4"] = lambda: K.sellcs_plap_hvp(
         W, U, E, P, EPS)
-    print(json.dumps({"src": str(src), "card": _card(),
-                      "ms": {name: _time_ms(fn)
-                             for name, fn in calls.items()}}), flush=True)
+    _ab_line(src, calls)
+    return 0
+
+
+# --kmeans-src shapes (k, dtype): the main path's, stage 3's at k = 48
+# fp64 and k = 70 fp32, and k about the narrow variant's widest row
+KMEANS_AB = [(4, "float32"), (48, "float64"), (70, "float32")] + [
+    (k, dt) for dt in ("float32", "float64") for k in (16, 17, 24, 32)]
+
+
+def kmeans_times(src: Path, torch) -> int:
+    """``--kmeans-src``: time ``kmeans_assign`` of the tree at ``src`` at
+    the shapes of ``KMEANS_AB`` (2^20 x k, 8 sets of k centroids), on
+    row-normalized points with centroids drawn from them, by CUDA events
+    and by the profiler's device time; where the tree has the tiled
+    variant, also that variant alone at k <= 16; then stage 3 at k = 4
+    (on a column-major U), 48 and 70.  Prints one JSON line of times and
+    one of stage 3 seconds."""
+    sys.path.insert(0, str(src.resolve()))
+    from repro_torch.core import psc
+    from repro_torch.kernels import kmeans_assign as KK
+
+    KK.build()
+    tiled = getattr(KK, "kmeans_assign_tiled_cuda", None)
+    calls, stage3_s = {}, {}
+    for k, name in KMEANS_AB:
+        dtype = getattr(torch, name)
+        tag = f"k={k} {str(dtype).split('.')[-1]}"
+        gen = torch.Generator(device="cuda").manual_seed(k)
+        X = torch.randn((1 << 20, k), generator=gen, device="cuda",
+                        dtype=dtype)
+        X /= torch.linalg.norm(X, dim=1, keepdim=True)
+        C = X[torch.randint(0, X.shape[0], (8, k), generator=gen,
+                            device="cuda")].contiguous()
+        calls[f"kmeans_assign {tag}"] = (
+            lambda X=X, C=C: KK.kmeans_assign(X, C))
+        if tiled is not None and k <= 16:
+            calls[f"tiled alone {tag}"] = lambda X=X, C=C: tiled(X, C)
+        if k in (4, 48, 70):   # stage 3 (8 kmeans++ restarts, 50 Lloyd
+            # steps); at k = 4 on a column-major U, as stage 1 hands it on
+            U = X.T.contiguous().T if k == 4 else X
+            psc.discretize(U[:4096], k, torch.Generator(device="cuda"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            psc.discretize(U, k, torch.Generator(device="cuda")
+                           .manual_seed(6))
+            torch.cuda.synchronize()
+            stage3_s[tag] = time.perf_counter() - t0
+    _ab_line(src, calls, device=True)
+    print(json.dumps({"src": str(src), "stage3_s": stage3_s}), flush=True)
     return 0
 
 
@@ -1128,6 +1268,9 @@ def main() -> int:
     ap.add_argument("--sellcs-src", type=Path, metavar="SRC",
                     help="only time the SELL-C-σ kernels of the tree whose "
                     "src directory is SRC and print one JSON line")
+    ap.add_argument("--kmeans-src", type=Path, metavar="SRC",
+                    help="only time kmeans_assign of the tree whose src "
+                    "directory is SRC and print one JSON line")
     args = ap.parse_args()
 
     import torch
@@ -1137,6 +1280,8 @@ def main() -> int:
         return 2
     if args.sellcs_src is not None:
         return sellcs_times(args.sellcs_src, torch)
+    if args.kmeans_src is not None:
+        return kmeans_times(args.kmeans_src, torch)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)

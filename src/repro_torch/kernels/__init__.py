@@ -5,7 +5,7 @@ with nvcc and opened with ctypes (``nvcc.py``).
   sellcs_spmm/   SELL-C-σ reals SpMM, p-Laplacian apply and HVP
   bsr_spmm/      BSR reals SpMM
   plap_edge/     BSR p-Laplacian apply and HVP
-  kmeans_assign/ fused kmeans distance + argmin (narrow and wide variants)
+  kmeans_assign/ fused kmeans distance + argmin (narrow and tiled variants)
   flash_attention/  causal / sliding-window GQA attention forward
   segment_sum/   fixed-order segmented sum of the COO backend and
                  ``row_sums`` (a helper, not the port of a TPU kernel)

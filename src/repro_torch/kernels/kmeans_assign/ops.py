@@ -4,7 +4,7 @@
 and C (kc, d) or a batch (R, kc, d).  A CUDA tensor goes to the
 hand-written kernels (``kmeans_assign.kmeans_assign_planned``: the
 narrow variant in groups of restarts that fit its shared memory, or the
-wide variant for d > 64 or kc > 128), a CPU tensor to the plain version
+tiled variant for d > 16 or kc > 128), a CPU tensor to the plain version
 (``ref.kmeans_assign_ref``); any other device raises.
 """
 from __future__ import annotations

@@ -24,17 +24,19 @@
 // gathers one row of X (and of E for kind 2) from wherever its column
 // lies, mostly from L2; each output row is written once.
 //
-// Kinds 0 and 1 (sell_row_kernel): G lanes own one permuted row, each
+// All three kinds run sell_row_kernel: G lanes own one permuted row, each
 // lane at most two 16-byte pieces of it (lane g: pieces g, g + G, ...),
-// with the row's column sums in registers; G is 1 up to 32-byte rows
+// with the row's column sums in registers (and, for the apply and the
+// HVP, the row's own values of X, and of E); G is 1 up to 32-byte rows
 // (k <= 8 fp32, k <= 4 fp64).  At C = 32 and G = 1 a warp is one slice;
 // other C and G span or share warps, and any C works.  So one slot step
 // of a warp is one coalesced load of column ids and one of values (a
 // multivalue row is read as pieces of one contiguous k-value vector), and
-// the gathers are 16-byte loads, the G lanes of a row reading its
-// contiguous pieces in one instruction: the L1 handles one cache line
-// per row and instruction instead of one per 16 bytes, which is what a
-// lane per row costs at k = 24.  The slots are taken U at a time: the U
+// the gathers (X, and E for the HVP) are 16-byte loads through the
+// read-only path, the G lanes of a row reading its contiguous pieces in
+// one instruction: the L1 handles one cache line per row and instruction
+// instead of one per 16 bytes, which is what a lane per row costs at
+// k = 24.  The slots are taken U at a time: the U
 // column ids and values are loaded, then the U gathers issued, before the
 // arithmetic of any of them; w is uniform across a slice, so the masked
 // group at a row's end diverges no warp whose rows lie in one slice.  The
@@ -44,10 +46,11 @@
 // The reals ring walks the blocks in the order ``order`` gives (the
 // wrapper sorts them by the original id of their first row): the global
 // degree sort interleaves rows from all over X, and visiting the blocks
-// in original-id order keeps the rows they gather in L2.  The apply keeps
-// launch order, which measured faster for it.  G, U and the order were
-// chosen by timing variants at the main path's shapes on an H100
-// (PERF.md); the apply spends about half its time in powf, which stays
+// in original-id order keeps the rows they gather in L2.  The apply and
+// the HVP keep launch order, which measured faster for the apply and the
+// same, within 1%, for the HVP.  G, U and the order were chosen by timing
+// variants at the main path's shapes on an H100 (PERF.md); the apply
+// spends about half its time in powf, the HVP more (two a term), both
 // phi.cuh's.
 //
 // Widths 4, 8, 16 and 24 (the main path's) are compiled; any other k,
@@ -55,15 +58,14 @@
 // per row and chunk of 4 columns (grid y), scalar loads.
 //
 // Each output is owned by one thread and summed over the slots in order,
-// j = 0 .. w-1, with the same expression per slot as the element kernel
-// below (acc += v * x, and acc += v * phi(x_i - x_j)), so the result is
-// the same bit for bit from run to run.  Pads store (col = own row,
-// val = 0) and are evaluated like any slot (the layout stores about 6 in
-// 10^5 on the Delaunay graphs), so NaN and inf land where the plain
-// versions put them.
-//
-// Kind 2 (sell_element_kernel) keeps the first design of these kernels:
-// thread t owns output element (r, c) = (t / k, t % k).
+// j = 0 .. w-1, with one expression per slot (acc += v * x,
+// acc += v * phi(x_i - x_j), acc += v * phi'(u_i - u_j) * (e_i - e_j)),
+// the expressions of the first design of these kernels, in which a thread
+// owned one output element (r, c) and so read each slot k times: the
+// results are those of that design, and the same bit for bit from run to
+// run.  Pads store (col = own row, val = 0) and are evaluated like any
+// slot (the layout stores about 6 in 10^5 on the Delaunay graphs), so NaN
+// and inf land where the plain versions put them.
 //
 // p and eps are runtime arguments (the Pallas kernels bake them in as
 // static values, which retraces per continuation level); phi and phi'
@@ -157,17 +159,18 @@ __device__ __forceinline__ void load_lane(const T* __restrict__ row, int c0,
   }
 }
 
-// Kinds 0 and 1.  VEC: k == KW, lanes G = lanes_for(KW bytes), pieces of
+// Every kind.  VEC: k == KW, lanes G = lanes_for(KW bytes), pieces of
 // 16 bytes.  Generic (!VEC): KW = kChunk columns c0 = blockIdx.y * KW
 // onwards, one lane per row, single-column pieces.  MV: (slots, k)
-// multivalues.  ``order``: the blocks' visiting order, or null.
+// multivalues.  E: the HVP's second multivector (kind 2 only).
+// ``order``: the blocks' visiting order, or null.
 template <typename T, int KIND, bool MV, int KW, bool VEC>
 __global__ void __launch_bounds__(kThreads) sell_row_kernel(
     const int32_t* __restrict__ slice_ptr, const int32_t* __restrict__ slice_w,
     const int32_t* __restrict__ perm, const int32_t* __restrict__ cols,
-    const T* __restrict__ vals, const T* __restrict__ X, T* __restrict__ Y,
-    int32_t n, int32_t C, int32_t k, Ring<T> ring,
-    const int32_t* __restrict__ order) {
+    const T* __restrict__ vals, const T* __restrict__ X,
+    const T* __restrict__ E, T* __restrict__ Y, int32_t n, int32_t C,
+    int32_t k, Ring<T> ring, const int32_t* __restrict__ order) {
   constexpr int VW = VEC ? 16 / static_cast<int>(sizeof(T)) : 1;
   constexpr int G = VEC ? lanes_for(KW * static_cast<int>(sizeof(T))) : 1;
   constexpr int NP = KW / (VW * G);   // pieces per lane
@@ -175,6 +178,7 @@ __global__ void __launch_bounds__(kThreads) sell_row_kernel(
   static_assert(NP * VW * G == KW, "a row splits into whole pieces");
   constexpr int U = unroll_for(KIND, L * static_cast<int>(sizeof(T)));
   constexpr int V = MV ? L : 1;
+  constexpr int LE = KIND == kHvp ? L : 1;   // values of E a lane holds
 
   const int32_t blk = order != nullptr
                           ? __ldg(order + blockIdx.x)
@@ -191,8 +195,11 @@ __global__ void __launch_bounds__(kThreads) sell_row_kernel(
   const int64_t own = static_cast<int64_t>(__ldg(perm + r)) * k;
 
   T xi[L];
-  if constexpr (KIND == kApply)
+  T ei[LE];
+  if constexpr (KIND != kReals)
     load_lane<T, NP, VW, G, VEC, false>(X + own, c0, g, k, xi);
+  if constexpr (KIND == kHvp)
+    load_lane<T, NP, VW, G, VEC, false>(E + own, c0, g, k, ei);
   T acc[L];
 #pragma unroll
   for (int c = 0; c < L; ++c) acc[c] = T(0);
@@ -201,6 +208,7 @@ __global__ void __launch_bounds__(kThreads) sell_row_kernel(
     int32_t col[U];
     T v[U][V];
     T xj[U][L];
+    T ej[U][LE];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const bool live = j + u < w;
@@ -216,9 +224,12 @@ __global__ void __launch_bounds__(kThreads) sell_row_kernel(
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (j + u < w)
-        load_lane<T, NP, VW, G, VEC, false>(
-            X + static_cast<int64_t>(col[u]) * k, c0, g, k, xj[u]);
+      if (j + u < w) {
+        const int64_t src = static_cast<int64_t>(col[u]) * k;
+        load_lane<T, NP, VW, G, VEC, false>(X + src, c0, g, k, xj[u]);
+        if constexpr (KIND == kHvp)
+          load_lane<T, NP, VW, G, VEC, false>(E + src, c0, g, k, ej[u]);
+      }
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -228,8 +239,11 @@ __global__ void __launch_bounds__(kThreads) sell_row_kernel(
           const T vv = v[u][MV ? c : 0];
           if constexpr (KIND == kReals) {
             acc[c] += vv * xj[u][c];
-          } else {
+          } else if constexpr (KIND == kApply) {
             acc[c] += vv * phi(xi[c] - xj[u][c], ring);
+          } else {
+            acc[c] += vv * phi_prime(xi[c] - xj[u][c], ring) *
+                      (ei[c] - ej[u][c]);
           }
         }
       }
@@ -240,42 +254,6 @@ __global__ void __launch_bounds__(kThreads) sell_row_kernel(
     const int col = c0 + (g + i * G) * VW;
     if (VEC || col < k) store_piece<T, VW>(Y + own + col, acc + i * VW);
   }
-}
-
-// Kind 2: thread t owns output element (t / k, t % k).
-template <typename T, int KIND>
-__global__ void __launch_bounds__(256) sell_element_kernel(
-    const int32_t* __restrict__ slice_ptr, const int32_t* __restrict__ slice_w,
-    const int32_t* __restrict__ perm, const int32_t* __restrict__ cols,
-    const T* __restrict__ vals, int64_t v_row, int64_t v_col,
-    const T* __restrict__ X, const T* __restrict__ E, T* __restrict__ Y,
-    int32_t n, int32_t C, int32_t k, Ring<T> ring) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<int64_t>(n) * k) return;
-  const int32_t r = static_cast<int32_t>(t / k);
-  const int32_t c = static_cast<int32_t>(t - static_cast<int64_t>(r) * k);
-  const int32_t s = r / C;
-  const int32_t w = slice_w[s];
-  const int64_t slot0 = static_cast<int64_t>(slice_ptr[s]) + (r - s * C);
-  const int64_t own = static_cast<int64_t>(perm[r]) * k + c;
-  T xi = T(0);
-  T ei = T(0);
-  if constexpr (KIND != kReals) xi = X[own];
-  if constexpr (KIND == kHvp) ei = E[own];
-  T acc = T(0);
-  for (int32_t j = 0; j < w; ++j) {
-    const int64_t slot = slot0 + static_cast<int64_t>(j) * C;
-    const int64_t src = static_cast<int64_t>(cols[slot]) * k + c;
-    const T v = vals[slot * v_row + c * v_col];
-    if constexpr (KIND == kReals) {
-      acc += v * X[src];
-    } else if constexpr (KIND == kApply) {
-      acc += v * phi(xi - X[src], ring);
-    } else {
-      acc += v * phi_prime(xi - X[src], ring) * (ei - E[src]);
-    }
-  }
-  Y[own] = acc;
 }
 
 struct Args {
@@ -302,8 +280,9 @@ cudaError_t launch_row(const Args& a, int lanes) {
                   VEC ? 1u : static_cast<unsigned>((a.k + KW - 1) / KW));
   sell_row_kernel<T, KIND, MV, KW, VEC><<<grid, kThreads, 0, a.stream>>>(
       a.slice_ptr, a.slice_w, a.perm, a.cols, static_cast<const T*>(a.vals),
-      static_cast<const T*>(a.X), static_cast<T*>(a.Y), a.n, a.C, a.k,
-      phi_p::make_ring<T>(a.p, a.eps), a.order);
+      static_cast<const T*>(a.X), static_cast<const T*>(a.E),
+      static_cast<T*>(a.Y), a.n, a.C, a.k, phi_p::make_ring<T>(a.p, a.eps),
+      a.order);
   return cudaGetLastError();
 }
 
@@ -324,24 +303,14 @@ cudaError_t dispatch_width(int width, int lanes, const Args& a) {
 template <typename T>
 cudaError_t dispatch(int kind, int multivalue, int width, int lanes,
                      const Args& a) {
-  if (kind == kHvp) {
-    const int64_t total = static_cast<int64_t>(a.n) * a.k;
-    if (total == 0) return cudaSuccess;
-    const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
-    sell_element_kernel<T, kHvp><<<blocks, 256, 0, a.stream>>>(
-        a.slice_ptr, a.slice_w, a.perm, a.cols, static_cast<const T*>(a.vals),
-        1, 0, static_cast<const T*>(a.X), static_cast<const T*>(a.E),
-        static_cast<T*>(a.Y), a.n, a.C, a.k, phi_p::make_ring<T>(a.p, a.eps));
-    return cudaGetLastError();
-  }
   if (a.n == 0 || a.k == 0) return cudaSuccess;
   if (kind == kReals) {
     return multivalue ? dispatch_width<T, kReals, true>(width, lanes, a)
                       : dispatch_width<T, kReals, false>(width, lanes, a);
   }
-  if (kind == kApply && !multivalue) {
-    return dispatch_width<T, kApply, false>(width, lanes, a);
-  }
+  if (multivalue) return cudaErrorInvalidValue;
+  if (kind == kApply) return dispatch_width<T, kApply, false>(width, lanes, a);
+  if (kind == kHvp) return dispatch_width<T, kHvp, false>(width, lanes, a);
   return cudaErrorInvalidValue;
 }
 
@@ -350,8 +319,9 @@ cudaError_t dispatch(int kind, int multivalue, int width, int lanes,
 // Plain C entry point (bound with ctypes): enqueues one launch of
 // ``kind`` on ``stream`` of ``device`` and returns the CUDA error code
 // (0 = accepted).  ``width`` and ``lanes`` come from the wrapper's launch
-// plan (width 0: the generic variant; both ignored for kind 2), and
-// ``order`` is the blocks' visiting order or null.  The
+// plan (width 0: the generic variant), ``E`` is the HVP's second
+// multivector (read by kind 2 only), and ``order`` is the blocks'
+// visiting order or null.  The
 // wrapper has checked the operands' devices, dtypes, shapes, contiguity
 // and, for a compiled width, their 16-byte alignment.
 extern "C" int sellcs_launch(int kind, int is_f64, int multivalue, int width,

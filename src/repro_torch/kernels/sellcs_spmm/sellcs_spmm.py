@@ -18,14 +18,13 @@ through the per-run twins ``*_ref`` — the port of the reference's
 ``kernels/sellcs_spmm/ref.py`` — then un-permuted, exactly the
 computation of the reference's ``backends.sellcs_run``.
 
-``launch_plan`` routes a launch: ``sellcs_spmm`` and
-``sellcs_plap_apply`` run the row kernel at a compiled width (k = 4, 8,
-16, 24, with 16-byte loads; ``lanes`` threads a row, one per 32 bytes of
-it) or its generic variant (chunks of 4 columns, scalar loads); how many
-slots a thread takes at once is the kernel's own choice.  The reals ring
-visits the blocks in the order ``block_order`` gives (by the original id of their first row,
-cached on the layout); ``sellcs_plap_hvp`` runs the element kernel (a
-thread owns one output element).
+``launch_plan`` routes a launch: every wrapper runs the row kernel at a
+compiled width (k = 4, 8, 16, 24, with 16-byte loads; ``lanes`` threads
+a row, one per 32 bytes of it) or its generic variant (chunks of 4
+columns, scalar loads); how many slots a thread takes at once is the
+kernel's own choice.  The reals ring visits the blocks in the order
+``block_order`` gives (by the original id of their first row, cached on
+the layout); the apply and the HVP keep launch order.
 
 The library is built with nvcc (``kernels/nvcc.py``) at first CUDA use
 (or by ``build``/``start_build``) into ``build/torch_ext/`` at the root
@@ -83,9 +82,9 @@ def build() -> float:
 
 
 class Plan(NamedTuple):
-    variant: str        # "row" | "row_generic" | "element"
-    width: int          # columns a launch covers per row: k, 4 (generic), 1
-    lanes: int          # threads per row (row kernels), else 1
+    variant: str        # "row" | "row_generic"
+    width: int          # columns a launch covers per row: k, 4 (generic)
+    lanes: int          # threads per row
     grid: Tuple[int, int]
     threads: int
     ordered: bool       # blocks visited in ``block_order``
@@ -106,9 +105,6 @@ def launch_plan(name: str, n: int, k: int, dtype: torch.dtype,
     C does not enter: the row kernels take any C."""
     if name not in _KIND:
         raise ValueError(f"unknown SELL-C-σ kernel {name!r}")
-    if name == "sellcs_plap_hvp":
-        return Plan("element", 1, 1, (-(-n * k // THREADS), 1), THREADS,
-                    False)
     itemsize = torch.empty((), dtype=dtype).element_size()
     ordered = name == "sellcs_spmm"
     if k in ROW_WIDTHS and aligned:
@@ -231,7 +227,7 @@ def _launch(name: str, A, X: torch.Tensor, E: torch.Tensor, p: float = 0.0,
         raise ValueError("multivector too large for the kernels' grid")
     Y = torch.empty_like(X)
     multivalue = L.vals.ndim == 2
-    vector_operands = (X, Y, L.vals) if multivalue else (X, Y)
+    vector_operands = (X, E, Y, L.vals) if multivalue else (X, E, Y)
     aligned = all(t.data_ptr() % 16 == 0 for t in vector_operands)
     plan = launch_plan(name, n, k, X.dtype, aligned)
     order = block_order(L, plan) if plan.ordered else None

@@ -71,18 +71,20 @@ def test_cuda_kernels_match_twins(cuda_device, dtype, p, eps, C):
              (K.sellcs_spmm(Wh, U), K.sellcs_spmm_plain(Wh, U)),
              (K.sellcs_plap_apply(W, U, p, eps),
               K.sellcs_plap_apply_plain(W, U, p, eps))]
-    if eps > 0:     # eps = 0: phi'(0) = inf on the pads, in both versions
-        pairs.append((K.sellcs_plap_hvp(W, U, E, p, eps),
-                      K.sellcs_plap_hvp_plain(W, U, E, p, eps)))
+    got_h = K.sellcs_plap_hvp(W, U, E, p, eps)
+    want_h = K.sellcs_plap_hvp_plain(W, U, E, p, eps)
     torch.cuda.synchronize()
     for got, want in pairs:
         np.testing.assert_allclose(convert.to_numpy(got),
                                    convert.to_numpy(want), **TOL[dtype])
+    # eps = 0: phi'(0) = inf on the pads (val 0, e_i - e_j = 0), so NaN
+    # in the rows that hold pads, in both versions; eps > 0: finite
+    assert bool(torch.isnan(want_h).any()) == (eps == 0.0)
+    _assert_matches_plain(got_h, want_h, dtype)
     assert float(pairs[0][0][0].abs().max()) == 0.0     # isolated vertex 0
     assert K.LAUNCHES["sellcs_spmm"] == before["sellcs_spmm"] + 2
     assert K.LAUNCHES["sellcs_plap_apply"] == before["sellcs_plap_apply"] + 1
-    assert K.LAUNCHES["sellcs_plap_hvp"] == \
-        before["sellcs_plap_hvp"] + (1 if eps > 0 else 0)
+    assert K.LAUNCHES["sellcs_plap_hvp"] == before["sellcs_plap_hvp"] + 1
 
 
 @pytest.mark.cuda
@@ -608,11 +610,11 @@ def test_cuda_kmeans_assign_matches_plain(cuda_device, dtype, n, d, kc, R):
     X = torch.randn((n, d), generator=gen, device=cuda_device, dtype=dtype)
     C = torch.randn((R, kc, d), generator=gen, device=cuda_device,
                     dtype=dtype)
-    before = KK.LAUNCHES["kmeans_assign"]
+    before = dict(KK.LAUNCHES)
     lab, dist = kmeans_assign(X, C)
     want_lab, want_dist = kmeans_assign_ref(X, C)
     torch.cuda.synchronize()
-    assert KK.LAUNCHES["kmeans_assign"] == before + 1
+    _assert_launches_follow_plan(before, R, kc, d, X.element_size())
     assert lab.dtype == torch.int32 and lab.shape == (R, n)
     # 8 ulps of the largest term the identity cancels
     eps = torch.finfo(dtype).eps
@@ -629,13 +631,23 @@ def test_cuda_kmeans_assign_matches_plain(cuda_device, dtype, n, d, kc, R):
     assert torch.equal(lab1, lab[0]) and torch.equal(dist1, dist[0])
 
 
+def _assert_launches_follow_plan(before, R, kc, d, itemsize, calls=1):
+    """One launch per entry of the plan and call, under its variant's
+    counter."""
+    plan = KK.launch_plan(R, kc, d, itemsize)
+    for variant, name in (("narrow", "kmeans_assign"),
+                          ("tiled", "kmeans_assign_tiled")):
+        assert KK.LAUNCHES[name] == before[name] + calls * sum(
+            v == variant for v, _, _ in plan)
+
+
 @pytest.mark.cuda
 def test_cuda_kmeans_assign_rejects_bad_operands(cuda_device):
     X = torch.zeros((10, 4), device=cuda_device)
     with pytest.raises(ValueError, match="at most 128"):
         KK.kmeans_assign_cuda(X, torch.zeros((129, 4), device=cuda_device))
-    wide = torch.zeros((10, 65), device=cuda_device)
-    with pytest.raises(ValueError, match="at most 64"):
+    wide = torch.zeros((10, 17), device=cuda_device)
+    with pytest.raises(ValueError, match="at most 16"):
         KK.kmeans_assign_cuda(wide, wide[:2].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         KK.kmeans_assign_cuda(torch.zeros((4, 10), device=cuda_device).T,
@@ -789,7 +801,7 @@ def test_cuda_sellcs_nonfinite_lands_where_plain(cuda_device, dtype, C,
                                       convert.to_numpy(torch.isinf(want)))
 
 
-# --------------------------------------------- kmeans: the wide variant
+# --------------------------------------------- kmeans: the tiled variant
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,n,d,kc,R", [
@@ -803,7 +815,7 @@ def test_cuda_sellcs_nonfinite_lands_where_plain(cuda_device, dtype, C,
 ])
 def test_cuda_kmeans_planned_launches_match_plain(cuda_device, dtype, n, d,
                                                   kc, R):
-    """Every launch of the plan, narrow or wide, against the plain
+    """Every launch of the plan, narrow or tiled, against the plain
     version: distances to 8 ulps of the largest term their identity
     cancels, labels equal except at ties to 16."""
     from repro_torch.kernels.kmeans_assign import (kmeans_assign,
@@ -814,15 +826,11 @@ def test_cuda_kmeans_planned_launches_match_plain(cuda_device, dtype, n, d,
     X = torch.randn((n, d), generator=gen, device=cuda_device, dtype=dtype)
     C = torch.randn((R, kc, d), generator=gen, device=cuda_device,
                     dtype=dtype)
-    plan = KK.launch_plan(R, kc, d, X.element_size())
     before = dict(KK.LAUNCHES)
     lab, dist = kmeans_assign(X, C)
     want_lab, want_dist = kmeans_assign_ref(X, C)
     torch.cuda.synchronize()
-    for variant, name in (("narrow", "kmeans_assign"),
-                          ("wide", "kmeans_assign_wide")):
-        assert KK.LAUNCHES[name] == before[name] + sum(
-            v == variant for v, _, _ in plan)
+    _assert_launches_follow_plan(before, R, kc, d, X.element_size())
     eps = torch.finfo(dtype).eps
     scale = float((X * X).sum(1).max() + (C * C).sum(-1).max())
     np.testing.assert_allclose(convert.to_numpy(dist),
@@ -835,23 +843,21 @@ def test_cuda_kmeans_planned_launches_match_plain(cuda_device, dtype, n, d,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_kmeans_wide_variant_agrees_with_narrow(cuda_device, dtype):
-    """On a shape both take, the two variants add the same products in
-    the same order: the same labels, distances within 2 ulps of the
-    largest term (the compiler may contract the last step differently)."""
+def test_cuda_kmeans_tiled_variant_agrees_with_narrow(cuda_device):
+    """On a shape both take, the narrow and the tiled variant in fp32
+    add the same products in the same order: the same labels, distances
+    within 2 ulps of the largest term (the compiler may contract the last
+    step differently)."""
     gen = torch.Generator(device=cuda_device).manual_seed(7)
-    X = torch.randn((2000, 16), generator=gen, device=cuda_device,
-                    dtype=dtype)
-    C = torch.randn((4, 40, 16), generator=gen, device=cuda_device,
-                    dtype=dtype)
+    X = torch.randn((2000, 16), generator=gen, device=cuda_device)
+    C = torch.randn((4, 40, 16), generator=gen, device=cuda_device)
     lab_n, dist_n = KK.kmeans_assign_cuda(X, C)
-    lab_w, dist_w = KK.kmeans_assign_wide_cuda(X, C)
+    lab_w, dist_w = KK.kmeans_assign_tiled_cuda(X, C)
     torch.cuda.synchronize()
     assert torch.equal(lab_n, lab_w)
     scale = float((X * X).sum(1).max() + (C * C).sum(-1).max())
     assert float((dist_n - dist_w).abs().max()) <= \
-        2 * torch.finfo(dtype).eps * scale
+        2 * torch.finfo(torch.float32).eps * scale
 
 
 @pytest.mark.cuda
@@ -878,11 +884,8 @@ def test_cuda_stage3_at_large_k_runs_through_the_kernels(cuda_device, k,
     labels = psc.discretize(U, k, torch.Generator(device=cuda_device)
                             .manual_seed(0))
     assert labels.shape == (20000,) and int(labels.max()) < k
-    wide = k > 64
-    assert KK.LAUNCHES["kmeans_assign_wide" if wide else "kmeans_assign"] \
-        >= (k - 1) + 51
-    assert KK.LAUNCHES["kmeans_assign" if wide else "kmeans_assign_wide"] \
-        == 0
+    assert KK.LAUNCHES["kmeans_assign_tiled"] >= (k - 1) + 51
+    assert KK.LAUNCHES["kmeans_assign"] == 0
     # every restart starts next to the k centres: no point near a tie
     C0 = torch.as_tensor(centers[None] + 0.01 * rng.standard_normal(
         (8, k, k)), dtype=dtype, device=cuda_device)
@@ -1006,3 +1009,227 @@ def test_cuda_segment_sum_equals_index_add_on_cpu(cuda_device, sorted_ids,
     want = torch.zeros((703,) + shape[1:]).index_add_(0, I, V)
     np.testing.assert_array_equal(convert.to_numpy(got),
                                   convert.to_numpy(want))
+
+
+# ------------------------------------ SELL-C-σ: the HVP on the row kernel
+
+def _misaligned(X):
+    """A contiguous copy of X that starts off a 16-byte boundary."""
+    buf = torch.empty(X.numel() + 1, dtype=X.dtype, device=X.device)
+    Xm = buf[1:].view(X.shape)
+    Xm.copy_(X)
+    assert Xm.is_contiguous() and Xm.data_ptr() % 16 != 0
+    return Xm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [4, 8, 16, 24, 5])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("C", [8, 32])
+def test_cuda_sellcs_hvp_row_kernel_matches_plain_and_repeats_bitwise(
+        cuda_device, dtype, k, aligned, C):
+    """sellcs_plap_hvp on the row kernel at the compiled widths (4, 8, 16,
+    24) and through the generic variant (k = 5, and misaligned operands),
+    against its plain version; two calls equal bit for bit; one launch
+    each."""
+    coo, shape = _graph(1000)
+    W = convert.sparse_matrix(coo, shape, device=cuda_device, dtype=dtype,
+                              build_sellcs=True, sell_c=C)
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    U = torch.randn(W.n_rows, k, generator=gen, device=cuda_device,
+                    dtype=W.vals.dtype)
+    E = torch.randn(W.n_rows, k, generator=gen, device=cuda_device,
+                    dtype=W.vals.dtype)
+    if not aligned:
+        U, E = _misaligned(U), _misaligned(E)
+    plan = K.launch_plan("sellcs_plap_hvp", W.n_rows, k, U.dtype, aligned)
+    assert plan.variant == ("row" if aligned and k != 5 else "row_generic")
+    before = K.LAUNCHES["sellcs_plap_hvp"]
+    got = K.sellcs_plap_hvp(W, U, E, 1.2, 1e-8)
+    again = K.sellcs_plap_hvp(W, U, E, 1.2, 1e-8)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["sellcs_plap_hvp"] == before + 2
+    assert torch.equal(got, again)
+    want = K.sellcs_plap_hvp_plain(W, U, E, 1.2, 1e-8)
+    np.testing.assert_allclose(convert.to_numpy(got), convert.to_numpy(want),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("where", ["U", "E"])
+@pytest.mark.parametrize("value", [np.nan, np.inf])
+def test_cuda_sellcs_hvp_nonfinite_lands_where_plain(cuda_device, dtype,
+                                                     where, value):
+    """A NaN or inf in one row of U or of E (the hub, vertex 1): NaN and
+    inf exactly where the plain version puts them, the rest within the
+    tolerance."""
+    coo, shape = _graph(1000)
+    W = convert.sparse_matrix(coo, shape, device=cuda_device, dtype=dtype,
+                              build_sellcs=True, sell_c=32)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    U = torch.randn(W.n_rows, 4, generator=gen, device=cuda_device,
+                    dtype=W.vals.dtype)
+    E = torch.randn(W.n_rows, 4, generator=gen, device=cuda_device,
+                    dtype=W.vals.dtype)
+    (U if where == "U" else E)[1, 2] = float(value)
+    got = K.sellcs_plap_hvp(W, U, E, 1.2, 1e-8)
+    want = K.sellcs_plap_hvp_plain(W, U, E, 1.2, 1e-8)
+    assert not bool(torch.isfinite(want).all())
+    _assert_matches_plain(got, want, dtype)
+    np.testing.assert_array_equal(convert.to_numpy(torch.isinf(got)),
+                                  convert.to_numpy(torch.isinf(want)))
+
+
+# ---------------------------- kmeans: the redesigned narrow and tiled kernels
+
+def _kmeans_inputs(device, dtype, n, d, kc, R, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    X = torch.randn((n, d), generator=gen, device=device, dtype=dtype)
+    X /= torch.linalg.norm(X, dim=1, keepdim=True)
+    C = X[torch.randint(0, n, (R, kc), generator=gen, device=device)]
+    return X, (C + 0.01 * torch.randn(C.shape, generator=gen, device=device,
+                                      dtype=dtype)).contiguous()
+
+
+def _assert_kmeans_matches_plain(X, C, lab, dist):
+    from repro_torch.kernels.kmeans_assign import (kmeans_assign_ref,
+                                                   pairwise_sqdist)
+
+    want_lab, want_dist = kmeans_assign_ref(X, C)
+    eps = torch.finfo(X.dtype).eps
+    scale = float((X * X).sum(1).max() + (C * C).sum(-1).max())
+    np.testing.assert_allclose(convert.to_numpy(dist),
+                               convert.to_numpy(want_dist), rtol=0,
+                               atol=8 * eps * scale)
+    top2 = pairwise_sqdist(X, C).topk(2, dim=-1, largest=False).values
+    tie = (top2[..., 1] - top2[..., 0]) <= 16 * eps * scale
+    assert not bool(((lab != want_lab) & ~tie).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,d,kc,R,variant", [
+    (torch.float32, 1 << 20, 4, 4, 8, "narrow"),    # the main path
+    (torch.float64, 5000, 48, 48, 8, "tiled"),      # stage 3 at k = 48
+    (torch.float32, 5000, 70, 70, 8, "tiled"),      # stage 3 at k = 70
+    (torch.float32, 3001, 16, 16, 8, "narrow"),     # the widest narrow row
+    (torch.float32, 3001, 17, 16, 8, "tiled"),      # one dimension more
+    (torch.float64, 3001, 4, 128, 2, "narrow"),     # the most narrow centroids
+    (torch.float64, 3001, 4, 129, 2, "tiled"),      # one more
+    (torch.float32, 999, 3, 5, 3, "narrow"),        # d, n off the vector loads
+    (torch.float64, 999, 130, 9, 3, "tiled"),       # d beyond the resident X
+    (torch.float32, 777, 200, 3, 2, "tiled"),       # ... in fp32 too
+    (torch.float64, 3001, 16, 128, 13, "narrow"),   # 13 sets fit at once
+    (torch.float64, 3001, 16, 128, 14, "narrow"),   # 14 are split 13 + 1
+    (torch.float64, 3001, 17, 5, 3, "tiled"),       # DMMA, a partial step
+    (torch.float64, 999, 130, 70, 2, "tiled"),      # ... over X in chunks
+])
+def test_cuda_kmeans_routes_match_plain_and_repeat_bitwise(
+        cuda_device, dtype, n, d, kc, R, variant):
+    """The main path's shape, stage 3's at k = 48 fp64 and k = 70 fp32 (a
+    smaller n), and each routing boundary taken both ways: the plan's
+    variant launches, distances to 8 ulps of the largest term, labels off
+    ties equal, two calls bit for bit."""
+    from repro_torch.kernels.kmeans_assign import kmeans_assign
+
+    X, C = _kmeans_inputs(cuda_device, dtype, n, d, kc, R, seed=d + kc)
+    assert {v for v, _, _ in KK.launch_plan(R, kc, d, X.element_size())} \
+        == {variant}
+    before = dict(KK.LAUNCHES)
+    lab, dist = kmeans_assign(X, C)
+    lab2, dist2 = kmeans_assign(X, C)
+    torch.cuda.synchronize()
+    _assert_launches_follow_plan(before, R, kc, d, X.element_size(), 2)
+    assert torch.equal(lab, lab2) and torch.equal(dist, dist2)
+    _assert_kmeans_matches_plain(X, C, lab, dist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,kc", [(torch.float32, 4, 4),
+                                        (torch.float64, 16, 40),
+                                        (torch.float64, 48, 48),
+                                        (torch.float32, 70, 70)])
+def test_cuda_kmeans_set_alone_equals_batched(cuda_device, dtype, d, kc):
+    """A set taken alone, and any group of sets, gives the batched
+    result bit for bit: a set's result depends neither on R nor on the
+    grouping (the tiled variant's tiles straddle the sets differently)."""
+    from repro_torch.kernels.kmeans_assign import kmeans_assign
+
+    X, C = _kmeans_inputs(cuda_device, dtype, 2000, d, kc, 8, seed=11)
+    lab, dist = kmeans_assign(X, C)
+    for r in range(8):
+        lab1, dist1 = kmeans_assign(X, C[r])
+        assert torch.equal(lab1, lab[r]) and torch.equal(dist1, dist[r])
+    lab3, dist3 = kmeans_assign(X, C[2:5])
+    assert torch.equal(lab3, lab[2:5]) and torch.equal(dist3, dist[2:5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,kc", [(torch.float32, 4, 4),
+                                        (torch.float64, 16, 40),
+                                        (torch.float64, 48, 48),
+                                        (torch.float32, 70, 70)])
+def test_cuda_kmeans_ties_go_to_the_lowest_index_and_nan_rows(cuda_device,
+                                                              dtype, d, kc):
+    """Centroid kc - 1 repeats centroid 1 (and, in the tiled variant,
+    lies in another thread's columns and tile): it never wins.  A row of
+    X with a NaN gives NaN distances in every set, as the plain version
+    does, and label 0 (the first distance is NaN and sticks)."""
+    from repro_torch.kernels.kmeans_assign import (kmeans_assign,
+                                                   kmeans_assign_ref)
+
+    X, C = _kmeans_inputs(cuda_device, dtype, 3000, d, kc, 4, seed=12)
+    C[:, kc - 1] = C[:, 1]
+    X[7, d // 2] = float("nan")
+    lab, dist = kmeans_assign(X, C)
+    want_lab, want_dist = kmeans_assign_ref(X, C)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(dist[:, 7]).all())
+    assert bool(torch.isnan(want_dist[:, 7]).all())
+    assert bool((lab[:, 7] == 0).all())
+    assert not bool((lab == kc - 1).any())
+    assert bool((lab == 1).any())
+    keep = torch.ones(X.shape[0], dtype=torch.bool, device=cuda_device)
+    keep[7] = False
+    _assert_kmeans_matches_plain(X[keep], C, lab[:, keep], dist[:, keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["big 0.5", "big 1", "big 2", "big 4",
+                                  "eps 1e-30"])
+def test_cuda_sellcs_hvp_near_overflow_lands_where_plain(cuda_device, dtype,
+                                                         case):
+    """The HVP row kernel against its plain version where phi' and the
+    differences overflow: inputs of scale x
+    OVERFLOW_AT at every seventh vertex of U and E (d^2 overflows from
+    2), and, in fp32, eps = 1e-30, where eps^((p-4)/2) overflows at the
+    pads and at repeated values of U: inf and NaN where the plain version
+    puts them, the rest within the tolerance."""
+    coo, shape = _graph(1000)
+    W = convert.sparse_matrix(coo, shape, device=cuda_device, dtype=dtype,
+                              build_sellcs=True, sell_c=32)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    U = torch.randn(W.n_rows, 4, generator=gen, device=cuda_device,
+                    dtype=W.vals.dtype)
+    E = torch.randn(W.n_rows, 4, generator=gen, device=cuda_device,
+                    dtype=W.vals.dtype)
+    eps = 1e-8
+    if case.startswith("big"):
+        big = float(case.split()[1]) * KP.OVERFLOW_AT[U.dtype]
+        signs = torch.ones(U[::7].shape[0], device=cuda_device,
+                           dtype=U.dtype)
+        signs[1::2] = -1.0
+        U[::7, 0] = big * signs
+        E[::7, 2] = big * signs
+    else:
+        eps = 1e-30
+        U[1::5] = U[0::5][:U[1::5].shape[0]]     # u_j = u_i off the diagonal
+    got = K.sellcs_plap_hvp(W, U, E, 1.2, eps)
+    want = K.sellcs_plap_hvp_plain(W, U, E, 1.2, eps)
+    if case in ("big 4", "eps 1e-30") and dtype == np.float32:
+        assert not bool(torch.isfinite(want).all())
+    _assert_matches_plain(got, want, dtype)
+    np.testing.assert_array_equal(convert.to_numpy(torch.isinf(got)),
+                                  convert.to_numpy(torch.isinf(want)))

@@ -7,8 +7,8 @@
     decision reads the tiles' device only, so a stand-in for CUDA tiles
     tests it without a card.
   * kmeans at any k: the launch plan splits the restarts into groups that
-    fit the narrow kernel's shared memory and routes d > 64 or kc > 128 to
-    the wide variant; the plain assignment at stage 3's shapes for
+    fit the narrow kernel's shared memory and routes d > 16 or kc > 128 to
+    one launch of the tiled variant; the plain assignment at stage 3's shapes for
     k = 48 (fp64) and k = 70 (fp32) against the reference's
     ``core/kmeans.py::lloyd`` with the same injected C0.
   * fixed-order float sums: the COO backend's segmented sum and
@@ -141,23 +141,28 @@ def test_auto_on_cpu_tiles_above_128_keeps_the_bsr_plain_versions():
 # --------------------------------------------------- fault 2: kmeans at k
 
 @pytest.mark.parametrize("R,kc,d,itemsize,want", [
-    # the main path: k = 4, 8 restarts, one narrow launch
+    # the main path: k = 4, 8 restarts, one narrow launch; kmeans++ at k = 4
     (8, 4, 4, 4, [("narrow", 0, 8)]),
-    # stage 3 at k = 45 fp64 still fits; k = 46 and 48 split 7 + 1
-    (8, 45, 45, 8, [("narrow", 0, 8)]),
-    (8, 46, 46, 8, [("narrow", 0, 7), ("narrow", 7, 8)]),
-    (8, 48, 48, 8, [("narrow", 0, 7), ("narrow", 7, 8)]),
-    # fp32 at k = 64 fits; k = 65 and 70 exceed the narrow row
-    (8, 64, 64, 4, [("narrow", 0, 8)]),
-    (8, 65, 65, 4, [("wide", 0, 8)]),
-    (8, 70, 70, 4, [("wide", 0, 8)]),
+    (8, 3, 4, 4, [("narrow", 0, 8)]),
+    # stage 3 at k = 16 fp64 is the widest narrow row; k = 17 is tiled
+    (8, 16, 16, 8, [("narrow", 0, 8)]),
+    (8, 17, 17, 8, [("tiled", 0, 8)]),
+    (8, 1, 17, 4, [("tiled", 0, 8)]),
+    # stage 3 at k = 48 fp64 and k = 70 fp32: one tiled launch each
+    (8, 48, 48, 8, [("tiled", 0, 8)]),
+    (8, 70, 70, 4, [("tiled", 0, 8)]),
     # kmeans++ at k = 70: kc grows from 1 while d = 70
-    (8, 1, 70, 4, [("wide", 0, 8)]),
+    (8, 1, 70, 4, [("tiled", 0, 8)]),
     # more than 128 centroids of a narrow width
-    (8, 129, 4, 4, [("wide", 0, 8)]),
-    (1, 128, 64, 8, [("narrow", 0, 1)]),
+    (8, 129, 4, 4, [("tiled", 0, 8)]),
+    (1, 128, 16, 8, [("narrow", 0, 1)]),
     # many restarts of a narrow shape: the fewest groups that fit
-    (64, 48, 48, 8, [("narrow", r, min(64, r + 7)) for r in range(0, 64, 7)]),
+    (64, 128, 16, 8, [("narrow", r, min(64, r + 13))
+                      for r in range(0, 64, 13)]),
+    (200, 128, 4, 4, [("narrow", 0, 90), ("narrow", 90, 180),
+                      ("narrow", 180, 200)]),
+    # ... and of a tiled one: still one launch
+    (500, 48, 48, 8, [("tiled", 0, 500)]),
 ])
 def test_kmeans_launch_plan(R, kc, d, itemsize, want):
     plan = KK.launch_plan(R, kc, d, itemsize)
@@ -171,11 +176,25 @@ def test_kmeans_launch_plan(R, kc, d, itemsize, want):
 
 def test_kmeans_launch_plan_groups_are_maximal():
     for itemsize in (4, 8):
-        for k in range(1, 65):
-            plan = KK.launch_plan(8, k, k, itemsize)
-            g = plan[0][2] - plan[0][1]
-            if g < 8:
-                assert KK.narrow_smem(g + 1, k, k, itemsize) > KK.SMEM_LIMIT
+        for d in (1, 4, 5, 16):
+            for kc in (1, 4, 64, 128):
+                plan = KK.launch_plan(300, kc, d, itemsize)
+                for _, r0, r1 in plan[:-1]:
+                    assert KK.narrow_smem(r1 - r0 + 1, kc, d, itemsize) > \
+                        KK.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_kmeans_launch_plan_routes_at_the_boundaries(itemsize):
+    """The narrow variant up to d = 16 and kc = 128, the tiled one past
+    either."""
+    for kc in (1, 2, 64, 128):
+        assert KK.launch_plan(8, kc, 16, itemsize)[0][0] == "narrow"
+        assert KK.launch_plan(8, kc, 17, itemsize) == [("tiled", 0, 8)]
+    for d in (1, 4, 5, 16):
+        assert KK.launch_plan(8, 128, d, itemsize)[0][0] == "narrow"
+        assert KK.launch_plan(8, 129, d, itemsize) == [("tiled", 0, 8)]
+    assert KK.narrow_width(4) == 4 and KK.narrow_width(5) == 16
 
 
 def _stage3_input(n, k, dtype, seed):

@@ -1,11 +1,11 @@
 """The SELL-C-σ kernels' launch plan, and their plain versions at the
 shapes the main path gives them, on the CPU.
 
-  * the plan: ``sellcs_spmm`` and ``sellcs_plap_apply`` run the row kernel
-    at a compiled width (k = 4, 8, 16, 24, operands on 16-byte
-    boundaries) or its generic variant on chunks of 4 columns; the
-    threads a row takes; the grid; ``sellcs_plap_hvp`` keeps the element
-    kernel;
+  * the plan: every wrapper (``sellcs_spmm``, ``sellcs_plap_apply``,
+    ``sellcs_plap_hvp``) runs the row kernel at a compiled width (k = 4,
+    8, 16, 24, operands on 16-byte boundaries) or its generic variant on
+    chunks of 4 columns; the threads a row takes; the grid; the block
+    order;
   * the plain versions at LOBPCG's widths (k = 8 and 24) and with the
     graphblas HVP's (nnz, 4) multivalues, run by run, against the
     reference's Pallas kernels in interpret mode and its ref.py oracles,
@@ -76,11 +76,31 @@ def test_misaligned_operands_take_the_generic_variant(k):
     assert plan.lanes == 1 and not plan.ordered
 
 
-@pytest.mark.parametrize("k", [1, 4, 24])
-def test_hvp_keeps_the_element_kernel(k):
-    plan = K.launch_plan("sellcs_plap_hvp", 1000, k, torch.float32)
-    assert plan == K.Plan("element", 1, 1, (-(-1000 * k // 256), 1), 256,
-                          False)
+@pytest.mark.parametrize("dtype,k,lanes", [
+    (torch.float32, 4, 1), (torch.float32, 8, 1),
+    (torch.float32, 16, 2), (torch.float32, 24, 3),
+    (torch.float64, 4, 1), (torch.float64, 8, 2),
+    (torch.float64, 16, 4), (torch.float64, 24, 6)])
+def test_hvp_takes_the_row_kernel_at_compiled_widths(dtype, k, lanes):
+    """The HVP runs the row kernel like the apply: one thread per 32 bytes
+    of a row, blocks in launch order."""
+    n = 1 << 20
+    assert K.launch_plan("sellcs_plap_hvp", n, k, dtype) == K.Plan(
+        "row", k, lanes, (n * lanes // 256, 1), 256, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 5, 12, 33])
+def test_hvp_other_widths_take_the_generic_variant(dtype, k):
+    assert K.launch_plan("sellcs_plap_hvp", 1000, k, dtype) == K.Plan(
+        "row_generic", 4, 1, (4, -(-k // 4)), 256, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [4, 8, 16, 24])
+def test_hvp_misaligned_operands_take_the_generic_variant(dtype, k):
+    plan = K.launch_plan("sellcs_plap_hvp", 300, k, dtype, aligned=False)
+    assert plan == K.Plan("row_generic", 4, 1, (2, -(-k // 4)), 256, False)
 
 
 @pytest.mark.parametrize("row_bytes,want", [
