@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--newton-iters 30] [--tcg-iters 20]
+    python3 chip_smoke.py [--newton-iters 30] [--tcg-iters 20] [--scf-sweeps 12]
     python3 chip_smoke.py --sellcs-src SRC
     python3 chip_smoke.py --kmeans-src SRC
 
@@ -31,9 +31,10 @@ Phases, none of which catches its own failure:
      scalar values at k = 4, 8 and 24 (each also against
      ``torch.sparse.mm`` on the CSR form of W, a yardstick the port never
      calls) and with (nnz, 4) multivalues, the apply and the HVP at
-     k = 4.  Every kernel runs twice, equal bit for bit, and with a NaN
-     in one row of X (the HVP: one row of U and one of E), NaN where the
-     plain versions put it.  Then the COO backend's reals SpMM with
+     k = 4, and the apply at k = 1 (the inverse-power driver's one
+     column, the generic variant).  Every kernel runs twice, equal bit
+     for bit, and (at k = 4) with a NaN in one row of X (the HVP: one
+     row of U and one of E), NaN where the plain versions put it.  Then the COO backend's reals SpMM with
      full-size W-hat multivalues and ``row_sums``, each twice, equal bit
      for bit (the fixed-order segmented sum), and the sum timed beside
      ``index_add_``, also on rows of about a thousand entries (a planted
@@ -108,8 +109,32 @@ Phases, none of which catches its own failure:
      kernel are within 2^-5 relative of the same prefill through the
      plain attention, and one decode step's logits are within 2^-5
      relative of a full forward's over the same 2049 tokens.
+ 11. resilience and telemetry, on the SELL-C-σ graph of phases 2-4
+     (C = 32, k = 4, fp32): (a) ``solver="guarded", validate=True,
+     trace=True`` with matrix_free HVPs: it fails unless the recovery
+     report is clean (no rung), the graph is one component
+     (``connected_components``, its BFS hops and seconds printed), the
+     labels, the HVP count and RCut equal phase 3's matrix_free solve,
+     U^T U is within 1e-4 of I and the telemetry has the spans psc,
+     init, continuation, solver.level, grblas.mxm and kmeans; its wall
+     time is printed beside phase 3's, with ``phase_breakdown()`` and
+     ``coverage()``.  (b) ``solver="scf"`` with ``--scf-sweeps`` sweeps
+     a level (default PSCConfig's 12; a smaller number is printed as a
+     cut): phase 3's checks but the RCut bound (printed beside
+     newton's), ``sellcs_spmm`` at scalar k = 8 and 24 beyond stage 1's
+     launches, every level's sweeps and subspace drift printed.  (c)
+     ``solver="inverse_power", p_target=1.0``: it fails unless the apply
+     launched at k = 1, U is finite and orthonormal within 1e-4.  (d)
+     the ladder: a NaN injected into the second newton level must end on
+     warm_restart, a fault of the ``sellcs`` backend on backend_fallback
+     (backend ``coo``, not degraded, through ``segment_sum``), each rung
+     in the report, the ``recovery_rungs_total`` counter and a
+     ``recovery.<rung>`` span, each RCut within 1.10 x (a)'s.  (e)
+     ``validate_graph``: a copy of the graph with one NaN weight and one
+     edge stored one way only is repaired to the original's host COO,
+     and raises GraphValidationError without ``repair``.
 
-Every clustering solve (3, 7, 8) also assigns its kmeans stages through
+Every clustering solve (3, 7, 8, 11) also assigns its kmeans stages through
 ``kmeans_assign``, and fails if it did not launch; the bsr graphblas
 solve fails unless its W-hat SpMMs ran through the fixed-order sum.  The
 HVP count of every flat solve is printed.  The line before the
@@ -146,6 +171,8 @@ SPMM_WIDTHS = (4, 8, 24)       # bsr_spmm's widths: the k = 4 multivectors,
                                # LOBPCG's matvec (8) and [X, R, P] block (24)
 P, EPS = 1.2, 1e-8             # PSCConfig's p_target and eps
 GRAPH_R = 20                   # delaunay_graph(20): n = 1,048,576
+SCF_SWEEPS = 12                # PSCConfig's scf_sweeps
+RUNG_RCUT = 1.10               # a recovered solve's RCut over the clean one
 BLOCK = 128                    # the reference's default BSR tile
 # operations per term (one stored value, one column); a pow counts as
 # one operation, so the operation bound is a lower bound
@@ -374,6 +401,26 @@ def sellcs_kernel_phase(W, K, torch) -> list:
         _time_ms(lambda: K.sellcs_plap_apply_plain(W, U, P, EPS), 3, 3),
         _bound(_layout_bytes(L, item) + 2 * dense_bytes,
                OPS["apply"] * L.slots * k), None))
+    # the apply at k = 1: the inverse-power driver's one column (the
+    # generic variant)
+    U1 = U[:, :1].contiguous()
+    err1 = _compare("sellcs_plap_apply k=1", K.sellcs_plap_apply(
+        W, U1, P, EPS), K.sellcs_plap_apply_plain(W, U1, P, EPS))
+    _repeat("sellcs_plap_apply k=1",
+            lambda: K.sellcs_plap_apply(W, U1, P, EPS))
+    bound1 = _bound(_layout_bytes(L, item) + 2 * n * item,
+                    OPS["apply"] * L.slots)
+    rows[-1]["k1"] = dict(
+        max_abs_err=err1[0], max_rel_err=err1[1],
+        plan=K.launch_plan("sellcs_plap_apply", n, 1, U1.dtype)._asdict(),
+        ms=_time_ms(lambda: K.sellcs_plap_apply(W, U1, P, EPS)),
+        plain_ms=_time_ms(lambda: K.sellcs_plap_apply_plain(W, U1, P, EPS),
+                          3, 3),
+        bound_ms=bound1[0], bound_by=bound1[1], library_ms=None)
+    print(f"sellcs_plap_apply k=1: kernel_ms={rows[-1]['k1']['ms']!r} "
+          f"twin_ms={rows[-1]['k1']['plain_ms']!r} bound_ms={bound1[0]!r} "
+          f"({bound1[1]}) plan={rows[-1]['k1']['plan']}", flush=True)
+    del U1
 
     # matrix-free Newton HVP (the row kernel)
     err = _compare("sellcs_plap_hvp", K.sellcs_plap_hvp(W, U, E, P, EPS),
@@ -588,9 +635,10 @@ def _orthonormality(U, torch) -> float:
     return float((G - torch.eye(G.shape[0], device=G.device)).abs().max())
 
 
-def solve_phase(tag, W, counters, torch, psc, cfg, used) -> tuple:
+def solve_phase(tag, W, counters, torch, psc, cfg, used,
+                all_clusters: bool = True) -> tuple:
     """One p_spectral_cluster run from zeroed launch counts; returns
-    (counts, result)."""
+    (counts, result); the wall seconds are in ``counts["wall_s"]``."""
     for K in counters:
         K.reset_launch_counts()
     t0 = time.perf_counter()
@@ -604,6 +652,10 @@ def solve_phase(tag, W, counters, torch, psc, cfg, used) -> tuple:
     launches["sellcs_spmm_by_shape"] = {
         shape: c for K in counters
         for shape, c in getattr(K, "LAUNCHES_BY_SHAPE", {}).items()}
+    launches["sellcs_plap_apply_by_k"] = {
+        kk: c for K in counters
+        for kk, c in getattr(K, "APPLY_LAUNCHES_BY_K", {}).items()}
+    launches["wall_s"] = wall
     orth = _orthonormality(res.U, torch)
     print(f"{tag}: wall_s={wall!r} stage_s={res.stage_seconds} "
           f"init_rcut={res.init_rcut!r} rcut={res.rcut!r} ncut={res.ncut!r} "
@@ -623,7 +675,7 @@ def solve_phase(tag, W, counters, torch, psc, cfg, used) -> tuple:
         raise AssertionError(f"{tag}: non-finite output (rcut {res.rcut})")
     if not orth <= 1e-4:
         raise AssertionError(f"{tag}: U^T U off identity by {orth}")
-    if len(np.unique(res.labels)) != cfg.k:
+    if all_clusters and len(np.unique(res.labels)) != cfg.k:
         raise AssertionError(f"{tag}: labels use {len(np.unique(res.labels))}"
                              f" of {cfg.k} clusters")
     return launches, res
@@ -714,6 +766,209 @@ def multilevel_phase(W, counters, torch, psc, flat_rcut, args) -> dict:
           f"rcut_over_flat_bsr={res.rcut / flat_rcut!r} (recorded, not "
           f"asserted)", flush=True)
     return launches
+
+
+def _rung_counts(metrics) -> dict:
+    return metrics.DEFAULT.labeled_values("recovery_rungs_total", "rung")
+
+
+def _span_names(res) -> set:
+    return {sp.name for sp in res.telemetry.spans}
+
+
+def resilience_phase(W, counters, torch, psc, ref, args) -> tuple:
+    """Phase 11 on the SELL-C-σ graph: the guarded, validated, traced
+    solve held to phase 3's matrix_free solve (``ref``: its labels, HVPs,
+    RCut, wall seconds and launches), the scf and inverse_power drivers,
+    two injected faults down the recovery ladder and graph validation.
+    Returns (launch counts by path, summary)."""
+    from repro_torch.graphs import (GraphValidationError, ValidateConfig,
+                                    connected_components, validate_graph)
+    from repro_torch.grblas import SparseMatrix
+    from repro_torch.obs import TraceConfig, metrics
+    from repro_torch.testing import backend_fault, nan_in_multivector
+
+    base = dict(k=4, backend="sellcs", hvp_mode="matrix_free",
+                newton_iters=args.newton_iters, tcg_iters=args.tcg_iters)
+    by_path, out = {}, {}
+
+    # (a) guarded, validated, traced: equal to phase 3's unguarded solve
+    rungs0 = _rung_counts(metrics)
+    cfg = psc.PSCConfig(solver="guarded", validate=True, trace=True, **base)
+    by_path["guarded/matrix_free"], res = solve_phase(
+        "guarded[validate,trace]", W, counters, torch, psc, cfg,
+        ["sellcs_spmm", "sellcs_plap_apply", "sellcs_plap_hvp",
+         "kmeans_assign"])
+    rec, tel = res.recovery, res.telemetry
+    print(f"guarded: recovery={rec}", flush=True)
+    if not (rec is not None and rec.clean and not rec.rungs) \
+            or _rung_counts(metrics) != rungs0:
+        raise AssertionError(f"guarded: the clean solve recorded rungs {rec}")
+    if res.components is not None:
+        raise AssertionError(f"guarded: split into components "
+                             f"{res.components}")
+    t0 = time.perf_counter()
+    comps = connected_components(W)
+    bfs_s = time.perf_counter() - t0
+    print(f"guarded: connected_components n_components="
+          f"{comps.n_components} hops={comps.hops} seconds={bfs_s!r}",
+          flush=True)
+    if comps.n_components != 1:
+        raise AssertionError(f"guarded: {comps.n_components} components")
+    hvps = sum(res.hvp_counts)
+    same = dict(labels=bool(np.array_equal(res.labels, ref["labels"])),
+                hvps=hvps == ref["hvps"], rcut=res.rcut == ref["rcut"])
+    print(f"guarded: equal to phase 3's matrix_free solve: {same} (hvps "
+          f"{hvps} / {ref['hvps']}, rcut {res.rcut!r} / {ref['rcut']!r})",
+          flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"guarded: differs from the unguarded solve "
+                             f"{same}")
+    want = {"psc", "init", "continuation", "solver.level", "grblas.mxm",
+            "kmeans"}
+    names = _span_names(res)
+    mxm = [sp for sp in tel.spans if sp.name == "grblas.mxm"]
+    wall = by_path["guarded/matrix_free"]["wall_s"]
+    out["guarded"] = dict(
+        wall_s=wall, unguarded_wall_s=ref["wall_s"],
+        stage_s=res.stage_seconds, hvps=hvps, rcut=res.rcut,
+        spans=len(tel.spans), events=len(tel.events), dropped=tel.dropped,
+        grblas_mxm_spans=len(mxm), phase_breakdown=tel.phase_breakdown(),
+        coverage=tel.coverage(), bfs_hops=comps.hops, bfs_s=bfs_s)
+    print(f"guarded: wall_s={wall!r} (phase 3 unguarded: "
+          f"{ref['wall_s']!r}) spans={len(tel.spans)} grblas.mxm="
+          f"{len(mxm)} events={len(tel.events)} dropped={tel.dropped} "
+          f"phase_breakdown={out['guarded']['phase_breakdown']} "
+          f"coverage={out['guarded']['coverage']!r}", flush=True)
+    if not want <= names:
+        raise AssertionError(f"guarded: spans {sorted(want - names)} "
+                             "missing")
+    del res, tel, mxm
+
+    # (b) scf: phase 3's checks but the RCut bound
+    if args.scf_sweeps != SCF_SWEEPS:
+        print(f"scf sweeps cut: scf_sweeps={args.scf_sweeps} (PSCConfig "
+              f"default {SCF_SWEEPS})", flush=True)
+    cfg = psc.PSCConfig(solver="scf", scf_sweeps=args.scf_sweeps,
+                        trace=TraceConfig(fence=False), **base)
+    by_path["scf"], res = solve_phase(
+        "scf", W, counters, torch, psc, cfg,
+        ["sellcs_spmm", "sellcs_plap_apply", "kmeans_assign"])
+    shapes = by_path["scf"]["sellcs_spmm_by_shape"]
+    stage1 = ref["launches"]["sellcs_spmm_by_shape"]
+    for shape in ("scalar k=8", "scalar k=24"):
+        if not shapes.get(shape, 0) > stage1.get(shape, 0):
+            raise AssertionError(f"scf: sellcs_spmm {shape} launched "
+                                 f"{shapes.get(shape, 0)} times, stage 1 "
+                                 f"alone {stage1.get(shape, 0)}")
+    sweeps = [(e["attrs"]["p"], e["attrs"]["sweep"], e["attrs"]["drift"])
+              for e in res.telemetry.events if e["name"] == "scf.sweep"]
+    for p, it, rep in zip(res.p_path, res.hvp_counts, res.reports):
+        drifts = [d for q, _, d in sweeps if q == p]
+        print(f"scf: p={p!r} sweeps={it} converged={rep.converged} "
+              f"drift={drifts}", flush=True)
+    out["scf"] = dict(
+        scf_sweeps=args.scf_sweeps, wall_s=by_path["scf"]["wall_s"],
+        stage_s=res.stage_seconds, sweeps=res.hvp_counts, drift=sweeps,
+        rcut=res.rcut, init_rcut=res.init_rcut, newton_rcut=ref["rcut"],
+        spmm_by_shape=shapes)
+    print(f"scf: rcut={res.rcut!r} newton rcut={ref['rcut']!r} (recorded, "
+          f"not asserted) init_rcut={res.init_rcut!r}", flush=True)
+    del res
+
+    # (c) inverse_power to p = 1: the apply at k = 1
+    cfg = psc.PSCConfig(solver="inverse_power", p_target=1.0, **base)
+    by_path["inverse_power"], res = solve_phase(
+        "inverse_power", W, counters, torch, psc, cfg,
+        ["sellcs_plap_apply", "kmeans_assign"], all_clusters=False)
+    k1 = by_path["inverse_power"]["sellcs_plap_apply_by_k"].get(1, 0)
+    out["inverse_power"] = dict(
+        wall_s=by_path["inverse_power"]["wall_s"], stage_s=res.stage_seconds,
+        rcut=res.rcut, init_rcut=res.init_rcut, p_path=res.p_path,
+        apply_k1_launches=k1, clusters=int(len(np.unique(res.labels))))
+    print(f"inverse_power: rcut={res.rcut!r} apply k=1 launches={k1} "
+          f"clusters={out['inverse_power']['clusters']}", flush=True)
+    if k1 < 1:
+        raise AssertionError("inverse_power: the apply never launched at k=1")
+    del res
+
+    # (d) the ladder at full size
+    def ladder(tag, inject, rung, used):
+        before = _rung_counts(metrics)
+        cfg = psc.PSCConfig(guard=True, trace=TraceConfig(fence=False),
+                            **base)
+        with inject() as log:
+            by_path[f"ladder/{rung}"], res = solve_phase(
+                f"ladder[{tag}]", W, counters, torch, psc, cfg, used)
+        rec = res.recovery
+        fired = {r: c - before.get(r, 0.0)
+                 for r, c in _rung_counts(metrics).items()
+                 if c != before.get(r, 0.0)}
+        spans = {n for n in _span_names(res) if n.startswith("recovery.")}
+        print(f"ladder[{tag}]: injected={log.count()} recovery={rec} "
+              f"rungs_total={fired} spans={sorted(spans)} "
+              f"rcut={res.rcut!r} clean rcut={out['guarded']['rcut']!r}",
+              flush=True)
+        if not (log.count() >= 1 and rec.final_rung == rung
+                and not rec.degraded and fired.get(rung, 0) >= 1
+                and f"recovery.{rung}" in spans
+                and sum(fired.values()) == len(rec.rungs)):
+            raise AssertionError(f"ladder[{tag}]: expected to end on {rung}")
+        if not res.rcut <= RUNG_RCUT * out["guarded"]["rcut"] + 1e-9:
+            raise AssertionError(f"ladder[{tag}]: rcut {res.rcut} above "
+                                 f"{RUNG_RCUT} x the clean solve's")
+        out[f"ladder_{rung}"] = dict(
+            wall_s=by_path[f"ladder/{rung}"]["wall_s"],
+            stage_s=res.stage_seconds, rcut=res.rcut,
+            diverged=rec.diverged_reason, diverged_level=rec.diverged_level,
+            rungs=[(r.rung, r.driver, r.backend, r.ok) for r in rec.rungs],
+            hvps=sum(res.hvp_counts))
+        return res
+
+    ladder("nan in newton level 2",
+           lambda: nan_in_multivector("newton", at_call=2, max_calls=1),
+           "warm_restart", ["sellcs_plap_apply", "sellcs_plap_hvp"])
+    res = ladder("sellcs backend down", lambda: backend_fault("sellcs"),
+                 "backend_fallback", ["segment_sum", "kmeans_assign"])
+    if res.recovery.rungs[-1].backend != "coo" or \
+            by_path["ladder/backend_fallback"]["segment_sum"] <= \
+            ref["launches"]["segment_sum"]:
+        raise AssertionError("ladder[backend]: the fallback did not run on "
+                             "coo through segment_sum")
+    del res
+
+    # (e) validation: a NaN weight and an edge stored one way only
+    r, c, v = W.host_coo()
+    v = v.copy()
+    i_nan, j = W.nnz // 3, 2 * W.nnz // 3
+    v[i_nan] = np.nan
+    one_way = j + ((r[j], c[j]) == (c[i_nan], r[i_nan]))
+    keep = np.ones(len(v), bool)
+    keep[one_way] = False
+    bad = SparseMatrix.from_coo(r[keep], c[keep], v[keep],
+                                (W.n_rows, W.n_cols), build_ell=False,
+                                build_sellcs=False, device="cuda")
+    t0 = time.perf_counter()
+    fixed = validate_graph(bad, ValidateConfig(repair=True))
+    repair_s = time.perf_counter() - t0
+    fr, fc, fv = fixed.host_coo()
+    _, _, v0 = W.host_coo()
+    equal = (np.array_equal(fr, r) and np.array_equal(fc, c)
+             and np.array_equal(fv, v0))
+    try:
+        validate_graph(bad)
+    except GraphValidationError as e:
+        issues = e.issues
+    else:
+        raise AssertionError("validate: the damaged graph passed unrepaired")
+    out["validate"] = dict(repaired_equal=equal, repair_s=repair_s,
+                           issues=issues)
+    print(f"validate: repaired host COO equal to the original: {equal} "
+          f"(repair_s={repair_s!r}); without repair: {issues}", flush=True)
+    if not equal:
+        raise AssertionError("validate: the repaired graph differs")
+    del bad, fixed
+    return by_path, out
 
 
 def _visible_pairs(S: int, window) -> int:
@@ -1265,6 +1520,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--newton-iters", type=int, default=30)
     ap.add_argument("--tcg-iters", type=int, default=20)
+    ap.add_argument("--scf-sweeps", type=int, default=SCF_SWEEPS,
+                    help="scf sweeps a level in phase 11 (default "
+                    "PSCConfig's)")
     ap.add_argument("--sellcs-src", type=Path, metavar="SRC",
                     help="only time the SELL-C-σ kernels of the tree whose "
                     "src directory is SRC and print one JSON line")
@@ -1333,7 +1591,7 @@ def main() -> int:
     phase_done("sellcs_kernels")
     coo_sum = coo_sum_phase(W, KS, torch, api)
     phase_done("coo_sum")
-    by_path, final_U, hvp_counts = {}, {}, {}
+    by_path, final_U, hvp_counts, flat = {}, {}, {}, {}
     for mode in ("graphblas", "matrix_free"):
         used = ["sellcs_spmm", "sellcs_plap_apply", "kmeans_assign"]
         if mode == "matrix_free":
@@ -1342,6 +1600,9 @@ def main() -> int:
             "main", W, counters, torch, psc, "sellcs", mode, used, args)
         final_U[mode] = res.U
         hvp_counts[f"sellcs/{mode}"] = res.hvp_counts
+        flat[mode] = dict(labels=res.labels, hvps=sum(res.hvp_counts),
+                          rcut=res.rcut, launches=by_path[f"sellcs/{mode}"],
+                          wall_s=by_path[f"sellcs/{mode}"]["wall_s"])
         shapes = by_path[f"sellcs/{mode}"]["sellcs_spmm_by_shape"]
         want = {"scalar k=8", "scalar k=24"} | (
             {"multivalue k=4"} if mode == "graphblas" else set())
@@ -1361,7 +1622,7 @@ def main() -> int:
                                device="cuda")
     torch.cuda.synchronize()
     stage3_U = final_U["matrix_free"]
-    del W, final_U
+    del final_U
     nb = int(Wb.bsr_blocks.shape[0])
     print(f"bsr graph: n={Wb.n_rows} nnz={Wb.nnz} block_size={BLOCK} "
           f"n_blocks={nb} tiles_per_row_block="
@@ -1407,6 +1668,12 @@ def main() -> int:
     by_path["lm_serve"], lm = lm_serve_phase(torch, counters)
     phase_done("lm_serve")
 
+    # ---- resilience and telemetry, on the SELL-C-σ graph again
+    paths, resilience = resilience_phase(W, counters, torch, psc,
+                                         flat["matrix_free"], args)
+    by_path.update(paths)
+    phase_done("resilience")
+
     for row in rows:
         counter = row.get("counter", row["name"])
         row["launches_by_path"] = {p: c[counter] for p, c in by_path.items()}
@@ -1419,6 +1686,10 @@ def main() -> int:
             row["launches_by_shape"] = {p: c["sellcs_spmm_by_shape"]
                                         for p, c in by_path.items()
                                         if c.get("sellcs_spmm_by_shape")}
+        if row["name"] == "sellcs_plap_apply":
+            row["launches_by_k"] = {p: c["sellcs_plap_apply_by_k"]
+                                    for p, c in by_path.items()
+                                    if c.get("sellcs_plap_apply_by_k")}
     print(f"kmeans_assign launches per solve: "
           f"{ {p: c['kmeans_assign'] for p, c in by_path.items()} }",
           flush=True)
@@ -1432,6 +1703,7 @@ def main() -> int:
     print(json.dumps({"lm_serve": lm}), flush=True)
     print(json.dumps({"coo_sum": coo_sum, "bsr_block_256": bsr256,
                       "hvp_counts": hvps}), flush=True)
+    print(json.dumps({"resilience": resilience}, default=str), flush=True)
     print(json.dumps({"kernels": rows, "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

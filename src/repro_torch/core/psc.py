@@ -5,8 +5,9 @@ Port of ``repro.core.psc``:
   1. p=2 start: smallest-k eigenvectors of the graph Laplacian (LOBPCG,
      dense eigh for n <= 1024).
   2. p-continuation: for p_t = max(p_target, 2.0 * 0.9^t), minimize
-     F_{p_t}(U) over Gr(k,n) with the ``newton`` driver, warm-started
-     from the previous level.
+     F_{p_t}(U) over Gr(k,n) with the driver ``PSCConfig.solver`` names
+     ("newton", the paper's; "scf"; "inverse_power", which reaches p = 1;
+     "guarded"), warm-started from the previous level.
   3. Discretize the k nonlinear eigenvectors with kmeans++.
 
 Everything runs on the graph's device.  Randomness follows a seeded
@@ -23,9 +24,18 @@ the V-cycle of ``repro_torch.multilevel``; ``reorder`` ("rcm" |
 "degree") relabels the graph first (``graphs.reorder``) and un-permutes
 labels, init_labels and U before the result is returned.
 
-Config fields of slices not ported yet raise NotImplementedError naming
-the ROADMAP.md item: ``guard``, ``validate``, ``trace``, ``init_U`` and
-solvers other than ``newton`` (also as a multilevel level's driver).
+Three wrappers, as in the reference: ``guard`` (True or a
+``solvers.GuardConfig``; or ``solver="guarded"``) runs the continuation
+under per-level health checks and the recovery ladder and puts the
+``RecoveryReport`` in ``PSCResult.recovery``; ``validate`` (True or a
+``graphs.validate.ValidateConfig``) checks (or repairs) the graph first
+and clusters a disconnected graph component by component
+(``PSCResult.components``); ``trace`` (True, an ``obs.TraceConfig`` or an
+``obs.Tracer``) runs the solve under a span session rooted at "psc" and
+puts an ``obs.Telemetry`` in ``PSCResult.telemetry``.
+
+``init_U`` (the warm start the serve layer feeds) is not ported yet and
+raises NotImplementedError naming ROADMAP.md queue 1, item 13.
 """
 from __future__ import annotations
 
@@ -41,12 +51,10 @@ from repro_torch.core import lobpcg, metrics, solvers
 from repro_torch.grblas import api as grb_api
 from repro_torch.grblas.api import Descriptor
 from repro_torch.grblas.containers import SparseMatrix
+from repro_torch.obs import trace as _obs_trace
 
 # config field -> the ROADMAP.md item that ports it
 _UNPORTED_FIELDS = {
-    "guard": "queue 1, item 10 (guarded continuation)",
-    "validate": "queue 1, item 11 (graphs.validate)",
-    "trace": "queue 1, item 14 (obs telemetry)",
     "init_U": "queue 1, item 13 (warm start / serve)",
 }
 
@@ -65,7 +73,17 @@ class PSCConfig:
     hvp_mode: str = "graphblas"     # "graphblas" (Alg.1) | "matrix_free"
     normalized_init: bool = False
     seed: int = 0
+    # the per-p driver (core.solvers registry): "newton" | "scf" |
+    # "inverse_power" | "guarded"; an unknown name or a schedule outside
+    # the driver's p range raises here
     solver: str = "newton"
+    # scf: max reweight/eigensolve sweeps per level and the subspace-drift
+    # stopping tolerance
+    scf_sweeps: int = 12
+    scf_tol: float = 1e-5
+    # inverse_power: projected-gradient steps per column, first step size
+    ipm_iters: int = 200
+    ipm_lr0: float = 0.5
     # grblas backend of the hot loop (grblas/backends.py).  The loop
     # issues p-Laplacian edge-ring SpMMs, which "coo", "sellcs" (with the
     # SELL-C-σ layout built) and "edge_pallas" (with the BSR layout
@@ -80,8 +98,11 @@ class PSCConfig:
     # None/False = flat solve; True or a MultilevelConfig = V-cycle
     multilevel: object = None
     init_U: object = None
+    # None (off) | True | solvers.GuardConfig: health checks + recovery
     guard: object = None
+    # None (off) | True (strict) | graphs.validate.ValidateConfig
     validate: object = None
+    # None/False (off) | True | obs.TraceConfig | obs.Tracer
     trace: object = None
 
     def __post_init__(self):
@@ -90,6 +111,9 @@ class PSCConfig:
             if value is not None and value is not False:
                 raise NotImplementedError(
                     f"PSCConfig.{name} is not ported yet (ROADMAP.md {item})")
+        if self.trace is not None \
+                and not isinstance(self.trace, _obs_trace.Tracer):
+            _obs_trace.coerce(self.trace)   # raises on bad values now
         if self.multilevel:
             from repro_torch.multilevel import vcycle
 
@@ -100,6 +124,12 @@ class PSCConfig:
         solvers.validate_config(self)
         if self.k < 1:
             raise ValueError(f"k={self.k} must be >= 1")
+        if self.guard or self.solver == "guarded":
+            solvers.guard.validate_guard(self)
+        if self.validate:
+            from repro_torch.graphs import validate as _validate
+
+            _validate.coerce_validate(self.validate)
 
     def descriptor(self) -> Descriptor:
         return Descriptor(backend=self.backend)
@@ -144,6 +174,15 @@ class PSCResult:
     # p, fval, n_hvp, iters), and the hierarchy (level, n, nnz, bsr_tiles)
     levels: Optional[list] = None
     hierarchy: Optional[list] = None
+    # guarded runs: the solvers.RecoveryReport (what diverged, which rung
+    # brought the solve home)
+    recovery: Optional[object] = None
+    # per-component runs (validate on a disconnected graph): one
+    # {"n", "k", "rcut"} per connected component, in component order
+    components: Optional[list] = None
+    # traced runs: the obs.Telemetry of this solve (None when tracing is
+    # off or an outer session owns the timeline)
+    telemetry: Optional[object] = None
 
 
 def stage_generators(seed: int, device) -> Tuple[torch.Generator,
@@ -182,12 +221,38 @@ def _trivial_result(W: SparseMatrix, cfg: PSCConfig) -> PSCResult:
 
 
 def p_spectral_cluster(W: SparseMatrix, cfg: PSCConfig) -> PSCResult:
-    """Run the flat GrB-pGrass pipeline on graph W, on W's device."""
+    """Run the GrB-pGrass pipeline on graph W, on W's device.
+
+    With ``cfg.trace`` set (and no outer tracer active) the solve runs
+    under a span session rooted at "psc" and the result carries
+    ``telemetry``; the coarse-level call of a multilevel solve reuses the
+    outer session, so one timeline covers the whole V-cycle."""
+    with _obs_trace.session(cfg.trace) as owner:
+        with _obs_trace.ACTIVE.span("psc", cat="psc", n=W.n_rows,
+                                    nnz=W.nnz, k=cfg.k, solver=cfg.solver,
+                                    backend=cfg.backend,
+                                    multilevel=bool(cfg.multilevel)):
+            res = _cluster_impl(W, cfg)
+        if owner is not None:
+            res.telemetry = _obs_trace.Telemetry.from_tracer(owner)
+    return res
+
+
+def _cluster_impl(W: SparseMatrix, cfg: PSCConfig) -> PSCResult:
     n = W.n_rows
     if n == 0:
         raise ValueError("cannot cluster an empty graph (n_rows == 0)")
     if cfg.k > n:
         raise ValueError(f"k={cfg.k} exceeds the number of vertices n={n}")
+    if cfg.validate:
+        from repro_torch.graphs import validate as _validate
+
+        W = _validate.validate_graph(W, _validate.coerce_validate(
+            cfg.validate))
+        if 1 < cfg.k < n:
+            comps = _validate.connected_components(W)
+            if comps.n_components > 1:
+                return _validate.cluster_components(W, cfg, comps)
     if cfg.k == 1 or cfg.k == n:
         return _trivial_result(W, cfg)
     if cfg.multilevel:
@@ -202,31 +267,49 @@ def p_spectral_cluster(W: SparseMatrix, cfg: PSCConfig) -> PSCResult:
     cfg.validate_backend(W)
     g_init, g_final = stage_generators(cfg.seed, W.device)
     seconds = {}
+    recovery = None
+    span = _obs_trace.ACTIVE.span
 
     # -- stage 1: linear (p=2) spectral start; the reals-ring matvec gets
     # the configured descriptor only where that backend can serve it
     t0 = time.perf_counter()
-    stage1_desc = grb_api.capable_desc(W, desc=cfg.descriptor(), k=cfg.k,
-                                       dtype=W.vals.dtype)
-    _, U = lobpcg.smallest_eigvecs(W, cfg.k, normalized=cfg.normalized_init,
-                                   seed=cfg.seed, desc=stage1_desc)
-    U = torch.linalg.qr(U)[0].contiguous()
-    init_labels, _ = km.kmeans(g_init, U, cfg.k, restarts=cfg.kmeans_restarts,
-                               iters=cfg.kmeans_iters)
-    init_rcut = float(metrics.rcut(W, init_labels, cfg.k))
+    with span("init", cat="psc", n=W.n_rows, k=cfg.k) as sp:
+        stage1_desc = grb_api.capable_desc(W, desc=cfg.descriptor(), k=cfg.k,
+                                           dtype=W.vals.dtype)
+        _, U = lobpcg.smallest_eigvecs(W, cfg.k,
+                                       normalized=cfg.normalized_init,
+                                       seed=cfg.seed, desc=stage1_desc)
+        U = torch.linalg.qr(U)[0].contiguous()
+        init_labels, _ = km.kmeans(g_init, U, cfg.k,
+                                   restarts=cfg.kmeans_restarts,
+                                   iters=cfg.kmeans_iters)
+        init_rcut = float(metrics.rcut(W, init_labels, cfg.k))
+        sp.set(init_rcut=init_rcut)
     seconds["init"] = time.perf_counter() - t0
 
-    # -- stage 2: p-continuation under the registered driver
+    # -- stage 2: p-continuation under the registered driver (the guarded
+    # path adds per-level health checks and the recovery ladder)
     t0 = time.perf_counter()
-    U, p_path, fvals, hvps, reports = solvers.p_continuation(W, U, cfg)
+    with span("continuation", cat="psc", solver=cfg.solver) as sp:
+        if cfg.guard or cfg.solver == "guarded":
+            U, p_path, fvals, hvps, reports, recovery = \
+                solvers.resilient_continuation(W, U, cfg)
+        else:
+            U, p_path, fvals, hvps, reports = solvers.p_continuation(
+                W, U, cfg)
+        sp.fence(U)
+        sp.set(levels=len(p_path))
     seconds["continuation"] = time.perf_counter() - t0
 
     # -- stage 3: kmeans discretization and the cut metrics
     t0 = time.perf_counter()
-    labels = discretize(U, cfg.k, g_final, restarts=cfg.kmeans_restarts,
-                        iters=cfg.kmeans_iters)
-    rcut = float(metrics.rcut(W, labels, cfg.k))    # relabeling-invariant
-    ncut = float(metrics.ncut(W, labels, cfg.k))
+    with span("kmeans", cat="psc", n=W.n_rows, k=cfg.k) as sp:
+        labels = discretize(U, cfg.k, g_final, restarts=cfg.kmeans_restarts,
+                            iters=cfg.kmeans_iters)
+        sp.fence(labels)
+        rcut = float(metrics.rcut(W, labels, cfg.k))  # relabeling-invariant
+        ncut = float(metrics.ncut(W, labels, cfg.k))
+        sp.set(rcut=rcut)
     seconds["kmeans"] = time.perf_counter() - t0
 
     labels, init_labels = labels.cpu().numpy(), init_labels.cpu().numpy()
@@ -236,7 +319,8 @@ def p_spectral_cluster(W: SparseMatrix, cfg: PSCConfig) -> PSCResult:
     return PSCResult(labels=labels, U=U, rcut=rcut, ncut=ncut,
                      p_path=p_path, fvals=fvals, hvp_counts=hvps,
                      init_labels=init_labels, init_rcut=init_rcut,
-                     reports=reports, stage_seconds=seconds)
+                     reports=reports, stage_seconds=seconds,
+                     recovery=recovery)
 
 
 def spectral_cluster(W: SparseMatrix, k: int, seed: int = 0,

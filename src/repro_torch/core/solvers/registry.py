@@ -1,23 +1,35 @@
 """Solver-driver registry for the nonlinear eigenproblem.
 
-Port of ``repro.core.solvers.registry`` as far as the ``newton`` driver
-needs it: the name-keyed registry (``register_solver`` /
-``resolve_solver``), the driver contract (``SolverState`` in,
-``SolverReport`` out), config-time p-range validation, and the
-p-continuation loop.  The reference's ``scf``, ``inverse_power`` and
-``guarded`` drivers are not ported yet (ROADMAP.md queue 1, item 10); the
-jit trace memo has no counterpart (PyTorch runs eagerly, and p and eps
-reach the kernels as runtime arguments).
+Port of ``repro.core.solvers.registry``: the name-keyed registry
+(``register_solver`` / ``resolve_solver``), the driver contract
+(``SolverState`` in, ``SolverReport`` out), config-time p-range
+validation, the p-continuation loop and its warm entry
+(``warm_start``).  Each continuation level is a ``solver.level`` span
+(``repro_torch.obs``), fenced on the level's U.
+
+Registered drivers (imported by ``core.solvers.__init__``):
+
+  name           p range    regime
+  newton         (1, 2]     trust-region Newton + tCG on Gr(k,n)
+  scf            (1, 2]     linear eigenproblems on the IRLS-reweighted
+                            graph
+  inverse_power  [1, 2]     one deflated column at a time, reaching p = 1
+  guarded        [1, 2]     health-checked wrapper around any of them
+                            (``guard.py``)
+
+The reference's trace memo (``memoized``, ``mark_trace``,
+``SOLVER_TRACES``) and ``backend_bakes_ring_params`` have no
+counterpart: PyTorch runs eagerly, nothing is traced or compiled per
+level, and p and eps reach the kernels as runtime arguments.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
-# drivers the reference has and the port does not yet
-UNPORTED_SOLVERS = ("scf", "inverse_power", "guarded")
+from repro_torch.obs import trace as _obs_trace
 
 
 class SolverUnavailableError(ValueError):
@@ -89,10 +101,6 @@ def registered_solvers() -> Dict[str, Solver]:
 def resolve_solver(name: str) -> Solver:
     solver = _REGISTRY.get(name)
     if solver is None:
-        if name in UNPORTED_SOLVERS:
-            raise NotImplementedError(
-                f"solver {name!r} is not ported yet (ROADMAP.md queue 1, "
-                "item 10); the port runs 'newton'")
         raise SolverUnavailableError(
             f"unknown solver {name!r}; registered: {sorted(_REGISTRY)}")
     return solver
@@ -106,15 +114,18 @@ def validate_config(cfg) -> Solver:
         raise ValueError(
             f"p_factor={cfg.p_factor} must lie in (0, 1): the continuation "
             f"schedule p_t = max(p_target, 2.0 * factor^t) must descend")
+    ranges = {s.name: s.p_range_str() for s in _REGISTRY.values()}
     if not solver.supports_p(cfg.p_target):
         raise ValueError(
             f"p_target={cfg.p_target} outside solver {solver.name!r} "
-            f"supported range {solver.p_range_str()}")
+            f"supported range {solver.p_range_str()}; per-driver ranges: "
+            f"{ranges}")
     for p in p_schedule(cfg):
         if not solver.supports_p(p):
             raise ValueError(
                 f"continuation schedule visits p={p} outside solver "
-                f"{solver.name!r} supported range {solver.p_range_str()}")
+                f"{solver.name!r} supported range {solver.p_range_str()}; "
+                f"per-driver ranges: {ranges}")
     return solver
 
 
@@ -134,20 +145,53 @@ def minimize_at_p(W, U0, p, cfg) -> SolverReport:
         SolverState(W=W, U=U0, p=p, cfg=cfg))
 
 
-def p_continuation(W, U0, cfg):
-    """Run the whole p schedule, warm-starting each level from the last.
-    Returns (U, p_path, fvals, applies, reports)."""
+def _run_schedule(W, U0, cfg, ps, **span_attrs):
+    """Run the levels ``ps`` under ``cfg.solver``, each warm-started from
+    the last and each a ``solver.level`` span."""
     solver = resolve_solver(cfg.solver)
     U = U0
     p_path: List[float] = []
     fvals: List[float] = []
     applies: List[int] = []
     reports: List[SolverReport] = []
-    for p in p_schedule(cfg):
-        rep = solver.minimize_at_p(SolverState(W=W, U=U, p=p, cfg=cfg))
+    for p in ps:
+        with _obs_trace.ACTIVE.span("solver.level", cat="solver",
+                                    solver=solver.name, p=float(p),
+                                    **span_attrs) as sp:
+            rep = solver.minimize_at_p(SolverState(W=W, U=U, p=p, cfg=cfg))
+            sp.fence(rep.U)
+            sp.set(fval=float(rep.fval), n_apply=int(rep.n_apply),
+                   iters=int(rep.iters), converged=bool(rep.converged))
         U = rep.U
         p_path.append(p)
         fvals.append(float(rep.fval))
         applies.append(int(rep.n_apply))
         reports.append(rep)
     return U, p_path, fvals, applies, reports
+
+
+def p_continuation(W, U0, cfg):
+    """Run the whole p schedule, warm-starting each level from the last.
+    Returns (U, p_path, fvals, applies, reports)."""
+    return _run_schedule(W, U0, cfg, p_schedule(cfg))
+
+
+def warm_start(W, U0, cfg, p_final: Optional[float] = None,
+               steps: int = 1):
+    """Enter the continuation at its END instead of replaying the whole
+    p schedule: from a previous solve's embedding ``U0`` (any orthonormal
+    (n, k) is a feasible Grassmann point), run only the last ``steps``
+    schedule values, ending at ``p_final`` (default ``cfg.p_target``).
+    ``PSCConfig.init_U``, which feeds this entry in the reference, waits
+    for ROADMAP.md queue 1, item 13.  Returns the same
+    (U, p_path, fvals, applies, reports) as ``p_continuation``."""
+    solver = resolve_solver(cfg.solver)
+    p_end = cfg.p_target if p_final is None else float(p_final)
+    if not solver.supports_p(p_end):
+        raise ValueError(
+            f"warm start at p={p_end} outside solver {solver.name!r} "
+            f"supported range {solver.p_range_str()}")
+    tail = [p for p in p_schedule(cfg) if p >= p_end][-max(int(steps), 1):]
+    if not tail or tail[-1] != p_end:
+        tail = (tail + [p_end])[-max(int(steps), 1):]
+    return _run_schedule(W, U0, cfg, tail, warm=True)

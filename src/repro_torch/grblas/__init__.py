@@ -4,7 +4,10 @@ from repro_torch.grblas.semiring import (
     EdgeSemiring,
     PairEdgeSemiring,
     Semiring,
+    boolean_ring,
     fast_paths,
+    max_times_ring,
+    min_plus_ring,
     plap_edge_semiring,
     plap_hvp_edge_semiring,
     reals_ring,
@@ -26,6 +29,7 @@ from repro_torch.grblas.ops import apply, e_wise_apply, reduce as grb_reduce
 
 __all__ = [
     "Semiring", "EdgeSemiring", "PairEdgeSemiring", "reals_ring",
+    "min_plus_ring", "max_times_ring", "boolean_ring",
     "plap_edge_semiring", "plap_hvp_edge_semiring",
     "register_ring_fast_paths", "fast_paths",
     "SparseMatrix", "SellKernelLayout", "SELLCS_AUTO_THRESHOLD",

@@ -20,11 +20,24 @@ def apply(a: torch.Tensor, op: Callable) -> torch.Tensor:
 
 
 def reduce(a: torch.Tensor, ring: Semiring = reals_ring, axis=None) -> torch.Tensor:
-    """grb::reduce — fold a dense container under the ring's add-monoid
-    (its registered dense fast path)."""
+    """grb::reduce — fold a dense container under the add-monoid.
+
+    Registered rings use their dense fast path; other monoids fold under
+    ``ring.add`` from ``ring.zero`` along ``axis`` (all elements when
+    None) by pairwise halving: adjacent pairs in order, the odd tail
+    padded with ``ring.zero``, so an associative monoid gives the
+    reference's sequential fold in log2(n) vectorized steps."""
     fp = fast_paths(ring)
-    if fp.dense is None:
-        raise NotImplementedError(
-            f"ring {ring.name!r} has no dense reducer in the port; generic "
-            "monoid folds come with ROADMAP.md queue 1, item 11")
-    return fp.dense(a, axis)
+    if fp.dense is not None:
+        return fp.dense(a, axis)
+    x = a.reshape(-1) if axis is None else torch.movedim(a, axis, 0)
+    if x.shape[0] == 0:
+        return torch.full(x.shape[1:], ring.zero, dtype=a.dtype,
+                          device=a.device)
+    while x.shape[0] > 1:
+        if x.shape[0] % 2:
+            x = torch.cat([x, torch.full((1,) + tuple(x.shape[1:]),
+                                         ring.zero, dtype=x.dtype,
+                                         device=x.device)])
+        x = ring.add(x[0::2], x[1::2])
+    return x[0]

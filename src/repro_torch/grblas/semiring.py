@@ -1,8 +1,9 @@
 """Algebraic relations: semirings, edge-semirings and per-ring fast paths.
 
-Port of ``repro.grblas.semiring`` for the rings the flat pipeline uses:
-the reals (+, x) ring, the p-Laplacian edge ring (the gradient op) and
-the pair-edge ring (the matrix-free Newton HVP).
+Port of ``repro.grblas.semiring``: the reals (+, x) ring, the
+min-plus, max-times and boolean (or, and) rings, the p-Laplacian edge
+ring (the gradient op) and the pair-edge ring (the matrix-free Newton
+HVP).
 
 A GraphBLAS semiring is (add-monoid, mul-op, zero, one).  The
 EdgeSemiring generalizes ``mul`` to an edge function
@@ -17,9 +18,15 @@ Fast paths: ``register_ring_fast_paths(name, segment=, dense=, padded=)``
 attaches the vectorized reducers a ring may use; ``fast_paths(ring)``
 looks them up.  ``padded`` is the ELL/SELL pad-axis reducer and is only
 registered for rings whose pad entries (col=row, val=0) contribute the
-add-identity — true for the reals ring.  The reference's other rings
-(min-plus, max-times, boolean) and its generic sequential fold wait for
-the slice that needs them (ROADMAP.md queue 1, item 11).
+add-identity — true for the reals ring.  Rings without a segment fast
+path take a correct generic fold under ``add`` (``generic_segment_fold``:
+each segment folded in entry order, as the reference's sequential scan
+folds it), never a silent sum.
+
+Every registered segment reducer gives the same bits on every run: the
+reals sum adds in entry order (``kernels.segment_sum``), and min, max
+and or are order-free, so a scatter of them (int32 for the boolean
+ring) is exact whatever order the atomics land in.
 """
 from __future__ import annotations
 
@@ -74,13 +81,35 @@ class Semiring:
     name: str = "semiring"
 
     def segment_reduce(self, values, segment_ids, num_segments):
-        """Reduce ``values`` per segment under the add-monoid."""
+        """Reduce ``values`` per segment under the add-monoid: the ring's
+        registered segment reducer, else ``generic_segment_fold``."""
         fp = fast_paths(self)
-        if fp.segment is None:
-            raise NotImplementedError(
-                f"ring {self.name!r} has no segment reducer in the port; "
-                "generic monoid folds come with ROADMAP.md queue 1, item 11")
-        return fp.segment(values, segment_ids, num_segments)
+        if fp.segment is not None:
+            return fp.segment(values, segment_ids, num_segments)
+        return generic_segment_fold(self, values, segment_ids, num_segments)
+
+
+def generic_segment_fold(ring, values, segment_ids, num_segments):
+    """Fold ``values`` into ``num_segments`` segments under ``ring.add``
+    from ``ring.zero``, each segment in entry order — the reference's
+    sequential scan, in as many vectorized steps as the longest segment
+    has entries: step r folds every segment's r-th entry at once (no two
+    of them share a segment)."""
+    ids = segment_ids.long()
+    out = torch.full((num_segments,) + tuple(values.shape[1:]), ring.zero,
+                     dtype=values.dtype, device=values.device)
+    if ids.numel() == 0:
+        return out
+    order = torch.argsort(ids, stable=True)
+    sorted_ids = ids[order]
+    counts = torch.bincount(sorted_ids, minlength=num_segments)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(ids.numel(), device=ids.device) - starts[sorted_ids]
+    for r in range(int(counts.max())):
+        sel = order[rank == r]
+        seg = ids[sel]
+        out[seg] = ring.add(out[seg], values[sel])
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,15 +146,55 @@ def _mul(a, b):
 
 
 reals_ring = Semiring(add=_add, mul=_mul, zero=0.0, one=1.0, name="reals_+x")
+min_plus_ring = Semiring(add=torch.minimum, mul=_add, zero=float("inf"),
+                         one=0.0, name="min_+")
+max_times_ring = Semiring(add=torch.maximum, mul=_mul, zero=float("-inf"),
+                          one=1.0, name="max_x")
+boolean_ring = Semiring(add=torch.logical_or, mul=torch.logical_and,
+                        zero=False, one=True, name="bool_|&")
+
+
+def _scatter_fold(how: str, zero: float):
+    """A segment reducer by an order-free scatter (``amin`` / ``amax``)."""
+
+    def segment(values, segment_ids, num_segments):
+        out = torch.full((num_segments,) + tuple(values.shape[1:]), zero,
+                         dtype=values.dtype, device=values.device)
+        idx = segment_ids.long().view(-1, *([1] * (values.ndim - 1)))
+        return out.scatter_reduce_(0, idx.expand_as(values), values, how)
+
+    return segment
+
+
+def _bool_segment(values, segment_ids, num_segments):
+    """Or per segment: a scatter-max over int32 {0, 1} (or is order-free,
+    so every run gives the same bits)."""
+    v = values.to(torch.int32)
+    out = torch.zeros((num_segments,) + tuple(v.shape[1:]), dtype=torch.int32,
+                      device=v.device)
+    idx = segment_ids.long().view(-1, *([1] * (v.ndim - 1)))
+    return out.scatter_reduce_(0, idx.expand_as(v), v, "amax").bool()
+
+
+def _dense(fn):
+    """A dense fold ``fn(a, dim)`` that also takes axis=None (all)."""
+    return lambda a, axis: fn(a) if axis is None else fn(a, dim=axis)
 
 register_ring_fast_paths(
     "reals_+x",
     # a sum in entry order, the same bit for bit on every run (a float
     # index_add_ on the card would add in atomic order)
     segment=segment_sum,
-    dense=lambda a, axis: torch.sum(a) if axis is None else torch.sum(a, dim=axis),
+    dense=_dense(torch.sum),
     padded=lambda contrib: torch.sum(contrib, dim=1),  # pads are exact no-ops
 )
+register_ring_fast_paths("min_+", segment=_scatter_fold("amin", float("inf")),
+                         dense=_dense(torch.amin))
+register_ring_fast_paths("max_x",
+                         segment=_scatter_fold("amax", float("-inf")),
+                         dense=_dense(torch.amax))
+register_ring_fast_paths("bool_|&", segment=_bool_segment,
+                         dense=_dense(torch.any))
 
 
 def plap_edge_semiring(p: float, eps: float = 1e-9) -> EdgeSemiring:

@@ -1,4 +1,5 @@
 from repro_torch.kernels.sellcs_spmm.sellcs_spmm import (
+    APPLY_LAUNCHES_BY_K,
     LAUNCHES,
     LAUNCHES_BY_SHAPE,
     block_order,
@@ -19,7 +20,7 @@ from repro_torch.kernels.sellcs_spmm.sellcs_spmm import (
 )
 
 __all__ = [
-    "LAUNCHES", "LAUNCHES_BY_SHAPE", "build", "start_build",
+    "LAUNCHES", "LAUNCHES_BY_SHAPE", "APPLY_LAUNCHES_BY_K", "build", "start_build",
     "reset_launch_counts",
     "launch_plan", "lanes", "block_order",
     "sellcs_spmm", "sellcs_plap_apply", "sellcs_plap_hvp",

@@ -51,9 +51,10 @@ LIBRARY = NvccLibrary(
 
 # kernel launches per wrapper: incremented where the kernel is launched
 # and nowhere else; sellcs_spmm's launches also by shape ("scalar k=8",
-# "multivalue k=4")
+# "multivalue k=4"), sellcs_plap_apply's also by k
 LAUNCHES = {"sellcs_spmm": 0, "sellcs_plap_apply": 0, "sellcs_plap_hvp": 0}
 LAUNCHES_BY_SHAPE: Dict[str, int] = {}
+APPLY_LAUNCHES_BY_K: Dict[int, int] = {}
 
 _KIND = {"sellcs_spmm": 0, "sellcs_plap_apply": 1, "sellcs_plap_hvp": 2}
 # the widths the row kernel is compiled for (16-byte loads); any other k
@@ -67,6 +68,7 @@ def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     LAUNCHES_BY_SHAPE.clear()
+    APPLY_LAUNCHES_BY_K.clear()
 
 
 def start_build() -> None:
@@ -246,6 +248,8 @@ def _launch(name: str, A, X: torch.Tensor, E: torch.Tensor, p: float = 0.0,
     if name == "sellcs_spmm":
         shape = f"{'multivalue' if multivalue else 'scalar'} k={k}"
         LAUNCHES_BY_SHAPE[shape] = LAUNCHES_BY_SHAPE.get(shape, 0) + 1
+    elif name == "sellcs_plap_apply":
+        APPLY_LAUNCHES_BY_K[k] = APPLY_LAUNCHES_BY_K.get(k, 0) + 1
     return Y
 
 

@@ -14,9 +14,14 @@ prolong / re-orthonormalize / refine up the hierarchy (port of
 Every level is built with the layout the configured backend needs
 (``_layout_kwargs``): with ``backend="edge_pallas"`` or ``"bsr_pallas"``
 each coarse graph gets its BSR tiles, so the refinement on every level
-runs the BSR kernels.  Entry point: ``PSCConfig(multilevel=...)``,
-routed by ``core.psc.p_spectral_cluster``.  ``refine_cluster`` (the
-serve layer's refine-only cycle) waits for ROADMAP.md queue 1, item 13.
+runs the BSR kernels.  The coarsest solve and the refinements each take
+any registered driver (``MultilevelConfig.coarse_solver`` /
+``refine_solver``; None keeps the config's own).  Under tracing, the
+coarse solve is a ``multilevel.coarse_solve`` span, each level of the
+walk up a ``multilevel.refine`` span and the finest discretization a
+``kmeans`` span.  Entry point: ``PSCConfig(multilevel=...)``, routed by
+``core.psc.p_spectral_cluster``.  ``refine_cluster`` (the serve layer's
+refine-only cycle) waits for ROADMAP.md queue 1, item 13.
 """
 from __future__ import annotations
 
@@ -30,9 +35,7 @@ import torch
 from repro_torch.grblas import api
 from repro_torch.grblas.containers import SparseMatrix
 from repro_torch.multilevel.coarsen import build_hierarchy
-
-# solver drivers the port can run on a level
-_PORTED_LEVEL_SOLVERS = (None, "newton")
+from repro_torch.obs import trace as _obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,15 +63,14 @@ class MultilevelConfig:
 
 def coerce(value) -> MultilevelConfig:
     """A MultilevelConfig from ``PSCConfig.multilevel`` (True means the
-    defaults).  Raises for the solver drivers the port lacks."""
+    defaults).  A level driver that is not registered raises
+    SolverUnavailableError."""
+    from repro_torch.core.solvers import resolve_solver
+
     ml = value if isinstance(value, MultilevelConfig) else MultilevelConfig()
     for name in ("coarse_solver", "refine_solver"):
-        solver = getattr(ml, name)
-        if solver not in _PORTED_LEVEL_SOLVERS:
-            raise NotImplementedError(
-                f"MultilevelConfig.{name}={solver!r} is not ported yet "
-                "(ROADMAP.md queue 1, item 10: scf / inverse_power / "
-                "guarded drivers); the port runs 'newton'")
+        if getattr(ml, name) is not None:
+            resolve_solver(getattr(ml, name))
     return ml
 
 
@@ -103,23 +105,29 @@ def _walk_up(hier, U, cfg, ml: MultilevelConfig, rec: dict):
     n_fine = hier.levels[0].W.n_rows
     for lev in range(hier.n_levels - 2, -1, -1):
         Wl = hier.levels[lev].W
-        U = api.mxm(hier.prolongators[lev], U)        # prolong: (n_lev, k)
-        if Wl.n_rows < ml.refine_top_frac * n_fine:
-            continue
-        refine_cfg.validate_backend(Wl)
-        U = torch.linalg.qr(U)[0]                     # Grassmann retraction
-        for p in tail:
-            res = solvers.minimize_at_p(Wl, U, p, refine_cfg)
-            U = res.U
-            rec["p_path"].append(p)
-            rec["fvals"].append(float(res.fval))
-            rec["hvps"].append(int(res.n_apply))
-            rec["reports"].append(res)
-            rec["levels"].append({
-                "level": lev, "n_levels": hier.n_levels, "n": Wl.n_rows,
-                "nnz": Wl.nnz, "p": p, "fval": float(res.fval),
-                "n_hvp": int(res.n_apply), "iters": int(res.iters),
-                "solver": refine_cfg.solver})
+        refined = Wl.n_rows >= ml.refine_top_frac * n_fine
+        with _obs_trace.ACTIVE.span("multilevel.refine", cat="multilevel",
+                                    level=lev, n=Wl.n_rows, nnz=Wl.nnz,
+                                    refined=refined,
+                                    solver=refine_cfg.solver) as sp:
+            U = api.mxm(hier.prolongators[lev], U)    # prolong: (n_lev, k)
+            if not refined:
+                continue
+            refine_cfg.validate_backend(Wl)
+            U = torch.linalg.qr(U)[0]                 # Grassmann retraction
+            for p in tail:
+                res = solvers.minimize_at_p(Wl, U, p, refine_cfg)
+                U = res.U
+                rec["p_path"].append(p)
+                rec["fvals"].append(float(res.fval))
+                rec["hvps"].append(int(res.n_apply))
+                rec["reports"].append(res)
+                rec["levels"].append({
+                    "level": lev, "n_levels": hier.n_levels, "n": Wl.n_rows,
+                    "nnz": Wl.nnz, "p": p, "fval": float(res.fval),
+                    "n_hvp": int(res.n_apply), "iters": int(res.iters),
+                    "solver": refine_cfg.solver})
+            sp.fence(U)
     return torch.linalg.qr(U)[0]
 
 
@@ -132,10 +140,14 @@ def _finalize(W: SparseMatrix, U, cfg, rec: dict, init_labels, init_rcut,
 
     t0 = time.perf_counter()
     _, g_final = _psc.stage_generators(cfg.seed, W.device)
-    labels = _psc.discretize(U, cfg.k, g_final, restarts=cfg.kmeans_restarts,
-                             iters=cfg.kmeans_iters)
-    rcut = float(metrics.rcut(W, labels, cfg.k))
-    ncut = float(metrics.ncut(W, labels, cfg.k))
+    with _obs_trace.ACTIVE.span("kmeans", cat="psc", n=W.n_rows,
+                                k=cfg.k) as sp:
+        labels = _psc.discretize(U, cfg.k, g_final,
+                                 restarts=cfg.kmeans_restarts,
+                                 iters=cfg.kmeans_iters)
+        sp.fence(labels)
+        rcut = float(metrics.rcut(W, labels, cfg.k))
+        ncut = float(metrics.ncut(W, labels, cfg.k))
     seconds["kmeans"] = time.perf_counter() - t0
     return _psc.PSCResult(
         labels=labels.cpu().numpy(), U=U, rcut=rcut, ncut=ncut,
@@ -176,7 +188,11 @@ def multilevel_cluster(W: SparseMatrix, cfg, ml) -> Any:
     t0 = time.perf_counter()
     flat_cfg = dataclasses.replace(cfg, multilevel=None,
                                    solver=ml.coarse_solver or cfg.solver)
-    res_c = _psc.p_spectral_cluster(hier.coarsest.W, flat_cfg)
+    with _obs_trace.ACTIVE.span("multilevel.coarse_solve", cat="multilevel",
+                                n=hier.coarsest.W.n_rows,
+                                nnz=hier.coarsest.W.nnz,
+                                solver=flat_cfg.solver):
+        res_c = _psc.p_spectral_cluster(hier.coarsest.W, flat_cfg)
     rec = {"p_path": list(res_c.p_path), "fvals": list(res_c.fvals),
            "hvps": list(res_c.hvp_counts),
            "reports": list(res_c.reports or []), "levels": []}

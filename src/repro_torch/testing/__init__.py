@@ -1,0 +1,16 @@
+"""repro_torch.testing — deterministic fault injection for the chaos
+tests (the solver and backend injectors of ``repro.testing``).
+Production code never imports this package."""
+from repro_torch.testing.faultinject import (
+    InjectionLog,
+    backend_fault,
+    chaos_seed,
+    nan_in_multivector,
+    rank_collapse,
+    solver_stall,
+)
+
+__all__ = [
+    "InjectionLog", "backend_fault", "chaos_seed", "nan_in_multivector",
+    "rank_collapse", "solver_stall",
+]

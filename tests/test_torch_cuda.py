@@ -1233,3 +1233,77 @@ def test_cuda_sellcs_hvp_near_overflow_lands_where_plain(cuda_device, dtype,
     _assert_matches_plain(got, want, dtype)
     np.testing.assert_array_equal(convert.to_numpy(torch.isinf(got)),
                                   convert.to_numpy(torch.isinf(want)))
+
+
+# ------------------------------------------- resilience and telemetry paths
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("p,eps", [(1.2, 1e-8), (1.0, 1e-8), (2.0, 0.0)])
+def test_cuda_apply_k1_matches_plain(cuda_device, dtype, p, eps):
+    """The p-Laplacian apply at k = 1 (the inverse-power driver's one
+    column; the generic variant) against its plain version, twice equal
+    bit for bit, counted under k = 1."""
+    coo, shape = _graph(1000)
+    W = convert.sparse_matrix(coo, shape, device=cuda_device, dtype=dtype,
+                              build_sellcs=True, sell_c=32)
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    u = torch.randn(W.n_rows, 1, generator=gen, device=cuda_device,
+                    dtype=W.vals.dtype)
+    assert K.launch_plan("sellcs_plap_apply", W.n_rows, 1,
+                         u.dtype).variant == "row_generic"
+    K.reset_launch_counts()
+    got = K.sellcs_plap_apply(W, u, p, eps)
+    assert K.APPLY_LAUNCHES_BY_K == {1: 1}
+    assert torch.equal(got, K.sellcs_plap_apply(W, u, p, eps))
+    np.testing.assert_allclose(
+        convert.to_numpy(got),
+        convert.to_numpy(K.sellcs_plap_apply_plain(W, u, p, eps)),
+        **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_guarded_backend_fault_falls_back_to_coo(cuda_device):
+    """A guarded solve with the sellcs backend down ends on the
+    backend_fallback rung: the coo backend through segment_sum, and the
+    backend registry is restored afterwards."""
+    from repro_torch.core.psc import PSCConfig, p_spectral_cluster
+    from repro_torch.graphs import sbm_graph
+    from repro_torch.grblas import backends
+    from repro_torch.kernels import segment_sum as KS
+    from repro_torch.testing import backend_fault
+
+    W, _ = sbm_graph([30] * 4, 0.92, 0.03, seed=0, device=cuda_device,
+                     build_sellcs=True)
+    cfg = PSCConfig(k=4, newton_iters=8, tcg_iters=5, p_target=1.5,
+                    p_factor=0.85, guard=True, backend="sellcs")
+    clean = p_spectral_cluster(W, cfg)
+    orig = backends.registered_backends()["sellcs"]
+    KS.reset_launch_counts()
+    with backend_fault("sellcs") as log:
+        res = p_spectral_cluster(W, cfg)
+    assert log.count("backend_fault") >= 1
+    assert res.recovery.final_rung == "backend_fallback"
+    assert res.recovery.rungs[-1].backend == "coo"
+    assert not res.recovery.degraded
+    assert KS.LAUNCHES["segment_sum"] > 1
+    assert np.isfinite(res.rcut) and res.rcut <= clean.rcut * 1.10 + 1e-9
+    assert backends.registered_backends()["sellcs"] is orig
+    assert p_spectral_cluster(W, cfg).recovery.clean
+
+
+@pytest.mark.cuda
+def test_cuda_boolean_ring_components_match_cpu(cuda_device):
+    """The BFS's boolean products (a scatter-max over int32) on the card
+    label the components as on the CPU, twice bit for bit."""
+    from repro_torch.graphs import connected_components
+
+    coo, shape = _graph(1000)
+    labels = {}
+    for dev in ("cpu", cuda_device):
+        W = convert.sparse_matrix(coo, shape, device=dev, dtype=np.float32)
+        comps = connected_components(W)
+        labels[str(dev)] = comps.labels
+        np.testing.assert_array_equal(comps.labels,
+                                      connected_components(W).labels)
+    np.testing.assert_array_equal(labels["cpu"], labels[str(cuda_device)])

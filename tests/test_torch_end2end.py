@@ -76,17 +76,24 @@ def test_spectral_cluster_baseline():
     assert np.isfinite(rcut)
 
 
+@pytest.mark.parametrize("field,value", [("init_U", np.zeros((4, 2)))])
+def test_unported_config_fields_raise(field, value):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 13"):
+        PSCConfig(**{field: value})
+
+
 @pytest.mark.parametrize("field,value", [
     pytest.param("multilevel", MultilevelConfig(coarse_solver="scf"),
                  id="multilevel-coarse_solver_scf"),
-    ("guard", True), ("validate", True),
-    ("trace", True), ("init_U", np.zeros((4, 2))),
+    ("guard", True), ("validate", True), ("trace", True),
     pytest.param("multilevel", MultilevelConfig(refine_solver="inverse_power"),
                  id="multilevel-refine_solver_inverse_power"),
     ("solver", "scf")])
-def test_unported_config_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PSCConfig(**{field: value})
+def test_config_fields_of_the_eighth_slice_construct(field, value):
+    """The fields the eighth slice ported construct and keep their
+    values (they raised NotImplementedError before)."""
+    cfg = PSCConfig(**{field: value})
+    assert getattr(cfg, field) == value
 
 
 def test_trivial_k_and_bad_inputs():

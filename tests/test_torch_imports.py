@@ -45,6 +45,12 @@ def test_import_repro_torch_loads_no_jax_or_reference():
             "from repro_torch.models import model, attention, layers\n"
             "from repro_torch.serve import ServeEngine\n"
             "from repro_torch.launch import serve\n"
+            "from repro_torch import obs, testing\n"
+            "from repro_torch.obs import trace, metrics\n"
+            "from repro_torch.testing import faultinject\n"
+            "from repro_torch.graphs import validate, mmio, partition\n"
+            "from repro_torch.core.solvers import scf, inverse_power, "
+            "guard\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

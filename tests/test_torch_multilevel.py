@@ -162,8 +162,10 @@ def test_multilevel_config_solvers_and_true():
     assert coerce(MultilevelConfig(refine_solver="newton")).refine_solver \
         == "newton"
     for field in ("coarse_solver", "refine_solver"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            PSCConfig(multilevel=MultilevelConfig(**{field: "scf"}))
+        ml = MultilevelConfig(**{field: "scf"})
+        assert PSCConfig(multilevel=ml).multilevel == ml
+        with pytest.raises(ValueError, match="registered"):
+            PSCConfig(multilevel=MultilevelConfig(**{field: "nope"}))
 
 
 def test_multilevel_true_small_graph_runs_flat():
