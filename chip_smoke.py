@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--newton-iters 30] [--tcg-iters 20] [--scf-sweeps 12]
+    python3 chip_smoke.py [--newton-iters 30] [--tcg-iters 20] [--scf-sweeps 2]
     python3 chip_smoke.py --sellcs-src SRC
     python3 chip_smoke.py --kmeans-src SRC
 
@@ -119,8 +119,8 @@ Phases, none of which catches its own failure:
      init, continuation, solver.level, grblas.mxm and kmeans; its wall
      time is printed beside phase 3's, with ``phase_breakdown()`` and
      ``coverage()``.  (b) ``solver="scf"`` with ``--scf-sweeps`` sweeps
-     a level (default PSCConfig's 12; a smaller number is printed as a
-     cut): phase 3's checks but the RCut bound (printed beside
+     a level (default 2, printed as a cut of PSCConfig's 12, which
+     ``--scf-sweeps 12`` restores): phase 3's checks but the RCut bound (printed beside
      newton's), ``sellcs_spmm`` at scalar k = 8 and 24 beyond stage 1's
      launches, every level's sweeps and subspace drift printed.  (c)
      ``solver="inverse_power", p_target=1.0``: it fails unless the apply
@@ -133,13 +133,40 @@ Phases, none of which catches its own failure:
      ``validate_graph``: a copy of the graph with one NaN weight and one
      edge stored one way only is repaired to the original's host COO,
      and raises GraphValidationError without ``repair``.
+ 12. the clustering serve engine (``repro_torch.serve``).  (a) bucket
+     lane: 48 cold k = 4 requests through ``ClusterServeEngine(
+     PSCConfig(k=4), max_batch=8)``, four-block planted partitions of
+     n = 120, 250, 500 and 1000, 12 of each (at least four buckets): it
+     fails unless no request failed, the builds
+     (``RetraceDetector.serve_buckets()``) are one per bucket key,
+     ``segment_sum`` and ``kmeans_assign`` launched, the first request
+     of each bucket has the labels of the flat ``p_spectral_cluster`` on
+     the card, and a direct call of the largest bucket's built solve has
+     exactly zero pad rows and equal bits on two calls (its device busy
+     share printed, by the profiler).  Then the same graphs reweighted
+     by 1.01: every request warm on the pattern tier, one new build per
+     bucket; then one scf batch of 8 graphs of n = 250.  Seconds per
+     batch and graphs/s are printed.  (b) solo lane on phase 3's graph,
+     ``PSCConfig(k=4, backend="sellcs", hvp_mode="matrix_free")``: the
+     cold request equals phase 3's matrix_free solve (labels, RCut); a
+     repeat is warm on the exact tier within 1.01 x its RCut; 1% of the
+     edges reweighted by 1.5 is warm on the pattern tier; ``update`` with
+     0.1% of the edges knocked out is a weight-only churn within 1.02 x
+     a scratch solve's RCut.  Each request's seconds, the fingerprint's
+     and the delta's host seconds are printed.  (c) multilevel lane:
+     ``ml=MultilevelConfig()`` on the same graph, a cold V-cycle (the
+     engine keeps its hierarchy), then 0.01% new pairs at weight 0.5: the
+     churn request must patch the hierarchy (one record a coarsened
+     level); the patch and build seconds, the dirty and re-matched counts
+     and the RCut beside a scratch V-cycle's are printed.
 
-Every clustering solve (3, 7, 8, 11) also assigns its kmeans stages through
+Every clustering solve (3, 7, 8, 11, 12) also assigns its kmeans stages through
 ``kmeans_assign``, and fails if it did not launch; the bsr graphblas
 solve fails unless its W-hat SpMMs ran through the fixed-order sum.  The
 HVP count of every flat solve is printed.  The line before the
 last is a JSON object with one entry per kernel, its launches summed
-over the paths' runs (and split by path, and for ``bsr_spmm`` by
+over the paths' runs (and split by path, the serve lanes' paths named
+``serve/...``, and for ``bsr_spmm`` by
 width), and the card's name and power limit; the last line is ``{"ok":
 true, "device": {...}}``.  Without a CUDA device, or without
 ``src/repro_torch`` beside this script, it exits non-zero and prints no
@@ -148,6 +175,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import math
@@ -172,6 +200,7 @@ SPMM_WIDTHS = (4, 8, 24)       # bsr_spmm's widths: the k = 4 multivectors,
 P, EPS = 1.2, 1e-8             # PSCConfig's p_target and eps
 GRAPH_R = 20                   # delaunay_graph(20): n = 1,048,576
 SCF_SWEEPS = 12                # PSCConfig's scf_sweeps
+SMOKE_SCF_SWEEPS = 2           # the smoke's default, a cut of SCF_SWEEPS
 RUNG_RCUT = 1.10               # a recovered solve's RCut over the clean one
 BLOCK = 128                    # the reference's default BSR tile
 # operations per term (one stored value, one column); a pow counts as
@@ -630,6 +659,16 @@ def bsr_kernel_phase(W, KB, KP, torch) -> list:
     return rows
 
 
+def _counts(counters) -> dict:
+    """Every kernel's launch count since the last reset."""
+    return {name: c for K in counters for name, c in K.LAUNCHES.items()}
+
+
+def _reset(counters) -> None:
+    for K in counters:
+        K.reset_launch_counts()
+
+
 def _orthonormality(U, torch) -> float:
     G = U.T @ U
     return float((G - torch.eye(G.shape[0], device=G.device)).abs().max())
@@ -639,13 +678,12 @@ def solve_phase(tag, W, counters, torch, psc, cfg, used,
                 all_clusters: bool = True) -> tuple:
     """One p_spectral_cluster run from zeroed launch counts; returns
     (counts, result); the wall seconds are in ``counts["wall_s"]``."""
-    for K in counters:
-        K.reset_launch_counts()
+    _reset(counters)
     t0 = time.perf_counter()
     res = psc.p_spectral_cluster(W, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: c for K in counters for name, c in K.LAUNCHES.items()}
+    launches = _counts(counters)
     launches["bsr_spmm_by_width"] = {
         kw: c for K in counters
         for kw, c in getattr(K, "LAUNCHES_BY_WIDTH", {}).items()}
@@ -968,6 +1006,382 @@ def resilience_phase(W, counters, torch, psc, ref, args) -> tuple:
     if not equal:
         raise AssertionError("validate: the repaired graph differs")
     del bad, fixed
+    return by_path, out
+
+
+# ---------------------------------------------------------------- phase 12
+
+# the bucket lane's stream: four-block planted partitions of these sizes,
+# 12 graphs each, with (p_in, p_out) keeping each size's nnz inside one
+# power of two
+SERVE_SBM = {120: (0.3, 0.003), 250: (0.2, 0.002), 500: (0.1, 0.001),
+             1000: (0.05, 0.0005)}
+SERVE_PER_SIZE = 12
+SERVE_BATCH = 8
+
+
+def _require(tag, launches, used) -> None:
+    for name in used:
+        if launches[name] < 1:
+            raise AssertionError(f"{tag}: {name} never launched")
+
+
+def _busy(fn, torch) -> tuple:
+    """(fn's output, wall ms, device ms, busy share, top kernels) of one
+    call under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    top = [(e.key[:60], e.self_device_time_total / 1e3, e.count)
+           for e in kernels[:6]]
+    return out, wall_ms, device_ms, device_ms / wall_ms, top
+
+
+def _served(tag, results) -> None:
+    bad = [r for r in results if not r.ok]
+    if bad:
+        raise AssertionError(f"{tag}: {len(bad)} request(s) failed, first: "
+                             f"{bad[0].stats.failure_kind}: {bad[0].error}")
+
+
+def bucket_lane_phase(dev, counters, torch, psc) -> tuple:
+    """Phase 12 (a): 48 cold requests over four sizes of planted
+    partition, a warm wave of the same graphs reweighted by 1.01, one scf
+    batch.  Returns (launch counts by path, summary)."""
+    from repro_torch.graphs import sbm_graph
+    from repro_torch.obs import RetraceDetector
+    from repro_torch.serve import ClusterServeEngine, assemble_batch
+    from repro_torch.serve import psc_engine
+
+    graphs = {}
+    for n, (p_in, p_out) in SERVE_SBM.items():
+        sizes = [n // 4 + (i < n % 4) for i in range(4)]
+        graphs[n] = [sbm_graph(sizes, p_in, p_out, seed=s, device=dev)[0]
+                     for s in range(SERVE_PER_SIZE)]
+    stream = [W for n in SERVE_SBM for W in graphs[n]]
+    cfg = psc.PSCConfig(k=4)
+    eng = ClusterServeEngine(cfg, max_batch=SERVE_BATCH)
+    by_path, out = {}, {}
+
+    # cold wave
+    det = RetraceDetector()
+    _reset(counters)
+    t0 = time.perf_counter()
+    rids = [eng.submit(W) for W in stream]
+    done = eng.flush()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    by_path["serve/bucket_cold"] = _counts(counters)
+    cold = [done[r] for r in rids]
+    _served("bucket cold", cold)
+    _require("bucket cold", by_path["serve/bucket_cold"],
+             ["segment_sum", "kmeans_assign"])
+    keys = sorted({r.stats.bucket for r in cold})
+    builds = det.serve_buckets()
+    print(f"bucket cold: {len(stream)} requests, buckets={keys} "
+          f"builds={builds} batches={eng.stats.n_batches} "
+          f"wall_s={cold_s!r} graphs_per_s={len(stream) / cold_s!r} "
+          f"launches={by_path['serve/bucket_cold']}", flush=True)
+    if len(keys) < 4:
+        raise AssertionError(f"bucket cold: {len(keys)} buckets, expected "
+                             f">= 4")
+    if sorted(k[:5] for k in builds) != keys \
+            or set(builds.values()) != {1}:
+        raise AssertionError(f"bucket cold: builds {builds} are not one "
+                             f"per bucket {keys}")
+    per_bucket = {}
+    for r in cold:
+        per_bucket.setdefault(r.stats.bucket, set()).add(
+            (r.stats.solve_s, r.stats.batch_size))
+    batch_s = {str(k[2:4]): sorted(v) for k, v in per_bucket.items()}
+    print(f"bucket cold: seconds and size of each batch per (n_b, nnz_b): "
+          f"{batch_s}", flush=True)
+    out["cold"] = dict(wall_s=cold_s, graphs_per_s=len(stream) / cold_s,
+                       buckets=[list(k) for k in keys],
+                       batches=eng.stats.n_batches, batch_s=batch_s)
+
+    # one request of each bucket against the flat pipeline on the card
+    first = {}
+    for W, r in zip(stream, cold):
+        first.setdefault(r.stats.bucket, (W, r))
+    for key, (W, r) in first.items():
+        t0 = time.perf_counter()
+        flat = psc.p_spectral_cluster(W, cfg)
+        flat_s = time.perf_counter() - t0
+        same = bool(np.array_equal(r.labels, flat.labels))
+        print(f"bucket {key[2:4]}: labels equal to the flat solve's: "
+              f"{same} rcut={r.rcut!r} flat rcut={flat.rcut!r} "
+              f"flat_s={flat_s!r}", flush=True)
+        if not same:
+            raise AssertionError(f"bucket {key}: labels differ from the "
+                                 f"flat pipeline's")
+
+    # a direct call of the largest bucket's built solve on its first
+    # batch, under the profiler: pad rows exactly zero, and each
+    # element's rows equal bit for bit to what the engine's run of the
+    # same batch returned; the device's busy share against the wall
+    # time of the engine's (unprofiled) run
+    key = max(keys, key=lambda k: k[2])
+    spec = psc_engine.BucketSpec(n=key[2], nnz=key[3], k=key[4], mode="cold")
+    solve, _ = psc_engine._bucket_solver(spec, cfg)
+    members = [(W, r) for W, r in zip(stream, cold)
+               if r.stats.bucket == key][:SERVE_BATCH]
+    batch = assemble_batch([W for W, _ in members], spec)
+    args = [torch.as_tensor(a, device=dev)
+            for a in (batch.rows, batch.cols, batch.vals, batch.mask)]
+    (U, _), wall_ms, device_ms, busy, top = _busy(lambda: solve(*args),
+                                                  torch)
+    pads_zero = all(bool((U[b, n:] == 0.0).all())
+                    for b, n in enumerate(batch.n_real))
+    bitwise = all(bool(torch.equal(U[b, :W.n_rows], r.U))
+                  for b, (W, r) in enumerate(members))
+    engine_ms = members[0][1].stats.solve_s * 1e3
+    print(f"bucket {key[2:4]} direct solve of {len(members)}: pad rows "
+          f"exactly zero: {pads_zero}; equal bit for bit to the engine's "
+          f"run: {bitwise}; profiled wall_ms={wall_ms!r} "
+          f"device_ms={device_ms!r} busy_share={busy!r} (against the "
+          f"engine's unprofiled {engine_ms!r} ms: "
+          f"{device_ms / engine_ms!r}) top={top}", flush=True)
+    if not (pads_zero and bitwise):
+        raise AssertionError("bucket direct solve: pad rows not zero or "
+                             "the two runs differ")
+    out["direct"] = dict(bucket=list(key), wall_ms=wall_ms,
+                         device_ms=device_ms, busy_share=busy,
+                         engine_ms=engine_ms,
+                         busy_share_unprofiled=device_ms / engine_ms)
+    del U
+
+    # warm wave: the same graphs reweighted by 1.01 -> pattern tier
+    det = RetraceDetector()
+    _reset(counters)
+    t0 = time.perf_counter()
+    rids = [eng.submit(W.with_vals(W.vals * 1.01)) for W in stream]
+    done = eng.flush()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    by_path["serve/bucket_warm"] = _counts(counters)
+    warm = [done[r] for r in rids]
+    _served("bucket warm", warm)
+    tiers = {(r.stats.mode, r.stats.cache_tier) for r in warm}
+    wkeys = sorted({r.stats.bucket for r in warm})
+    builds = det.serve_buckets()
+    print(f"bucket warm: tiers={tiers} builds={builds} wall_s={warm_s!r} "
+          f"graphs_per_s={len(stream) / warm_s!r} (cold {cold_s!r})",
+          flush=True)
+    if tiers != {("warm", "pattern")}:
+        raise AssertionError(f"bucket warm: tiers {tiers}")
+    if sorted(k[:5] for k in builds) != wkeys or set(builds.values()) != {1} \
+            or len(wkeys) != len(keys):
+        raise AssertionError(f"bucket warm: builds {builds}, expected one "
+                             f"per bucket {wkeys}")
+    _require("bucket warm", by_path["serve/bucket_warm"],
+             ["segment_sum", "kmeans_assign"])
+    out["warm"] = dict(wall_s=warm_s, graphs_per_s=len(stream) / warm_s)
+
+    # one scf batch: 8 graphs of n = 250
+    eng_scf = ClusterServeEngine(psc.PSCConfig(k=4, solver="scf"),
+                                 max_batch=SERVE_BATCH)
+    _reset(counters)
+    t0 = time.perf_counter()
+    res = eng_scf.serve(graphs[250][:SERVE_BATCH])
+    torch.cuda.synchronize()
+    scf_s = time.perf_counter() - t0
+    by_path["serve/bucket_scf"] = _counts(counters)
+    _served("bucket scf", res)
+    _require("bucket scf", by_path["serve/bucket_scf"],
+             ["segment_sum", "kmeans_assign"])
+    print(f"bucket scf: {len(res)} graphs of n=250 in "
+          f"{eng_scf.stats.n_batches} batch, wall_s={scf_s!r} "
+          f"rcut={[r.rcut for r in res]}", flush=True)
+    out["scf"] = dict(wall_s=scf_s, batches=eng_scf.stats.n_batches)
+    return by_path, out
+
+
+class _Timed:
+    """Wrap a function, keeping each call's seconds and result."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *a, **k):
+        t0 = time.perf_counter()
+        out = self.fn(*a, **k)
+        self.calls.append((time.perf_counter() - t0, out))
+        return out
+
+
+def solo_lane_phase(W, counters, torch, psc, ref, args) -> tuple:
+    """Phase 12 (b): the solo lane at full size — cold, exact-tier
+    repeat, pattern tier, weight-only churn.  ``ref`` is phase 3's
+    matrix_free solve."""
+    from repro_torch.serve import ClusterServeEngine, EdgeDelta
+    from repro_torch.serve import apply_edge_delta
+
+    cfg = psc.PSCConfig(k=4, backend="sellcs", hvp_mode="matrix_free",
+                        newton_iters=args.newton_iters,
+                        tcg_iters=args.tcg_iters)
+    eng = ClusterServeEngine(cfg)
+    t0 = time.perf_counter()
+    fp = W.fingerprint()
+    fp_s = time.perf_counter() - t0
+    r, c, _ = W.host_coo()
+    und = np.flatnonzero(r < c)
+    rng = np.random.default_rng(12)
+    out, secs = {"fingerprint_s": fp_s}, {}
+
+    def run(tag, submit):
+        t0 = time.perf_counter()
+        rid = submit()
+        res = eng.flush()[rid]
+        torch.cuda.synchronize()
+        secs[tag] = time.perf_counter() - t0
+        _served(f"solo {tag}", [res])
+        print(f"solo {tag}: mode={res.stats.mode} "
+              f"tier={res.stats.cache_tier} lane={res.stats.lane} "
+              f"wall_s={secs[tag]!r} solve_s={res.stats.solve_s!r} "
+              f"rcut={res.rcut!r} p_final={res.stats.p_final!r}", flush=True)
+        return res
+
+    _reset(counters)
+    cold = run("cold", lambda: eng.submit(W))
+    if not (np.array_equal(cold.labels, ref["labels"])
+            and cold.rcut == ref["rcut"]):
+        raise AssertionError(f"solo cold: differs from phase 3's "
+                             f"matrix_free solve (rcut {cold.rcut} vs "
+                             f"{ref['rcut']})")
+    exact = run("exact", lambda: eng.submit(W))
+    if (exact.stats.mode, exact.stats.cache_tier) != ("warm", "exact") \
+            or not exact.rcut <= 1.01 * cold.rcut:
+        raise AssertionError(f"solo exact: {exact.stats.mode}/"
+                             f"{exact.stats.cache_tier} rcut {exact.rcut}")
+    pick = rng.choice(und, len(und) // 100, replace=False)
+    reweight = EdgeDelta(r[pick], c[pick], np.full(len(pick), 1.5))
+    W15 = apply_edge_delta(W, reweight).W
+    pattern = run("pattern", lambda: eng.submit(W15))
+    if (pattern.stats.mode, pattern.stats.cache_tier) != ("warm", "pattern"):
+        raise AssertionError(f"solo pattern: {pattern.stats.mode}/"
+                             f"{pattern.stats.cache_tier}")
+    knock = rng.choice(und, len(und) // 1000, replace=False)
+    delta = EdgeDelta(r[knock], c[knock], np.zeros(len(knock)))
+    t0 = time.perf_counter()
+    d = apply_edge_delta(W, delta)
+    delta_s = time.perf_counter() - t0
+    churn = run("churn", lambda: eng.update(W, delta))
+    by_path = {"serve/solo": _counts(counters)}
+    _require("solo", by_path["serve/solo"],
+             ["sellcs_spmm", "sellcs_plap_apply", "sellcs_plap_hvp",
+              "kmeans_assign"])
+    t0 = time.perf_counter()
+    scratch = psc.p_spectral_cluster(d.W, cfg)
+    scratch_s = time.perf_counter() - t0
+    print(f"solo churn: {len(knock)} edges knocked out, pattern_changed="
+          f"{d.pattern_changed} rcut={churn.rcut!r} scratch rcut="
+          f"{scratch.rcut!r} (bound 1.02x) scratch_s={scratch_s!r}; "
+          f"fingerprint_s={fp_s!r} delta_s={delta_s!r}; seconds "
+          f"{secs}", flush=True)
+    if churn.stats.mode != "churn" or d.pattern_changed \
+            or not churn.rcut <= 1.02 * scratch.rcut + 1e-12:
+        raise AssertionError(f"solo churn: mode {churn.stats.mode}, "
+                             f"pattern_changed {d.pattern_changed}, rcut "
+                             f"{churn.rcut} vs scratch {scratch.rcut}")
+    out.update(seconds=secs, delta_s=delta_s, scratch_s=scratch_s,
+               rcut={"cold": cold.rcut, "exact": exact.rcut,
+                     "pattern": pattern.rcut, "churn": churn.rcut,
+                     "scratch": scratch.rcut},
+               launches=by_path["serve/solo"])
+    return by_path, out
+
+
+def multilevel_lane_phase(W, counters, torch, psc, args) -> tuple:
+    """Phase 12 (c): a cold V-cycle through the engine (its hierarchy
+    kept), then a pattern churn that patches it."""
+    import repro_torch.multilevel as ML
+    from repro_torch.multilevel import MultilevelConfig
+    from repro_torch.serve import ClusterServeEngine, EdgeDelta
+    from repro_torch.serve import apply_edge_delta
+
+    ml = MultilevelConfig()
+    cfg = psc.PSCConfig(k=4, backend="sellcs", hvp_mode="matrix_free",
+                        newton_iters=args.newton_iters,
+                        tcg_iters=args.tcg_iters)
+    eng = ClusterServeEngine(cfg, ml=ml)
+    build, patch = _Timed(ML.build_hierarchy), _Timed(ML.patch_hierarchy)
+    ML.build_hierarchy, ML.patch_hierarchy = build, patch
+    try:
+        _reset(counters)
+        t0 = time.perf_counter()
+        cold = eng.serve([W])[0]
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        _served("multilevel cold", [cold])
+        rng = np.random.default_rng(13)
+        m = max(1, W.nnz // 2 // 10000)
+        i = rng.integers(0, W.n_rows, m)
+        j = (i + 1 + rng.integers(0, W.n_rows - 1, m)) % W.n_rows
+        delta = EdgeDelta(i, j, np.full(m, 0.5))
+        t0 = time.perf_counter()
+        rid = eng.update(W, delta)
+        update_s = time.perf_counter() - t0
+        res = eng.flush()[rid]
+        torch.cuda.synchronize()
+        churn_s = time.perf_counter() - t0
+    finally:
+        ML.build_hierarchy, ML.patch_hierarchy = build.fn, patch.fn
+    by_path = {"serve/multilevel": _counts(counters)}
+    _served("multilevel churn", [res])
+    _require("multilevel", by_path["serve/multilevel"],
+             ["sellcs_plap_apply", "sellcs_plap_hvp", "kmeans_assign"])
+    hier = eng.cache.peek(W.fingerprint()).hierarchy
+    records = patch.calls[-1][1][1] if patch.calls else []
+    print(f"multilevel cold: wall_s={cold_s!r} "
+          f"solve_s={cold.stats.solve_s!r} rcut={cold.rcut!r}; hierarchy "
+          f"kept: {hier.n_levels} levels, build_s="
+          f"{[s for s, _ in build.calls]}", flush=True)
+    for rec in records:
+        print(f"multilevel patch: {rec}", flush=True)
+    if res.stats.mode != "churn" or len(patch.calls) != 1 \
+            or len(records) != hier.n_levels - 1:
+        raise AssertionError(f"multilevel churn: mode {res.stats.mode}, "
+                             f"{len(patch.calls)} patches, {len(records)} "
+                             f"records for {hier.n_levels} levels")
+    W2 = apply_edge_delta(W, delta).W
+    t0 = time.perf_counter()
+    scratch = psc.p_spectral_cluster(W2, dataclasses.replace(
+        cfg, multilevel=ml))
+    scratch_s = time.perf_counter() - t0
+    print(f"multilevel churn: {m} new pairs, wall_s={churn_s!r} (update "
+          f"{update_s!r}) patch_s={patch.calls[0][0]!r} build_s="
+          f"{build.calls[0][0]!r} rcut={res.rcut!r} scratch multilevel "
+          f"rcut={scratch.rcut!r} scratch_s={scratch_s!r} (recorded, not "
+          f"asserted)", flush=True)
+    out = dict(cold_s=cold_s, churn_s=churn_s, update_s=update_s,
+               patch_s=patch.calls[0][0], build_s=build.calls[0][0],
+               records=records, rcut=res.rcut, cold_rcut=cold.rcut,
+               scratch_rcut=scratch.rcut, scratch_s=scratch_s)
+    return by_path, out
+
+
+def serve_phase(W, counters, torch, psc, ref, args) -> tuple:
+    """Phase 12: the clustering serve engine — the bucket lane, the solo
+    lane at full size, the multilevel lane."""
+    by_path, out = {}, {}
+    paths, out["bucket"] = bucket_lane_phase(W.device, counters, torch, psc)
+    by_path.update(paths)
+    paths, out["solo"] = solo_lane_phase(W, counters, torch, psc, ref, args)
+    by_path.update(paths)
+    paths, out["multilevel"] = multilevel_lane_phase(W, counters, torch, psc,
+                                                     args)
+    by_path.update(paths)
     return by_path, out
 
 
@@ -1349,13 +1763,12 @@ def lm_serve_phase(torch, counters) -> tuple:
         0, cfg.vocab, (B, S)).astype(np.int32)
     engine = ServeEngine(cfg, params, max_len=S + new)
     engine.generate(prompts, GenerationConfig(max_new_tokens=2))  # warm-up
-    for K in counters:
-        K.reset_launch_counts()
+    _reset(counters)
     t0 = time.perf_counter()
     out = engine.generate(prompts, GenerationConfig(max_new_tokens=new))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: c for K in counters for name, c in K.LAUNCHES.items()}
+    launches = _counts(counters)
     t = engine.timing
     summary = dict(
         requests=B, prompt_len=S, new_tokens=new, generated=int(out.size),
@@ -1520,9 +1933,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--newton-iters", type=int, default=30)
     ap.add_argument("--tcg-iters", type=int, default=20)
-    ap.add_argument("--scf-sweeps", type=int, default=SCF_SWEEPS,
-                    help="scf sweeps a level in phase 11 (default "
-                    "PSCConfig's)")
+    ap.add_argument("--scf-sweeps", type=int, default=SMOKE_SCF_SWEEPS,
+                    help="scf sweeps a level in phase 11 (PSCConfig's is "
+                    f"{SCF_SWEEPS}; the default {SMOKE_SCF_SWEEPS} is a cut)")
     ap.add_argument("--sellcs-src", type=Path, metavar="SRC",
                     help="only time the SELL-C-σ kernels of the tree whose "
                     "src directory is SRC and print one JSON line")
@@ -1674,6 +2087,12 @@ def main() -> int:
     by_path.update(paths)
     phase_done("resilience")
 
+    # ---- the clustering serve engine: bucket, solo and multilevel lanes
+    paths, serve = serve_phase(W, counters, torch, psc, flat["matrix_free"],
+                               args)
+    by_path.update(paths)
+    phase_done("serve")
+
     for row in rows:
         counter = row.get("counter", row["name"])
         row["launches_by_path"] = {p: c[counter] for p, c in by_path.items()}
@@ -1704,6 +2123,7 @@ def main() -> int:
     print(json.dumps({"coo_sum": coo_sum, "bsr_block_256": bsr256,
                       "hvp_counts": hvps}), flush=True)
     print(json.dumps({"resilience": resilience}, default=str), flush=True)
+    print(json.dumps({"serve": serve}, default=str), flush=True)
     print(json.dumps({"kernels": rows, "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

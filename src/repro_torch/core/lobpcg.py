@@ -2,7 +2,8 @@
 
 Port of ``repro.core.lobpcg``: Rayleigh-Ritz over the [X, R, P] block with
 a Jacobi (diagonal) preconditioner and Householder-QR orthonormalization;
-dense ``eigh`` for graphs of at most 1024 vertices.  The Laplacian SpMM
+dense ``eigh`` for graphs of at most 1024 vertices; ``lobpcg_fixed``, the
+fixed-trip variant with no convergence read-back.  The Laplacian SpMM
 goes through ``grblas.api.mxm`` (the SELL-C-σ reals kernel on the GPU).
 """
 from __future__ import annotations
@@ -41,40 +42,68 @@ def _ortho(X):
     return Q
 
 
+def _jacobi(precond_diag: Optional[torch.Tensor]):
+    """The Jacobi preconditioner's inverse diagonal (1 where it is ~0)."""
+    if precond_diag is None:
+        return None
+    return torch.where(torch.abs(precond_diag) > 1e-12, 1.0 / precond_diag,
+                       torch.ones_like(precond_diag))
+
+
+def _rayleigh_ritz(matvec: Callable, X, P, pinv, with_p: bool):
+    """One LOBPCG step: Rayleigh-Ritz over [X, R(, P)].  Returns the new
+    (X, P, evals (m,), residual norms of the old X)."""
+    m = X.shape[1]
+    AX = matvec(X)
+    rho = torch.sum(X * AX, dim=0)
+    R = AX - X * rho
+    resnorm = torch.linalg.norm(R, dim=0)
+    if pinv is not None:
+        R = pinv[:, None] * R
+    blocks = [X, R] + ([P] if with_p else [])
+    S = _ortho(torch.cat(blocks, dim=1))
+    AS = matvec(S)
+    T = S.T @ AS
+    T = 0.5 * (T + T.T)
+    evals, V = torch.linalg.eigh(T)
+    return S @ V[:, :m], S[:, m:] @ V[m:, :m], evals[:m], resnorm
+
+
 def lobpcg(matvec: Callable, X0: torch.Tensor, k: int,
            precond_diag: Optional[torch.Tensor] = None,
            max_iters: int = 200,
            tol: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
     """Smallest-k eigenpairs of the SPSD operator ``matvec``.  X0: (n, m)
     initial block with m >= k.  Returns (evals (k,), evecs (n,k))."""
-    n, m = X0.shape
     X = _ortho(X0)
     P = torch.zeros_like(X)
-    pinv = None
-    if precond_diag is not None:
-        pinv = torch.where(torch.abs(precond_diag) > 1e-12, 1.0 / precond_diag,
-                           torch.ones_like(precond_diag))
-
-    def step(X, P, with_p):
-        AX = matvec(X)
-        rho = torch.sum(X * AX, dim=0)
-        R = AX - X * rho
-        resnorm = torch.linalg.norm(R, dim=0)
-        if pinv is not None:
-            R = pinv[:, None] * R
-        blocks = [X, R] + ([P] if with_p else [])
-        S = _ortho(torch.cat(blocks, dim=1))
-        AS = matvec(S)
-        T = S.T @ AS
-        T = 0.5 * (T + T.T)
-        evals, V = torch.linalg.eigh(T)
-        return S @ V[:, :m], S[:, m:] @ V[m:, :m], evals[:m], resnorm
-
-    evals = torch.zeros(m, dtype=X.dtype, device=X.device)
+    pinv = _jacobi(precond_diag)
+    evals = torch.zeros(X.shape[1], dtype=X.dtype, device=X.device)
     for it in range(max_iters):
-        X, P, evals, resnorm = step(X, P, it > 0)
+        X, P, evals, resnorm = _rayleigh_ritz(matvec, X, P, pinv, it > 0)
         if float(torch.max(resnorm[:k])) < tol:
             break
+    return evals[:k], X[:, :k]
+
+
+def lobpcg_fixed(matvec: Callable, X0: torch.Tensor, k: int,
+                 iters: int = 20,
+                 precond_diag: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-iteration LOBPCG: :func:`lobpcg` with a static trip count
+    and no convergence test, so it reads nothing back from the device.
+
+    Exact-zero rows of ``X0`` stay exactly zero through every step
+    (the matvec of an isolated pad row is 0, and Householder reflectors
+    never mix exact-zero rows in), which makes the whole eigensolve, not
+    only the SpMM, sound under bucket padding.  The first iteration runs
+    without the P block (a zero block degrades the Ritz basis), the
+    other ``iters - 1`` with it.  Returns (evals (k,), evecs (n, k))."""
+    X = _ortho(X0)
+    P = torch.zeros_like(X)
+    pinv = _jacobi(precond_diag)
+    for it in range(max(int(iters), 1)):
+        X, P, evals, _ = _rayleigh_ritz(matvec, X, P, pinv, it > 0)
     return evals[:k], X[:, :k]
 
 

@@ -19,6 +19,12 @@ Two HVPs:
     multivalues on W's pattern (W.with_vals) and run reals-ring SpMMs.
   * hess_eta_matrix_free — one pair-edge-semiring SpMM, nothing
     materialized.
+
+The ``batched_*`` functions compute the same quantities for B graphs at
+once (the serve engine's bucket solve, the reference's ``jax.vmap`` of
+value, gradient and HVP): W is one block-diagonal matrix over B·n
+vertices whose element b holds entries [b·nnz_b, (b+1)·nnz_b), U is
+(B, n, k), and the energies reduce per element.
 """
 from __future__ import annotations
 
@@ -148,13 +154,75 @@ def _quotient_correct(pr: PLapParts, U, eta, hA_eta, p, eps):
     gA = p * pr.dpu
     gB = p * pr.phi_u
     hB_eta = p * PHI.phi_prime(U, p, eps) * eta
-    gB_eta = torch.sum(gB * eta, dim=0)
-    gA_eta = torch.sum(gA * eta, dim=0)
+    gB_eta = torch.sum(gB * eta, dim=-2, keepdim=True)
+    gA_eta = torch.sum(gA * eta, dim=-2, keepdim=True)
     B, F = pr.B, pr.F
     return (hA_eta / B
             - (F / B) * hB_eta
             - (gA * gB_eta + gB * gA_eta) / (B * B)
             + (2.0 * F / (B * B)) * gB * gB_eta)
+
+
+# ------------------------------------------------ batched: B graphs at once
+
+def batched_parts(W: SparseMatrix, U: torch.Tensor, p: float, eps: float,
+                  desc: Optional[Descriptor] = None) -> PLapParts:
+    """``parts`` of B graphs: W block-diagonal over B·n vertices, U
+    (B, n, k); A, B and F are (B, 1, k), the edge terms of each element
+    summed over its own nnz_b entries."""
+    nb, n, k = U.shape
+    Uf = U.reshape(nb * n, k)
+    d = _edge_diffs(W, Uf)                                     # (B·nnz_b, k)
+    A = 0.5 * torch.sum((W.vals[:, None] * PHI.p_power(d, p, eps)
+                         ).reshape(nb, -1, k), dim=1, keepdim=True)
+    B = torch.sum(PHI.p_power(U, p, eps), dim=1, keepdim=True)
+    dpu = api.mxm(W, Uf, plap_edge_semiring(p, eps),
+                  desc=desc or _AUTO).reshape(nb, n, k)
+    return PLapParts(A=A, B=B, F=A / B, dpu=dpu, phi_u=PHI.phi(U, p, eps))
+
+
+def batched_value(W: SparseMatrix, U: torch.Tensor, p: float,
+                  eps: float = 1e-9,
+                  desc: Optional[Descriptor] = None) -> torch.Tensor:
+    """F_p of each element, (B,)."""
+    return torch.sum(batched_parts(W, U, p, eps, desc).F, dim=(1, 2))
+
+
+def batched_euc_grad(W: SparseMatrix, U: torch.Tensor, p: float,
+                     eps: float = 1e-9,
+                     desc: Optional[Descriptor] = None) -> torch.Tensor:
+    pr = batched_parts(W, U, p, eps, desc)
+    return (p / pr.B) * (pr.dpu - pr.F * pr.phi_u)
+
+
+def batched_hess_eta_graphblas(W: SparseMatrix, U: torch.Tensor,
+                               eta: torch.Tensor, p: float,
+                               eps: float = 1e-9,
+                               desc: Optional[Descriptor] = None
+                               ) -> torch.Tensor:
+    """``hess_eta_graphblas`` of B graphs: W-hat as (B·nnz_b, k)
+    multivalues on the block-diagonal pattern."""
+    nb, n, k = U.shape
+    Uf, Ef = U.reshape(nb * n, k), eta.reshape(nb * n, k)
+    pr = batched_parts(W, U, p, eps, desc)
+    D, Wh = _alg1_matrix(W, Uf, p, eps, desc)
+    v = api.mxm(Wh, Ef, reals_ring, desc=_multival_desc(Wh, Ef, desc))
+    w = grb.e_wise_apply(Ef, D, torch.mul)
+    hA_eta = p * grb.e_wise_apply(w, v, torch.sub)
+    return _quotient_correct(pr, U, eta, hA_eta.reshape(nb, n, k), p, eps)
+
+
+def batched_hess_eta_matrix_free(W: SparseMatrix, U: torch.Tensor,
+                                 eta: torch.Tensor, p: float,
+                                 eps: float = 1e-9,
+                                 desc: Optional[Descriptor] = None
+                                 ) -> torch.Tensor:
+    """``hess_eta_matrix_free`` of B graphs."""
+    nb, n, k = U.shape
+    pr = batched_parts(W, U, p, eps, desc)
+    hA_eta = p * api.mxm(W, (U.reshape(nb * n, k), eta.reshape(nb * n, k)),
+                         plap_hvp_edge_semiring(p, eps), desc=desc or _AUTO)
+    return _quotient_correct(pr, U, eta, hA_eta.reshape(nb, n, k), p, eps)
 
 
 # ------------------------------------------------------------- autodiff oracle

@@ -34,8 +34,12 @@ and clusters a disconnected graph component by component
 ``obs.Tracer``) runs the solve under a span session rooted at "psc" and
 puts an ``obs.Telemetry`` in ``PSCResult.telemetry``.
 
-``init_U`` (the warm start the serve layer feeds) is not ported yet and
-raises NotImplementedError naming ROADMAP.md queue 1, item 13.
+``init_U`` (an (n, k) embedding from an earlier solve: the warm start
+the serve layer feeds) skips stage 1 and the descent from p = 2: it is
+permuted under ``reorder``, orthonormalized by QR and enters the driver
+at the last ``warm_p_steps`` values of the p schedule
+(``solvers.warm_start``, or ``resilient_warm_start`` under ``guard``);
+``init_labels`` is then None and ``init_rcut`` NaN.
 """
 from __future__ import annotations
 
@@ -52,12 +56,6 @@ from repro_torch.grblas import api as grb_api
 from repro_torch.grblas.api import Descriptor
 from repro_torch.grblas.containers import SparseMatrix
 from repro_torch.obs import trace as _obs_trace
-
-# config field -> the ROADMAP.md item that ports it
-_UNPORTED_FIELDS = {
-    "init_U": "queue 1, item 13 (warm start / serve)",
-}
-
 
 @dataclasses.dataclass
 class PSCConfig:
@@ -97,7 +95,10 @@ class PSCConfig:
     reorder: str = "none"
     # None/False = flat solve; True or a MultilevelConfig = V-cycle
     multilevel: object = None
+    # warm start: an (n, k) embedding of an earlier solve; the solve
+    # skips stage 1 and runs only the last ``warm_p_steps`` levels
     init_U: object = None
+    warm_p_steps: int = 1
     # None (off) | True | solvers.GuardConfig: health checks + recovery
     guard: object = None
     # None (off) | True (strict) | graphs.validate.ValidateConfig
@@ -106,11 +107,6 @@ class PSCConfig:
     trace: object = None
 
     def __post_init__(self):
-        for name, item in _UNPORTED_FIELDS.items():
-            value = getattr(self, name)
-            if value is not None and value is not False:
-                raise NotImplementedError(
-                    f"PSCConfig.{name} is not ported yet (ROADMAP.md {item})")
         if self.trace is not None \
                 and not isinstance(self.trace, _obs_trace.Tracer):
             _obs_trace.coerce(self.trace)   # raises on bad values now
@@ -259,47 +255,76 @@ def _cluster_impl(W: SparseMatrix, cfg: PSCConfig) -> PSCResult:
         from repro_torch.multilevel import vcycle
 
         return vcycle.multilevel_cluster(W, cfg, cfg.multilevel)
-    inv = None
+    inv = perm = None
     if cfg.reorder != "none":
         from repro_torch.graphs.reorder import reorder
 
-        W, _, inv = reorder(W, method=cfg.reorder)
+        W, perm, inv = reorder(W, method=cfg.reorder)
     cfg.validate_backend(W)
     g_init, g_final = stage_generators(cfg.seed, W.device)
     seconds = {}
     recovery = None
+    guarded = cfg.guard or cfg.solver == "guarded"
     span = _obs_trace.ACTIVE.span
 
-    # -- stage 1: linear (p=2) spectral start; the reals-ring matvec gets
-    # the configured descriptor only where that backend can serve it
-    t0 = time.perf_counter()
-    with span("init", cat="psc", n=W.n_rows, k=cfg.k) as sp:
-        stage1_desc = grb_api.capable_desc(W, desc=cfg.descriptor(), k=cfg.k,
-                                           dtype=W.vals.dtype)
-        _, U = lobpcg.smallest_eigvecs(W, cfg.k,
-                                       normalized=cfg.normalized_init,
-                                       seed=cfg.seed, desc=stage1_desc)
+    if cfg.init_U is not None:
+        # -- warm start: an earlier embedding is a feasible Grassmann
+        # point; skip stage 1 and the descent, enter at the schedule tail
+        U = cfg.init_U
+        U = (U if torch.is_tensor(U) else torch.as_tensor(np.asarray(U))
+             ).to(device=W.device, dtype=W.vals.dtype)
+        if tuple(U.shape) != (W.n_rows, cfg.k):
+            raise ValueError(f"init_U shape {tuple(U.shape)} != "
+                             f"({W.n_rows}, {cfg.k})")
+        if perm is not None:
+            U = U[torch.as_tensor(perm, device=W.device)]
         U = torch.linalg.qr(U)[0].contiguous()
-        init_labels, _ = km.kmeans(g_init, U, cfg.k,
-                                   restarts=cfg.kmeans_restarts,
-                                   iters=cfg.kmeans_iters)
-        init_rcut = float(metrics.rcut(W, init_labels, cfg.k))
-        sp.set(init_rcut=init_rcut)
-    seconds["init"] = time.perf_counter() - t0
+        init_labels, init_rcut = None, float("nan")
+        t0 = time.perf_counter()
+        with span("continuation", cat="psc", warm=True,
+                  solver=cfg.solver) as sp:
+            if guarded:
+                U, p_path, fvals, hvps, reports, recovery = \
+                    solvers.resilient_warm_start(W, U, cfg)
+            else:
+                U, p_path, fvals, hvps, reports = solvers.warm_start(
+                    W, U, cfg, steps=cfg.warm_p_steps)
+            sp.fence(U)
+            sp.set(levels=len(p_path))
+        seconds["continuation"] = time.perf_counter() - t0
+    else:
+        # -- stage 1: linear (p=2) spectral start; the reals-ring matvec
+        # gets the configured descriptor only where that backend can
+        # serve it
+        t0 = time.perf_counter()
+        with span("init", cat="psc", n=W.n_rows, k=cfg.k) as sp:
+            stage1_desc = grb_api.capable_desc(W, desc=cfg.descriptor(),
+                                               k=cfg.k, dtype=W.vals.dtype)
+            _, U = lobpcg.smallest_eigvecs(W, cfg.k,
+                                           normalized=cfg.normalized_init,
+                                           seed=cfg.seed, desc=stage1_desc)
+            U = torch.linalg.qr(U)[0].contiguous()
+            init_labels, _ = km.kmeans(g_init, U, cfg.k,
+                                       restarts=cfg.kmeans_restarts,
+                                       iters=cfg.kmeans_iters)
+            init_rcut = float(metrics.rcut(W, init_labels, cfg.k))
+            sp.set(init_rcut=init_rcut)
+        seconds["init"] = time.perf_counter() - t0
 
-    # -- stage 2: p-continuation under the registered driver (the guarded
-    # path adds per-level health checks and the recovery ladder)
-    t0 = time.perf_counter()
-    with span("continuation", cat="psc", solver=cfg.solver) as sp:
-        if cfg.guard or cfg.solver == "guarded":
-            U, p_path, fvals, hvps, reports, recovery = \
-                solvers.resilient_continuation(W, U, cfg)
-        else:
-            U, p_path, fvals, hvps, reports = solvers.p_continuation(
-                W, U, cfg)
-        sp.fence(U)
-        sp.set(levels=len(p_path))
-    seconds["continuation"] = time.perf_counter() - t0
+        # -- stage 2: p-continuation under the registered driver (the
+        # guarded path adds per-level health checks and the recovery
+        # ladder)
+        t0 = time.perf_counter()
+        with span("continuation", cat="psc", solver=cfg.solver) as sp:
+            if guarded:
+                U, p_path, fvals, hvps, reports, recovery = \
+                    solvers.resilient_continuation(W, U, cfg)
+            else:
+                U, p_path, fvals, hvps, reports = solvers.p_continuation(
+                    W, U, cfg)
+            sp.fence(U)
+            sp.set(levels=len(p_path))
+        seconds["continuation"] = time.perf_counter() - t0
 
     # -- stage 3: kmeans discretization and the cut metrics
     t0 = time.perf_counter()
@@ -312,9 +337,13 @@ def _cluster_impl(W: SparseMatrix, cfg: PSCConfig) -> PSCResult:
         sp.set(rcut=rcut)
     seconds["kmeans"] = time.perf_counter() - t0
 
-    labels, init_labels = labels.cpu().numpy(), init_labels.cpu().numpy()
+    labels = labels.cpu().numpy()
+    if init_labels is not None:
+        init_labels = init_labels.cpu().numpy()
     if inv is not None:             # back to the caller's vertex ids
-        labels, init_labels = labels[inv], init_labels[inv]
+        labels = labels[inv]
+        if init_labels is not None:
+            init_labels = init_labels[inv]
         U = U[torch.as_tensor(inv, device=U.device)]
     return PSCResult(labels=labels, U=U, rcut=rcut, ncut=ncut,
                      p_path=p_path, fvals=fvals, hvp_counts=hvps,

@@ -2,10 +2,13 @@
 registers the three drivers (newton, scf, inverse_power) and the
 health-checked wrapper ``guarded``."""
 from repro_torch.core.solvers.registry import (
+    SOLVER_TRACES,
     Solver,
     SolverReport,
     SolverState,
     SolverUnavailableError,
+    mark_trace,
+    memoized,
     minimize_at_p,
     p_continuation,
     p_schedule,
@@ -27,9 +30,10 @@ from repro_torch.core.solvers.guard import (
 )
 
 __all__ = [
-    "Solver", "SolverReport", "SolverState", "SolverUnavailableError",
-    "minimize_at_p", "p_continuation", "p_schedule", "register_solver",
-    "registered_solvers", "resolve_solver", "validate_config", "warm_start",
+    "SOLVER_TRACES", "Solver", "SolverReport", "SolverState",
+    "SolverUnavailableError", "mark_trace", "memoized", "minimize_at_p",
+    "p_continuation", "p_schedule", "register_solver", "registered_solvers",
+    "resolve_solver", "validate_config", "warm_start",
     "newton", "scf", "inverse_power", "guard", "GuardConfig",
     "RecoveryReport", "RungRecord", "SolverDivergence",
     "resilient_continuation", "resilient_warm_start",

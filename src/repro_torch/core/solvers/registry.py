@@ -17,10 +17,17 @@ Registered drivers (imported by ``core.solvers.__init__``):
   guarded        [1, 2]     health-checked wrapper around any of them
                             (``guard.py``)
 
-The reference's trace memo (``memoized``, ``mark_trace``,
-``SOLVER_TRACES``) and ``backend_bakes_ring_params`` have no
-counterpart: PyTorch runs eagerly, nothing is traced or compiled per
-level, and p and eps reach the kernels as runtime arguments.
+The build memo (``memoized``, ``mark_trace``, ``SOLVER_TRACES``,
+``TRACE_LISTENERS``) keeps the reference's names with one meaning in
+the port: an entry is a *build*.  PyTorch runs eagerly, so the flat
+drivers trace and compile nothing and mark nothing; the one memoized
+build is the serve engine's batched solve of a shape bucket
+(``serve.psc_engine._bucket_solver``), made once per (bucket key,
+solver signature) and read by ``obs.retrace``.  ``mark_trace`` bumps
+``compiles_total{site=<key head>}`` on ``obs.metrics.DEFAULT`` and
+stamps a ``compile`` instant on the active tracer, as in the
+reference.  ``backend_bakes_ring_params`` has no counterpart: p and eps
+reach the kernels as runtime arguments.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs import trace as _obs_trace
 
 
@@ -181,9 +189,8 @@ def warm_start(W, U0, cfg, p_final: Optional[float] = None,
     """Enter the continuation at its END instead of replaying the whole
     p schedule: from a previous solve's embedding ``U0`` (any orthonormal
     (n, k) is a feasible Grassmann point), run only the last ``steps``
-    schedule values, ending at ``p_final`` (default ``cfg.p_target``).
-    ``PSCConfig.init_U``, which feeds this entry in the reference, waits
-    for ROADMAP.md queue 1, item 13.  Returns the same
+    schedule values, ending at ``p_final`` (default ``cfg.p_target``);
+    ``PSCConfig.init_U`` feeds this entry.  Returns the same
     (U, p_path, fvals, applies, reports) as ``p_continuation``."""
     solver = resolve_solver(cfg.solver)
     p_end = cfg.p_target if p_final is None else float(p_final)
@@ -195,3 +202,34 @@ def warm_start(W, U0, cfg, p_final: Optional[float] = None,
     if not tail or tail[-1] != p_end:
         tail = (tail + [p_end])[-max(int(steps), 1):]
     return _run_schedule(W, U0, cfg, tail, warm=True)
+
+
+# --- the build memo ------------------------------------------------------
+
+_TRACE_CACHE: Dict[tuple, Callable] = {}
+SOLVER_TRACES: List[tuple] = []        # one key appended per build
+TRACE_LISTENERS: List[Callable] = []   # extra per-build hooks (key) -> None
+
+
+def memoized(key: tuple, build: Callable) -> Callable:
+    """The built callable for ``key``, building it on first use.
+    ``build()`` should call ``mark_trace(key)`` once, so every build is
+    observable."""
+    fn = _TRACE_CACHE.get(key)
+    if fn is None:
+        fn = build()
+        _TRACE_CACHE[key] = fn
+    return fn
+
+
+def mark_trace(key: tuple) -> None:
+    """Record one build of ``key``: append it to ``SOLVER_TRACES``, bump
+    ``compiles_total{site=<key head>}`` on the DEFAULT metrics registry,
+    stamp a ``compile`` instant on the active tracer and call every
+    ``TRACE_LISTENERS`` hook."""
+    SOLVER_TRACES.append(key)
+    site = str(key[0]) if key else "?"
+    _obs_metrics.DEFAULT.counter("compiles_total", site=site).inc()
+    _obs_trace.ACTIVE.instant("compile", site=site, key=str(key))
+    for fn in TRACE_LISTENERS:
+        fn(key)

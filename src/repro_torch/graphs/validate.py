@@ -114,20 +114,6 @@ def _find_issues(W: SparseMatrix, vcfg: ValidateConfig):
     return issues, (rows, cols, vals), asym
 
 
-def _layout_of(W: SparseMatrix) -> dict:
-    """from_coo keywords that rebuild W's layouts on W's device."""
-    kw = dict(dtype=W.vals.dtype, device=W.device,
-              build_ell=W.ell_cols is not None,
-              build_sellcs=W.sell_cols is not None,
-              build_bsr=W.bsr_blocks is not None)
-    if W.sell_cols is not None:
-        kw.update(sell_c=W.sell_c, sell_sigma=W.sell_sigma,
-                  sell_w_align=W.sell_w_align)
-    if W.bsr_blocks is not None:
-        kw.update(block_size=W.block_size)
-    return kw
-
-
 def validate_graph(W: SparseMatrix,
                    vcfg: Optional[ValidateConfig] = None) -> SparseMatrix:
     """Check (or repair) W against the pipeline contract.  Returns W
@@ -156,7 +142,7 @@ def validate_graph(W: SparseMatrix,
         first[1:] = keys[1:] != keys[:-1]
         rows, cols, vals = r2[first], c2[first], v2[first]
     return SparseMatrix.from_coo(rows, cols, vals, (W.n_rows, W.n_cols),
-                                 **_layout_of(W))
+                                 **W.layout_kwargs())
 
 
 def quick_check(W: SparseMatrix) -> Optional[str]:
@@ -309,7 +295,7 @@ def cluster_components(W: SparseMatrix, cfg,
             inv[idx] = np.arange(nc)
             m = comps.labels[rows] == c
             Wc = SparseMatrix.from_coo(inv[rows[m]], inv[cols[m]], vals[m],
-                                       (nc, nc), **_layout_of(W))
+                                       (nc, nc), **W.layout_kwargs())
             sub_cfg = _dc.replace(cfg, k=kc, validate=None, init_U=None)
             res = _psc.p_spectral_cluster(Wc, sub_cfg)
             labels_out[idx] = np.asarray(res.labels) + offset

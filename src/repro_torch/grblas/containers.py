@@ -37,11 +37,18 @@ SELL-C-σ is stored twice:
 A ``with_vals`` matrix gathers only the kernel copy's values; its
 per-run ``sell_vals`` are gathered on first read (the plain twins and
 the parity tests), so the device's hot path never builds them.
+
+For the clustering serve engine: ``fingerprint`` (a ``GraphFingerprint``,
+the warm cache's key: blake2b digests of the host COO pattern and of the
+quantized weights, the reference's digests over the same bytes, so both
+packages key a graph alike) and ``padded_coo`` (the COO triple padded to
+a shape bucket with (0, 0, 0.0) entries).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import hashlib
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +59,27 @@ from repro_torch.kernels.segment_sum import segment_sum
 # When full-ELL padding would store more than this multiple of nnz,
 # from_coo builds the SELL-C-σ layout as well (the reference's policy).
 SELLCS_AUTO_THRESHOLD = 4.0
+
+
+class GraphFingerprint(NamedTuple):
+    """Identity of a weighted graph for the serve layer's warm cache:
+    shape, a digest of the sparsity pattern and a digest of the
+    quantized weights.  Two graphs with one pattern and different
+    weights share ``pattern_key`` (the cached embedding warm-starts
+    them) while their ``key`` differs (the cached labels do not hold)."""
+
+    n: int
+    nnz: int
+    pattern: str        # blake2b digest of (n, n_cols, rows, cols)
+    weights: str        # blake2b digest of round(vals / weight_quant)
+
+    @property
+    def key(self) -> tuple:
+        return (self.n, self.nnz, self.pattern, self.weights)
+
+    @property
+    def pattern_key(self) -> tuple:
+        return (self.n, self.nnz, self.pattern)
 
 
 def _row_layout(rows, n_rows: int, nnz: int):
@@ -391,10 +419,75 @@ class SparseMatrix:
             m.sell_kernel = self.sell_kernel.with_vals(vext)
         return m
 
+    def layout_kwargs(self) -> dict:
+        """``from_coo`` keywords that build this matrix's layouts (dtype,
+        device, ELL, SELL-C-σ with its C, σ and alignment, BSR with its
+        tile) for another COO triple: a rebuilt graph keeps them."""
+        kw = dict(dtype=self.vals.dtype, device=self.device,
+                  build_ell=self.ell_cols is not None,
+                  build_sellcs=self.sell_cols is not None,
+                  build_bsr=self.bsr_blocks is not None)
+        if self.sell_cols is not None:
+            kw.update(sell_c=self.sell_c, sell_sigma=self.sell_sigma,
+                      sell_w_align=self.sell_w_align)
+        if self.bsr_blocks is not None:
+            kw.update(block_size=self.block_size)
+        return kw
+
     def host_coo(self):
-        """Host-side (rows, cols, vals) numpy copies of the COO triple."""
+        """Host-side (rows, cols, vals) numpy arrays of the COO triple:
+        copies for a device matrix, views of the tensors for a CPU one
+        (copy before writing)."""
         return (self.rows.cpu().numpy(), self.cols.cpu().numpy(),
                 self.vals.cpu().numpy())
+
+    def fingerprint(self, weight_quant: float = 1e-6) -> GraphFingerprint:
+        """Graph identity for the warm cache: (n, nnz, pattern digest,
+        quantized-weight digest).  The pattern digest hashes the sorted
+        COO index arrays as int32 (from_coo sorts, so equal patterns hash
+        alike whatever the input order); weights are rounded to
+        ``weight_quant`` first, so float noise below the quantum keeps
+        the fingerprint and a change of at least one quantum changes it.
+        Host work: the COO triple is copied off the device."""
+        rows, cols, vals = self.host_coo()
+        h = hashlib.blake2b(digest_size=16)
+        h.update(np.int64([self.n_rows, self.n_cols]).tobytes())
+        h.update(np.ascontiguousarray(rows, np.int32).tobytes())
+        h.update(np.ascontiguousarray(cols, np.int32).tobytes())
+        pattern = h.hexdigest()
+        hw = hashlib.blake2b(digest_size=16)
+        q = np.round(np.asarray(vals, np.float64) / weight_quant)
+        # non-finite weights (refused later by validation or admission)
+        # still get a stable digest: sentinel quanta, not an int cast
+        if not np.isfinite(q).all():
+            q = np.nan_to_num(q, nan=np.iinfo(np.int64).min + 1,
+                              posinf=np.iinfo(np.int64).max,
+                              neginf=np.iinfo(np.int64).min)
+        hw.update(q.astype(np.int64).tobytes())
+        return GraphFingerprint(n=self.n_rows, nnz=self.nnz,
+                                pattern=pattern, weights=hw.hexdigest())
+
+    def padded_coo(self, n_pad: int, nnz_pad: int):
+        """The COO triple padded to a serve bucket (n_pad vertices,
+        nnz_pad stored entries), as host numpy (int32, int32, vals).
+
+        Pad entries are (0, 0, 0.0): they add exact zeros to row 0's
+        sums, after its real entries.  Pad rows [n_rows, n_pad) hold no
+        entry: isolated vertices the batched solve masks out."""
+        if self.n_rows != self.n_cols:
+            raise ValueError("bucket padding is defined for square graphs, "
+                             f"got ({self.n_rows}, {self.n_cols})")
+        if n_pad < self.n_rows or nnz_pad < self.nnz:
+            raise ValueError(
+                f"bucket ({n_pad}, {nnz_pad}) smaller than graph "
+                f"({self.n_rows}, {self.nnz})")
+        rows, cols, vals = self.host_coo()
+        pad = nnz_pad - self.nnz
+        return (np.concatenate([rows.astype(np.int32),
+                                np.zeros(pad, np.int32)]),
+                np.concatenate([cols.astype(np.int32),
+                                np.zeros(pad, np.int32)]),
+                np.concatenate([vals, np.zeros(pad, vals.dtype)]))
 
     def to_dense(self) -> torch.Tensor:
         d = torch.zeros((self.n_rows, self.n_cols), dtype=self.vals.dtype,

@@ -9,6 +9,11 @@ unchanged library is built once per checkout.  ``start()`` launches
 nvcc in the background, so several libraries build at once;
 ``load()`` waits for the build and opens the library with the argument
 types of ``functions``.  Nothing is built when a module is imported.
+
+A kernel that cannot be built (no toolkit, an nvcc error) or whose
+launch returns a CUDA error raises ``KernelError``: callers that turn
+other exceptions into per-request failures (the clustering serve
+engine) let this one through to their caller.
 """
 from __future__ import annotations
 
@@ -30,11 +35,15 @@ PTR, I32, I64, F64 = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
                       ctypes.c_double)
 
 
+class KernelError(RuntimeError):
+    """A kernel of the port failed to build or to launch."""
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (CUDA_HOME unset and no "
+        raise KernelError("no CUDA toolkit found (CUDA_HOME unset and no "
                            "nvcc on PATH); the CUDA kernels cannot be built")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
@@ -89,7 +98,7 @@ class NvccLibrary:
                 log, _ = self._proc.communicate()
                 if self._proc.returncode != 0:
                     self._proc = None
-                    raise RuntimeError(f"nvcc failed to build {self.source}:"
+                    raise KernelError(f"nvcc failed to build {self.source}:"
                                        f"\n{log}")
                 os.replace(self._tmp, out)
                 self._proc = None
@@ -108,4 +117,4 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     library exports ``const char* error_string(int)``."""
     if code != 0:
         msg = lib.error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+        raise KernelError(f"{what}: CUDA error {code} ({msg})")

@@ -10,12 +10,15 @@ from repro_torch.multilevel.coarsen import (
     build_hierarchy,
     coarsen_graph,
     heavy_edge_matching,
+    patch_hierarchy,
     prolongator_from_aggregates,
 )
-from repro_torch.multilevel.vcycle import MultilevelConfig, multilevel_cluster
+from repro_torch.multilevel.vcycle import (MultilevelConfig,
+                                           multilevel_cluster, refine_cluster)
 
 __all__ = [
     "CoarsenInfo", "Hierarchy", "Level", "auto_sparsify_cap",
     "build_hierarchy", "coarsen_graph", "heavy_edge_matching",
-    "prolongator_from_aggregates", "MultilevelConfig", "multilevel_cluster",
+    "patch_hierarchy", "prolongator_from_aggregates", "MultilevelConfig",
+    "multilevel_cluster", "refine_cluster",
 ]

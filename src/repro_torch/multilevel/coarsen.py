@@ -17,8 +17,8 @@ finest vertices per aggregate as Pᵀ 1.
 Everything here is deterministic host numpy, the reference's own
 algorithm, so aggregates, prolongators and coarse COO triples equal the
 reference's; the levels' graphs, volumes and counts live on the fine
-graph's device.  ``patch_hierarchy`` (edits under churn) waits for the
-serve slice (ROADMAP.md queue 1, item 13).
+graph's device.  ``patch_hierarchy`` rebuilds a hierarchy for an edited
+graph (the serve engine's churn path), re-matching only near the edits.
 """
 from __future__ import annotations
 
@@ -221,6 +221,132 @@ def auto_sparsify_cap(W: SparseMatrix) -> int:
     return max(int(np.ceil(mean_deg)), 12)
 
 
+def _sparsify_cap(W: SparseMatrix, sparsify) -> Optional[int]:
+    """The coarse-row degree cap ``sparsify`` names: "auto" for
+    ``auto_sparsify_cap(W)``, None/False for none, or an explicit int."""
+    if sparsify == "auto":
+        return auto_sparsify_cap(W)
+    if sparsify is None or sparsify is False:
+        return None
+    cap = int(sparsify)
+    if cap < 1:
+        raise ValueError(f"sparsify cap must be >= 1, got {cap}")
+    return cap
+
+
+def patch_hierarchy(hier: Hierarchy, W_new: SparseMatrix,
+                    touched: np.ndarray, rounds: int = 8,
+                    max_agg: int = 4,
+                    layout_kwargs: Optional[dict] = None,
+                    sparsify="auto") -> Tuple[Hierarchy, List[dict]]:
+    """Rebuild a hierarchy for an edited graph, reusing the old matching
+    wherever the edit cannot have reached.
+
+    ``touched`` lists the finest vertices incident to pattern edits.  At
+    every level only vertices within distance 1 of a touched vertex are
+    re-matched (on their induced subgraph); every aggregate holding none
+    of them keeps its members, its prolongator rows equal up to the id
+    compaction.  The Galerkin products Pᵀ W P are recomputed at every
+    level (the weights changed); the multi-round matching, the host
+    cost of ``build_hierarchy``, is what is saved, and aggregate ids
+    stay stable on the untouched region so a cached embedding restricts
+    onto it coherently.  Aggregates born from a re-match are touched at
+    the next level up, so the dirty set contracts with the graph.
+
+    Returns (hierarchy, records): per level, the vertex and coarse
+    counts, the dirty and re-matched vertices and the kept aggregates.
+    """
+    cap = _sparsify_cap(W_new, sparsify)
+    if W_new.n_rows != hier.levels[0].W.n_rows:
+        raise ValueError("patch_hierarchy: vertex count changed; rebuild "
+                         "the hierarchy instead")
+    W = W_new
+    vol = W.row_sums()
+    counts = torch.ones(W.n_rows, dtype=W.dtype, device=W.device)
+    levels = [Level(W=W, vol=vol, counts=counts)]
+    prolongators: List[SparseMatrix] = []
+    infos: List[CoarsenInfo] = []
+    records: List[dict] = []
+    kw = dict(layout_kwargs or {})
+    kw.setdefault("dtype", W.dtype)
+    kw.setdefault("device", W.device)
+
+    touched = np.unique(np.asarray(touched, np.int64))
+    new2old = np.arange(W.n_rows, dtype=np.int64)   # level-l new -> old id
+    for info in hier.infos:
+        n = W.n_rows
+        rows, cols, vals = W.host_coo()
+        rows, cols = rows.astype(np.int64), cols.astype(np.int64)
+        dirty = np.zeros(n, bool)
+        dirty[touched] = True
+        dirty[cols[dirty[rows]]] = True             # distance-1 closure
+        dirty |= new2old < 0                        # freshly born vertices
+
+        # dissolve every old aggregate with a dirty (or vanished) member
+        old_agg = info.agg
+        bad = np.zeros(info.n_coarse, bool)
+        present = np.zeros(info.n_fine, bool)
+        present[new2old[new2old >= 0]] = True
+        bad[old_agg[~present]] = True
+        bad[old_agg[new2old[dirty & (new2old >= 0)]]] = True
+        has_old = new2old >= 0
+        dirty[has_old] |= bad[old_agg[new2old[has_old]]]
+
+        # clean vertices keep their old aggregate (compacted ids first)
+        kept_old = np.unique(old_agg[new2old[~dirty]]) if (~dirty).any() \
+            else np.empty(0, np.int64)
+        remap = np.full(info.n_coarse, -1, np.int64)
+        remap[kept_old] = np.arange(len(kept_old))
+        agg = np.empty(n, np.int64)
+        agg[~dirty] = remap[old_agg[new2old[~dirty]]]
+
+        # dirty vertices re-match on their induced subgraph (host only:
+        # the matching reads nothing but the host COO)
+        d_ids = np.nonzero(dirty)[0]
+        n_new_aggs = 0
+        if len(d_ids):
+            sub_id = np.full(n, -1, np.int64)
+            sub_id[d_ids] = np.arange(len(d_ids))
+            both = dirty[rows] & dirty[cols]
+            Wsub = SparseMatrix.from_coo(
+                sub_id[rows[both]], sub_id[cols[both]], vals[both],
+                (len(d_ids), len(d_ids)), dtype=W.dtype, device="cpu",
+                build_ell=False, build_sellcs=False)
+            agg_sub = heavy_edge_matching(Wsub, rounds=rounds,
+                                          max_agg=max_agg)
+            n_new_aggs = int(agg_sub.max()) + 1 if len(agg_sub) else 0
+            agg[d_ids] = len(kept_old) + agg_sub
+        n_coarse = len(kept_old) + n_new_aggs
+
+        P = prolongator_from_aggregates(agg, n_coarse, dtype=W.dtype,
+                                        device=W.device)
+        WP = api.mxm(W, P)
+        Wc = api.mxm(P, WP, desc=_T)
+        r2, c2, v2 = Wc.host_coo()
+        r2, c2 = r2.astype(np.int64), c2.astype(np.int64)
+        if cap is not None:
+            r2, c2, v2 = _sparsify_rowcap(r2, c2, v2, n_coarse, cap)
+        Wc = SparseMatrix.from_coo(r2, c2, v2, (n_coarse, n_coarse), **kw)
+        cur = levels[-1]
+        levels.append(Level(W=Wc, vol=api.mxm(P, cur.vol, desc=_T),
+                            counts=api.mxm(P, cur.counts, desc=_T)))
+        prolongators.append(P)
+        infos.append(CoarsenInfo(n_fine=n, n_coarse=n_coarse, agg=agg))
+        records.append({"n": n, "n_coarse": n_coarse,
+                        "n_dirty": int(dirty.sum()),
+                        "n_rematched": len(d_ids),
+                        "n_kept_aggregates": len(kept_old)})
+
+        # next level: kept aggregates are old coarse ids, re-matched
+        # ones are new pattern, touched there
+        new2old = np.concatenate(
+            [kept_old, np.full(n_new_aggs, -1, np.int64)])
+        touched = np.arange(len(kept_old), n_coarse, dtype=np.int64)
+        W = Wc
+    return Hierarchy(levels=levels, prolongators=prolongators,
+                     infos=infos), records
+
+
 def build_hierarchy(W: SparseMatrix, coarse_size: int = 2048,
                     max_levels: int = 12, min_reduction: float = 0.9,
                     rounds: int = 8,
@@ -234,14 +360,7 @@ def build_hierarchy(W: SparseMatrix, coarse_size: int = 2048,
     ``auto_sparsify_cap(W)``; None/False exact Galerkin at every level;
     an int is an explicit cap.  Volumes and counts are carried as Pᵀ v,
     mxm calls like everything else."""
-    if sparsify == "auto":
-        cap = auto_sparsify_cap(W)
-    elif sparsify is None or sparsify is False:
-        cap = None
-    else:
-        cap = int(sparsify)
-        if cap < 1:
-            raise ValueError(f"sparsify cap must be >= 1, got {cap}")
+    cap = _sparsify_cap(W, sparsify)
     vol = W.row_sums()
     counts = torch.ones(W.n_rows, dtype=W.dtype, device=W.device)
     levels = [Level(W=W, vol=vol, counts=counts)]

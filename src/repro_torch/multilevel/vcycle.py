@@ -20,8 +20,10 @@ any registered driver (``MultilevelConfig.coarse_solver`` /
 coarse solve is a ``multilevel.coarse_solve`` span, each level of the
 walk up a ``multilevel.refine`` span and the finest discretization a
 ``kmeans`` span.  Entry point: ``PSCConfig(multilevel=...)``, routed by
-``core.psc.p_spectral_cluster``.  ``refine_cluster`` (the serve layer's
-refine-only cycle) waits for ROADMAP.md queue 1, item 13.
+``core.psc.p_spectral_cluster``.  ``refine_cluster`` is the serve
+layer's refine-only cycle: restrict a cached embedding down a (patched)
+hierarchy, warm-enter the coarse driver at the schedule tail and walk
+back up.
 """
 from __future__ import annotations
 
@@ -33,9 +35,12 @@ import numpy as np
 import torch
 
 from repro_torch.grblas import api
+from repro_torch.grblas.api import Descriptor
 from repro_torch.grblas.containers import SparseMatrix
 from repro_torch.multilevel.coarsen import build_hierarchy
 from repro_torch.obs import trace as _obs_trace
+
+_T = Descriptor(transpose=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +161,13 @@ def _finalize(W: SparseMatrix, U, cfg, rec: dict, init_labels, init_rcut,
         reports=rec["reports"], stage_seconds=seconds, hierarchy=hierarchy)
 
 
+def _hierarchy_records(hier) -> list:
+    return [{"level": i, "n": lv.W.n_rows, "nnz": lv.W.nnz,
+             "bsr_tiles": (None if lv.W.bsr_blocks is None
+                           else int(lv.W.bsr_blocks.shape[0]))}
+            for i, lv in enumerate(hier.levels)]
+
+
 def multilevel_cluster(W: SparseMatrix, cfg, ml) -> Any:
     """Run the V-cycle under the flat config ``cfg`` (a PSCConfig whose
     ``multilevel`` field routed here; ``ml`` is that field).  Returns a PSCResult on W, with
@@ -178,10 +190,7 @@ def multilevel_cluster(W: SparseMatrix, cfg, ml) -> Any:
     if hier.n_levels == 1:          # nothing to coarsen: flat solve
         return _psc.p_spectral_cluster(
             W, dataclasses.replace(cfg, multilevel=None))
-    hierarchy = [{"level": i, "n": lv.W.n_rows, "nnz": lv.W.nnz,
-                  "bsr_tiles": (None if lv.W.bsr_blocks is None
-                                else int(lv.W.bsr_blocks.shape[0]))}
-                 for i, lv in enumerate(hier.levels)]
+    hierarchy = _hierarchy_records(hier)
 
     # -- coarsest level: the whole flat pipeline; its labels, prolonged,
     # are the fine graph's init_labels
@@ -205,3 +214,68 @@ def multilevel_cluster(W: SparseMatrix, cfg, ml) -> Any:
     seconds["walk_up"] = time.perf_counter() - t0
     return _finalize(W, U, cfg, rec, init_labels, init_rcut, seconds,
                      hierarchy)
+
+
+def refine_cluster(W: SparseMatrix, cfg, ml: MultilevelConfig, hier,
+                   U0) -> Any:
+    """Refine-only V-cycle: re-cluster ``W`` from an earlier solve's
+    finest embedding ``U0`` (n, k) instead of the coarsest-level flat
+    pipeline — the serve engine's churn path.
+
+    The cached U is restricted to the coarsest level (Pᵀ U, the
+    aggregate sums: one ``api.mxm`` a level), re-orthonormalized, and
+    enters the coarse driver at the end of the p schedule
+    (``solvers.warm_start``, ``refine_p_steps`` levels); the walk back up
+    is the V-cycle's own.  No LOBPCG and no descent from p = 2.  ``hier``
+    must be a hierarchy of ``W`` itself (patched or freshly built).
+    Returns a PSCResult with ``init_labels=None`` and ``init_rcut`` NaN;
+    ``stage_seconds`` has "restrict", "coarse_solve", "walk_up" and
+    "kmeans"."""
+    from repro_torch.core import solvers
+
+    ml = coerce(ml)
+    U = U0 if torch.is_tensor(U0) else torch.as_tensor(np.asarray(U0))
+    U = U.to(device=W.device, dtype=W.dtype)
+    if tuple(U.shape) != (W.n_rows, cfg.k):
+        raise ValueError(f"refine_cluster: U0 shape {tuple(U.shape)} != "
+                         f"({W.n_rows}, {cfg.k})")
+    if hier.levels[0].W.n_rows != W.n_rows:
+        raise ValueError("refine_cluster: hierarchy does not match W")
+    rec = {"p_path": [], "fvals": [], "hvps": [], "reports": [],
+           "levels": []}
+    seconds = {}
+
+    # -- restrict: Pᵀ U per level, then the Grassmann retraction
+    t0 = time.perf_counter()
+    with _obs_trace.ACTIVE.span("multilevel.restrict", cat="multilevel",
+                                n_levels=hier.n_levels) as sp:
+        for P in hier.prolongators:
+            U = api.mxm(P, U.contiguous(), desc=_T)
+        U = torch.linalg.qr(U)[0]
+        sp.fence(U)
+    seconds["restrict"] = time.perf_counter() - t0
+
+    # -- coarsest level: warm entry at the end of the p schedule
+    t0 = time.perf_counter()
+    coarse_cfg = dataclasses.replace(
+        cfg, multilevel=None, reorder="none", init_U=None,
+        solver=ml.coarse_solver or cfg.solver)
+    coarse_cfg.validate_backend(hier.coarsest.W)
+    with _obs_trace.ACTIVE.span("multilevel.coarse_solve", cat="multilevel",
+                                n=hier.coarsest.W.n_rows,
+                                nnz=hier.coarsest.W.nnz, warm=True,
+                                solver=coarse_cfg.solver):
+        U, p_path, fvals, hvps, reports = solvers.warm_start(
+            hier.coarsest.W, U, coarse_cfg,
+            steps=max(int(ml.refine_p_steps), 1))
+    rec["p_path"] += p_path
+    rec["fvals"] += fvals
+    rec["hvps"] += hvps
+    rec["reports"] += reports
+    seconds["coarse_solve"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    U = _walk_up(hier, U, cfg, ml, rec)
+    seconds["walk_up"] = time.perf_counter() - t0
+    return _finalize(W, U, cfg, rec, None, float("nan"), seconds,
+                     _hierarchy_records(hier))

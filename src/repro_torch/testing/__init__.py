@@ -1,5 +1,5 @@
 """repro_torch.testing — deterministic fault injection for the chaos
-tests (the solver and backend injectors of ``repro.testing``).
+tests (the solver, backend and serve injectors of ``repro.testing``).
 Production code never imports this package."""
 from repro_torch.testing.faultinject import (
     InjectionLog,
@@ -7,10 +7,13 @@ from repro_torch.testing.faultinject import (
     chaos_seed,
     nan_in_multivector,
     rank_collapse,
+    serve_batch_fault,
+    serve_churn_fault,
     solver_stall,
 )
 
 __all__ = [
     "InjectionLog", "backend_fault", "chaos_seed", "nan_in_multivector",
-    "rank_collapse", "solver_stall",
+    "rank_collapse", "serve_batch_fault", "serve_churn_fault",
+    "solver_stall",
 ]

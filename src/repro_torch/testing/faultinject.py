@@ -14,9 +14,10 @@ execution path resolves by name at call time (``p_continuation``,
 ``warm_start``, the guard's ``_run_levels``), so flat, guarded and
 multilevel paths all see the injected driver.  ``backend_fault`` swaps
 ``grblas.backends._REGISTRY[name]``; the port runs eagerly and has no
-trace cache that could replay around the dispatch.  The reference's
-serve and dist injectors wait for the serve engine and the distributed
-backend (ROADMAP.md queue 1, items 13 and 15).
+trace cache that could replay around the dispatch.  The serve injectors
+set the clustering serve engine's ``_SOLVE_FAULT`` / ``_CHURN_FAULT``
+seams (``serve.psc_engine``).  The reference's dist injectors wait for
+the distributed backend (ROADMAP.md queue 1, item 15).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import dataclasses
 import os
 from typing import Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.solvers import registry
@@ -206,3 +208,58 @@ def backend_fault(backend: str = "sellcs", *, edge_rings_only: bool = True,
         yield log
     finally:
         _backends._REGISTRY[backend] = orig
+
+
+# -------------------------------------------------------------- serve seams
+
+@contextlib.contextmanager
+def serve_batch_fault(req_ids, *, exc: Optional[Exception] = None,
+                      log: Optional[InjectionLog] = None):
+    """The serve engine's batched bucket solve raises whenever the batch
+    holds any of ``req_ids`` — the thrown-batch failure that drives
+    quarantine bisection (a NaN element, by contrast, is caught by the
+    per-element finiteness check without a throw)."""
+    from repro_torch.serve import psc_engine as _eng
+
+    log = log if log is not None else InjectionLog()
+    bad = set(int(r) for r in np.atleast_1d(req_ids))
+
+    def fault(pends):
+        hit = [p.req_id for p in pends if p.req_id in bad]
+        if hit:
+            log.record("serve_batch_fault", f"req{hit}")
+            raise (exc if exc is not None else
+                   RuntimeError(f"injected batch fault (requests {hit})"))
+
+    prev = _eng._SOLVE_FAULT
+    _eng._SOLVE_FAULT = fault
+    try:
+        yield log
+    finally:
+        _eng._SOLVE_FAULT = prev
+
+
+@contextlib.contextmanager
+def serve_churn_fault(*, fail_attempts: int = 1,
+                      exc: Optional[Exception] = None,
+                      log: Optional[InjectionLog] = None):
+    """The churn re-solve raises on its first ``fail_attempts`` attempts
+    of each request — the transient fault the retry with backoff is for
+    (``fail_attempts > churn_retries`` forces the cold fallback)."""
+    from repro_torch.serve import psc_engine as _eng
+
+    log = log if log is not None else InjectionLog()
+
+    def fault(pend, attempt):
+        if attempt < fail_attempts:
+            log.record("serve_churn_fault",
+                       f"req{pend.req_id}@attempt{attempt}")
+            raise (exc if exc is not None else
+                   RuntimeError(f"injected churn fault (attempt {attempt})"))
+
+    prev = _eng._CHURN_FAULT
+    _eng._CHURN_FAULT = fault
+    try:
+        yield log
+    finally:
+        _eng._CHURN_FAULT = prev

@@ -1307,3 +1307,72 @@ def test_cuda_boolean_ring_components_match_cpu(cuda_device):
         np.testing.assert_array_equal(comps.labels,
                                       connected_components(W).labels)
     np.testing.assert_array_equal(labels["cpu"], labels[str(cuda_device)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["newton", "scf"])
+def test_cuda_bucket_batch_matches_flat_and_repeats_bitwise(cuda_device,
+                                                            solver):
+    """One bucket batch of the clustering serve engine on the card: the
+    block-diagonal COO sums through segment_sum, stage 3 through
+    kmeans_assign, each request's labels equal the flat pipeline's on
+    the card, pad rows of the built solve are exactly zero and two calls
+    of it equal bit for bit."""
+    from repro_torch.core.psc import PSCConfig, p_spectral_cluster
+    from repro_torch.graphs import sbm_graph
+    from repro_torch.kernels import kmeans_assign as KK
+    from repro_torch.kernels import segment_sum as KS
+    from repro_torch.serve import ClusterServeEngine, assemble_batch
+    from repro_torch.serve import psc_engine
+
+    cfg = PSCConfig(k=4, newton_iters=10, tcg_iters=6, kmeans_restarts=4,
+                    solver=solver)
+    graphs = [sbm_graph([25 + s, 25, 25, 25], 0.5, 0.02, seed=s,
+                        device=cuda_device)[0] for s in range(3)]
+    KS.reset_launch_counts()
+    KK.reset_launch_counts()
+    eng = ClusterServeEngine(cfg, max_batch=4)
+    out = eng.serve(graphs)
+    assert KS.LAUNCHES["segment_sum"] > 0
+    assert KK.LAUNCHES["kmeans_assign"] > 0
+    assert eng.stats.n_batches == 1 and eng.stats.n_failed == 0
+    for W, res in zip(graphs, out):
+        assert res.ok and res.stats.lane == "bucket"
+        assert res.U.device.type == "cuda"
+        np.testing.assert_array_equal(res.labels,
+                                      p_spectral_cluster(W, cfg).labels)
+    spec = out[0].stats.bucket
+    solve, _ = psc_engine._bucket_solver(psc_engine.BucketSpec(*spec[2:],
+                                                               spec[1]), cfg)
+    batch = assemble_batch(graphs, solve.spec)
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in (batch.rows, batch.cols, batch.vals, batch.mask)]
+    U1, f1 = solve(*args)
+    U2, f2 = solve(*args)
+    assert torch.equal(U1, U2) and torch.equal(f1, f2)
+    for b, n in enumerate(batch.n_real):
+        assert bool((U1[b, n:] == 0.0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_error_leaves_the_serve_engine(cuda_device, monkeypatch):
+    """A failed kernel launch on the bucket lane reaches the caller as the
+    kernel layer's exception; no request is quarantined."""
+    from repro_torch.core.psc import PSCConfig
+    from repro_torch.graphs import sbm_graph
+    from repro_torch.kernels.nvcc import KernelError
+    from repro_torch.serve import ClusterServeEngine
+
+    KS = importlib.import_module("repro_torch.kernels.segment_sum."
+                                 "segment_sum")
+
+    def broken(*a, **k):
+        raise KernelError("segment_sum: CUDA error 700 (injected)")
+
+    monkeypatch.setattr(KS.LIBRARY, "load", broken)
+    eng = ClusterServeEngine(PSCConfig(k=4, newton_iters=4, tcg_iters=2))
+    eng.submit(sbm_graph([20] * 4, 0.5, 0.02, seed=0,
+                         device=cuda_device)[0])
+    with pytest.raises(KernelError, match="injected"):
+        eng.flush()
+    assert eng.stats.n_failed == 0

@@ -76,10 +76,19 @@ def test_spectral_cluster_baseline():
     assert np.isfinite(rcut)
 
 
-@pytest.mark.parametrize("field,value", [("init_U", np.zeros((4, 2)))])
-def test_unported_config_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 13"):
-        PSCConfig(**{field: value})
+def test_init_U_config_field_warm_starts():
+    """``PSCConfig.init_U`` is accepted and runs the warm entry: the
+    schedule tail from the given embedding, no p=2 start."""
+    W, truth = ring_of_cliques(4, 10)
+    port = convert.sparse_matrix(W.host_coo(), (W.n_rows, W.n_cols),
+                                 device="cpu")
+    U0 = np.linalg.qr(np.eye(40, 4) + 0.01)[0]
+    cfg = PSCConfig(k=4, newton_iters=10, tcg_iters=6, init_U=U0)
+    assert cfg.warm_p_steps == 1
+    res = p_spectral_cluster(port, cfg)
+    assert res.init_labels is None and np.isnan(res.init_rcut)
+    assert len(res.p_path) == 1 and res.p_path[-1] == cfg.p_target
+    assert res.U.shape == (40, 4) and np.isfinite(res.rcut)
 
 
 @pytest.mark.parametrize("field,value", [

@@ -3,10 +3,13 @@
 injectors (``repro_torch.testing``): every rung fires, stall and rank
 collapse are caught, a graph that is itself NaN ends in a structured
 error, recovery is deterministic, and a healthy guarded run equals the
-unguarded one.  Mirrors ``tests/test_chaos.py`` (its solver and backend
-cases; the warm-start case waits for ``PSCConfig.init_U``) and the guard
-cases of ``tests/test_degenerate_graphs.py``; each injected fault also
-runs on the reference, and both must walk the same rungs.
+unguarded one.  Mirrors ``tests/test_chaos.py`` (its solver, backend and
+warm-start cases) and the guard cases of
+``tests/test_degenerate_graphs.py``; each injected fault also runs on
+the reference, and both must walk the same rungs.  The guarded warm
+start (``resilient_warm_start``, reached through ``PSCConfig.init_U``)
+is held to the reference's on the same U0: the same p path and a
+subspace within a largest principal sine of 1e-8, in float64.
 
 A recovered solve is held as the reference holds it: finite U and RCut
 within 1.10 x the clean guarded run's."""
@@ -17,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")  # the reference-only CI has no torch
 
+import jax.numpy as jnp
+from repro.core import solvers as ref_solvers
 from repro.core.psc import PSCConfig as RefConfig
 from repro.core.psc import p_spectral_cluster as ref_cluster
 from repro.core.solvers import GuardConfig as RefGuardConfig
@@ -28,6 +33,7 @@ from repro.testing import rank_collapse as ref_rank_collapse
 from repro.testing import solver_stall as ref_stall
 from repro_torch import convert
 from repro_torch.core.psc import PSCConfig, p_spectral_cluster
+from repro_torch.core import solvers
 from repro_torch.core.solvers import GuardConfig, SolverDivergence
 from repro_torch.grblas import SparseMatrix, backends
 from repro_torch.testing import (backend_fault, chaos_seed,
@@ -306,3 +312,70 @@ def test_guarded_validated_disconnected_cliques():
     assert res.rcut == 0.0 and len(res.components) == 2
     assert len(set(res.labels[:10].tolist())) == 1
     assert res.labels[0] != res.labels[10]
+
+
+# ------------------------------------------------------- guarded warm start
+
+def _sin_theta(A, B):
+    """Largest principal sine between the column spaces of A and B."""
+    Qa = np.linalg.qr(np.asarray(A))[0]
+    Qb = np.linalg.qr(np.asarray(B))[0]
+    return float(np.linalg.norm(Qb - Qa @ (Qa.T @ Qb), 2))
+
+
+@pytest.fixture(scope="module")
+def sbm64():
+    ref, _ = ref_sbm_graph([20, 20, 20], 0.5, 0.05, seed=3,
+                           dtype=jnp.float64)
+    port = convert.sparse_matrix(ref.host_coo(), (ref.n_rows, ref.n_cols),
+                                 device="cpu")
+    U0 = np.linalg.qr(np.random.default_rng(0).standard_normal(
+        (ref.n_rows, 3)))[0]
+    return ref, port, U0
+
+
+_WARM = dict(k=3, p_target=1.2, solver="scf", scf_sweeps=2, warm_p_steps=2,
+             kmeans_restarts=2)
+
+
+def test_resilient_warm_start_equals_the_reference(sbm64):
+    """``resilient_warm_start`` reads ``cfg.warm_p_steps``: the guarded
+    schedule tail from U0, with the reference's p path and subspace."""
+    ref, W, U0 = sbm64
+    U, p_path, fvals, applies, reports, rec = solvers.resilient_warm_start(
+        W, convert.tensor(U0, device="cpu"), PSCConfig(guard=True, **_WARM))
+    rU, rp, rf, ra, _, rrec = ref_solvers.resilient_warm_start(
+        ref, jnp.asarray(U0), RefConfig(guard=True, reorder="none", **_WARM))
+    assert p_path == rp and len(p_path) == 2 and p_path[-1] == 1.2
+    assert applies == list(ra) and len(reports) == 2
+    np.testing.assert_allclose(fvals, rf, rtol=1e-8)
+    assert rec.clean and rrec.clean
+    assert _sin_theta(convert.to_numpy(U), rU) <= 1e-8
+
+
+def test_guarded_warm_solve_through_init_U_equals_the_reference(sbm64):
+    ref, W, U0 = sbm64
+    res = p_spectral_cluster(W, PSCConfig(init_U=U0, guard=True, **_WARM))
+    want = ref_cluster(ref, RefConfig(init_U=jnp.asarray(U0), guard=True,
+                                      reorder="none", **_WARM))
+    assert res.p_path == want.p_path
+    assert res.recovery is not None and res.recovery.clean
+    assert res.init_labels is None and np.isnan(res.init_rcut)
+    assert _sin_theta(convert.to_numpy(res.U), want.U) <= 1e-8
+    # solver="guarded" takes the same path
+    res2 = p_spectral_cluster(W, PSCConfig(
+        init_U=U0, guard=GuardConfig(inner="scf"),
+        **dict(_WARM, solver="guarded")))
+    assert res2.p_path == res.p_path
+    assert _sin_theta(convert.to_numpy(res2.U), want.U) <= 1e-8
+
+
+def test_guarded_warm_start_survives_poisoned_init(sbm, clean):
+    """A NaN warm-start embedding (a poisoned cache entry) falls onto the
+    ladder and re-derives the solve from a fresh p=2 start."""
+    W, _ = sbm
+    bad = np.full((W.n_rows, 4), np.nan, np.float32)
+    res = p_spectral_cluster(W, PSCConfig(guard=True, init_U=bad, **_KW))
+    assert res.recovery.diverged_reason == "nonfinite"
+    assert res.recovery.recovered
+    _within_10pct(res, clean)

@@ -51,6 +51,15 @@ def test_import_repro_torch_loads_no_jax_or_reference():
             "from repro_torch.graphs import validate, mmio, partition\n"
             "from repro_torch.core.solvers import scf, inverse_power, "
             "guard\n"
+            "from repro_torch.serve import psc_engine, bucketing, "
+            "warm_cache, churn, ClusterServeEngine\n"
+            "from repro_torch.obs import retrace, RetraceDetector\n"
+            "from repro_torch.multilevel import patch_hierarchy, "
+            "refine_cluster\n"
+            "from repro_torch.core.lobpcg import lobpcg_fixed\n"
+            "from repro_torch.core.grassmann import rtr_minimize_batched\n"
+            "from repro_torch.testing import serve_batch_fault, "
+            "serve_churn_fault\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

@@ -305,8 +305,30 @@ def test_rung_counters_fire_exactly_once_and_correlate(sbm):
     assert div and div[0]["attrs"]["injection_id"] in log.ids
 
 
-def test_retrace_waits_for_the_serve_port():
+def test_retrace_names_load_from_obs():
+    """``obs.retrace`` and its names load on first use and read the
+    registry's build log: a build bumps ``compiles_total{site=}`` and
+    stamps a ``compile`` instant on the active tracer."""
     import repro_torch.obs as obs
+    from repro_torch.core.solvers import registry
 
-    with pytest.raises(NotImplementedError, match="item 13"):
-        obs.RetraceDetector
+    assert obs.RetraceDetector is obs.retrace.RetraceDetector
+    assert issubclass(obs.RetraceError, AssertionError)
+    det = obs.RetraceDetector()
+    before = DEFAULT.value("compiles_total", site="obs-test")
+    tr = Tracer(TraceConfig())
+    with obs.use(tr):
+        registry.mark_trace(("obs-test", 1))
+        registry.mark_trace(("obs-test", 1))
+    assert det.compiles() == {("obs-test", 1): 2}
+    assert det.by_site() == {"obs-test": 2} and det.serve_buckets() == {}
+    assert DEFAULT.value("compiles_total", site="obs-test") == before + 2
+    assert [e["attrs"]["site"] for e in tr.events
+            if e["name"] == "compile"] == ["obs-test", "obs-test"]
+    with pytest.raises(obs.RetraceError, match="more than 1x"):
+        det.assert_at_most(1)
+    with pytest.raises(obs.RetraceError, match="unexpected build"):
+        det.assert_no_retrace()
+    with obs.assert_no_retrace() as quiet:
+        pass
+    assert quiet.traces() == []
