@@ -159,15 +159,39 @@ Phases, none of which catches its own failure:
      churn request must patch the hierarchy (one record a coarsened
      level); the patch and build seconds, the dirty and re-matched counts
      and the RCut beside a scratch V-cycle's are printed.
+ 13. the distributed SpMM (``grblas.dist``): ``partition_for_mesh(W, 4,
+     sellcs=True)`` places the graph (the V-cycle; its seconds, RCut,
+     part sizes, plan mode, halo width and the halo and gather wire bytes
+     at k = 1 and 8 printed; it fails unless the plan is a halo plan),
+     the single-process ``sellcs`` products and LOBPCG give the
+     references, then four ranks spawned on the one card over gloo
+     (buffers staged through pinned host memory) each take the
+     partition and, from zeroed counts, run ``mxm(Ap, X,
+     Descriptor(backend="dist_sellcs", mesh=mesh))`` (reals at k = 4, 8,
+     24 and the p-Laplacian apply at k = 4, each within the fp32
+     tolerance of the single-process product) and
+     ``lobpcg.smallest_eigvecs(W, 4)`` over the same backend (its
+     seconds and principal sine against the single-process solve
+     printed; it fails on non-finite or non-orthonormal output).  Each
+     rank fails unless its shard launches of both kernels ran and no
+     plain version did, and unless one product with a NaN halo from
+     shard 0 (``halo_corruption``) has NaN exactly in the rows that read
+     it.  Then each rank times the collectives (in step) and, ranks in
+     turn, its shard launches against their plain versions (CUDA events
+     and the profiler's device time), their byte bounds and
+     ``torch.sparse.mm`` on the shard's CSR; and whether gloo takes CUDA
+     tensors itself is probed and timed.  A rank that fails fails the
+     phase with its traceback.
 
-Every clustering solve (3, 7, 8, 11, 12) also assigns its kmeans stages through
+Every clustering solve (3, 7, 8, 11, 12, 13's placement) also assigns its kmeans stages through
 ``kmeans_assign``, and fails if it did not launch; the bsr graphblas
 solve fails unless its W-hat SpMMs ran through the fixed-order sum.  The
 HVP count of every flat solve is printed.  The line before the
 last is a JSON object with one entry per kernel, its launches summed
 over the paths' runs (and split by path, the serve lanes' paths named
 ``serve/...``, and for ``bsr_spmm`` by
-width), and the card's name and power limit; the last line is ``{"ok":
+width; the shard launches of phase 13 by path and rank), and the
+card's name and power limit; the last line is ``{"ok":
 true, "device": {...}}``.  Without a CUDA device, or without
 ``src/repro_torch`` beside this script, it exits non-zero and prints no
 result.
@@ -1385,6 +1409,411 @@ def serve_phase(W, counters, torch, psc, ref, args) -> tuple:
     return by_path, out
 
 
+# ---------------------------------------------------------------- phase 13
+
+DIST_S = 4                     # ranks, one shard each, all on the one card
+DIST_KS = (4, 8, 24)           # the k = 4 multivector, LOBPCG's 8 and 24
+DIST_P = 1.5                   # the edge ring's p (eps = EPS)
+DIST_SEED = 13
+
+
+def _dist_expected_nan(Ap, shard: int) -> np.ndarray:
+    """(n,) bool: the rows whose product reads a halo slot filled by
+    ``shard`` (where ``halo_corruption(shard=)`` lands)."""
+    S, R, H = Ap.n_shards, Ap.rows_per_shard, Ap.halo_width
+    hit = np.zeros(Ap.n_rows, bool)
+    for d in range(S):
+        if d == shard:
+            continue
+        c = Ap.ell_cols[d]
+        pos = d * R + np.flatnonzero(
+            ((c >= R + shard * H) & (c < R + (shard + 1) * H)).any(1))
+        pos = pos[pos < Ap.n_rows]
+        hit[pos if Ap.perm is None else Ap.perm[pos]] = True
+    return hit
+
+
+def _wall_ms(fn, torch, reps: int = 5) -> float:
+    """Median host time of ``fn`` (a collective: every rank calls it in
+    step), synchronized, in ms."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _dist_rank(rank: int, tmp: str, port: int) -> None:
+    """One rank of phase 13 (a spawned process): joins the gloo group,
+    drives the dist_sellcs products and LOBPCG from zeroed counts, then
+    times its shard launches alone (ranks in turn) and the collectives
+    (in step), and writes its results to ``tmp/rank<r>.json``."""
+    import os
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(DIST_S), RANK=str(rank),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(DIST_S))
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.grblas import dist
+
+    mesh = dist.device_mesh(device="cuda")
+    try:
+        out = _dist_rank_body(rank, Path(tmp), mesh, torch, tdist)
+        with open(Path(tmp) / f"rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        tdist.destroy_process_group()
+
+
+def _dist_rank_body(rank, tmp, mesh, torch, tdist) -> dict:
+    import importlib
+    import pickle
+
+    from repro_torch.core import lobpcg
+    from repro_torch.grblas import Descriptor, SparseMatrix, dist, mxm
+    from repro_torch.grblas.semiring import plap_edge_semiring
+    from repro_torch.kernels import sellcs_spmm as K
+    from repro_torch.testing import halo_corruption
+
+    KM = importlib.import_module("repro_torch.kernels.sellcs_spmm."
+                                 "sellcs_spmm")
+    dev = mesh.device
+    t0 = time.perf_counter()
+    with open(tmp / "part.pkl", "rb") as f:
+        Ap = pickle.load(f)
+    ref = torch.load(tmp / "ref.pt", map_location=dev)
+    coo = np.load(tmp / "coo.npz")
+    n = Ap.n_rows
+    gen = torch.Generator(device=dev).manual_seed(DIST_SEED)
+    Xs = {k: torch.randn((n, k), generator=gen, device=dev)
+          for k in DIST_KS}
+    desc = Descriptor(backend="dist_sellcs", mesh=mesh)
+    edge = plap_edge_semiring(DIST_P, EPS)
+    out = {"rank": rank, "device": str(dev), "backend": mesh.backend,
+           "staged": mesh.staged, "load_s": time.perf_counter() - t0}
+
+    # the plain versions must never run on the card: count their calls
+    plain_calls = {}
+    for name in ("sellcs_shard_spmm_plain", "sellcs_shard_plap_apply_plain"):
+        def counted(*a, _f=getattr(KM, name), _n=name, **kw):
+            plain_calls[_n] = plain_calls.get(_n, 0) + 1
+            return _f(*a, **kw)
+        setattr(KM, name, counted)
+
+    # ---- the main path: the products, from zeroed counts
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    Y = {f"reals k={k}": mxm(Ap, Xs[k], desc=desc) for k in DIST_KS}
+    Y["apply k=4"] = mxm(Ap, Xs[4], edge, desc=desc)
+    torch.cuda.synchronize()
+    out["products_first_s"] = time.perf_counter() - t0
+    out["launches_products"] = dict(K.SHARD_LAUNCHES)
+    errs = {}
+    for name, got in Y.items():
+        want = ref[name]
+        err = (got - want).abs()
+        if not bool(torch.isfinite(got).all()) or bool(
+                (err > ATOL + RTOL * want.abs()).any()):
+            raise AssertionError(f"rank {rank}: dist {name} disagrees with "
+                                 f"the single-process sellcs product")
+        errs[name] = float(err.max())
+    out["max_abs_err_vs_sellcs"] = errs
+    del Y
+
+    # ---- stage 1's eigensolve over the same backend (its own W: the
+    # memo partitions it in natural order on the first product)
+    Wr = SparseMatrix.from_coo(coo["rows"], coo["cols"], coo["vals"],
+                               (n, n), build_ell=True, build_sellcs=False,
+                               device=dev)
+    t0 = time.perf_counter()
+    mxm(Wr, Xs[8], desc=desc)
+    torch.cuda.synchronize()
+    out["lobpcg_memo_partition_s"] = time.perf_counter() - t0
+    Wp = next(iter(Wr._dist_partitions.values()))[1]
+    out["lobpcg_partition"] = {"mode": Wp.mode, **Wp.wire_bytes(8)}
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    ev, U = lobpcg.smallest_eigvecs(Wr, 4, desc=desc)
+    torch.cuda.synchronize()
+    out["lobpcg_s"] = time.perf_counter() - t0
+    out["launches_lobpcg"] = dict(K.SHARD_LAUNCHES)
+    Qa = torch.linalg.qr(U.double())[0]
+    Qb = torch.linalg.qr(ref["lobpcg U"].double())[0]
+    out["lobpcg_sin_theta"] = float(torch.linalg.matrix_norm(
+        Qb - Qa @ (Qa.T @ Qb), ord=2))
+    out["lobpcg_evals"] = ev.tolist()
+    out["lobpcg_orthonormality"] = _orthonormality(U, torch)
+    if not (bool(torch.isfinite(U).all()) and bool(torch.isfinite(ev).all())
+            and out["lobpcg_orthonormality"] <= 1e-4):
+        raise AssertionError(f"rank {rank}: LOBPCG over dist_sellcs gave "
+                             "non-finite or non-orthonormal output")
+    out["plain_calls"] = dict(plain_calls)
+    if plain_calls:
+        raise AssertionError(f"rank {rank}: a plain version ran on the card "
+                             f"({plain_calls})")
+    del U, Wr
+
+    # ---- one corrupted product (NaN halo from shard 0)
+    with halo_corruption("nan", shard=0) as log:
+        Yn = mxm(Ap, Xs[4], desc=desc)
+    nan_rows = torch.isnan(Yn).any(1).cpu().numpy()
+    expect = _dist_expected_nan(Ap, 0)
+    clean = ref["reals k=4"][torch.as_tensor(~expect, device=dev)]
+    if not (np.array_equal(nan_rows, expect) and log.count() >= 1
+            and bool(((Yn[torch.as_tensor(~expect, device=dev)] - clean)
+                      .abs() <= ATOL + RTOL * clean.abs()).all())):
+        raise AssertionError(f"rank {rank}: the NaN halo did not land "
+                             "exactly where the halo from shard 0 does")
+    out["halo_nan_rows"] = int(nan_rows.sum())
+    del Yn
+
+    # ---- collectives and whole products, every rank in step
+    d = rank
+    send = Ap._on_device[(d, str(dev), "send")]
+    x_src, times = {}, {}
+    for k in DIST_KS:
+        x_local = dist._own_rows(Ap, Xs[k], d)
+        recv = dist._all_to_all(mesh, x_local[send])
+        x_src[k] = torch.cat([x_local, recv]).contiguous()
+        block = torch.randn((Ap.rows_per_shard, k), device=dev)
+        times[k] = dict(
+            own_rows_ms=_wall_ms(lambda: dist._own_rows(Ap, Xs[k], d), torch),
+            exchange_ms=_wall_ms(
+                lambda: dist._all_to_all(mesh, x_local[send]), torch),
+            gather_y_ms=_wall_ms(lambda: dist._all_gather(mesh, block),
+                                 torch),
+            product_ms=_wall_ms(lambda: mxm(Ap, Xs[k], desc=desc), torch))
+    times[4]["apply_product_ms"] = _wall_ms(
+        lambda: mxm(Ap, Xs[4], edge, desc=desc), torch)
+    out["collectives"] = times
+
+    # does gloo take CUDA tensors itself? (the port stages explicitly)
+    probe = {}
+    t = dist._own_rows(Ap, Xs[8], d)[send]
+    staged = dist._all_to_all(mesh, t)
+    try:
+        recv = torch.empty_like(t)
+        tdist.all_to_all_single(recv, t)
+        torch.cuda.synchronize()
+        probe["all_to_all_single"] = bool(torch.equal(recv, staged))
+        probe["all_to_all_single_ms"] = _wall_ms(
+            lambda: tdist.all_to_all_single(recv, t), torch)
+    except RuntimeError as e:
+        probe["all_to_all_single"] = f"refused: {str(e)[:160]}"
+    block = torch.randn((Ap.rows_per_shard, 8), device=dev)
+    try:
+        parts = [torch.empty_like(block) for _ in range(DIST_S)]
+        tdist.all_gather(parts, block)
+        torch.cuda.synchronize()
+        probe["all_gather"] = bool(torch.equal(
+            torch.cat(parts), dist._all_gather(mesh, block)))
+        probe["all_gather_ms"] = _wall_ms(
+            lambda: tdist.all_gather(parts, block), torch)
+    except RuntimeError as e:
+        probe["all_gather"] = f"refused: {str(e)[:160]}"
+    out["gloo_cuda_probe"] = probe
+
+    # ---- each rank's shard launches alone, ranks in turn
+    sh = Ap._on_device[(d, str(dev), "sell")]
+    L = sh.kernel
+    keep = Ap.ell_vals[d] != 0
+    csr = torch.sparse_coo_tensor(
+        torch.as_tensor(np.stack([np.nonzero(keep)[0],
+                                  Ap.ell_cols[d][keep]]), device=dev),
+        torch.as_tensor(Ap.ell_vals[d][keep], device=dev),
+        (Ap.rows_per_shard, int(x_src[4].shape[0]))).coalesce() \
+        .to_sparse_csr()
+    kernels = {}
+    for turn in range(DIST_S):
+        if turn == rank:
+            for k in DIST_KS:
+                xs = x_src[k]
+                if xs.shape[0] != csr.shape[1]:
+                    raise AssertionError("x_src rows differ across k")
+                got = K.sellcs_shard_spmm(sh, xs)
+                err = _compare(f"rank {rank} sellcs_shard_spmm k={k}", got,
+                               K.sellcs_shard_spmm_plain(sh, xs))
+                bound = _bound(_layout_bytes(L, 4) + 4 * k * (
+                    xs.shape[0] + L.n), OPS["reals"] * L.slots * k)
+                kernels[f"sellcs_shard_spmm k={k}"] = dict(
+                    max_abs_err=err[0], max_rel_err=err[1],
+                    ms=_time_ms(lambda: K.sellcs_shard_spmm(sh, xs)),
+                    device_ms=_device_ms(lambda: K.sellcs_shard_spmm(
+                        sh, xs))["per_call_ms"],
+                    plain_ms=_time_ms(
+                        lambda: K.sellcs_shard_spmm_plain(sh, xs), 3, 3),
+                    bound_ms=bound[0], bound_by=bound[1],
+                    library_ms=_time_ms(lambda: torch.sparse.mm(csr, xs)))
+            xs = x_src[4]
+            got = K.sellcs_shard_plap_apply(sh, xs, DIST_P, EPS)
+            err = _compare(f"rank {rank} sellcs_shard_plap_apply k=4", got,
+                           K.sellcs_shard_plap_apply_plain(sh, xs, DIST_P,
+                                                           EPS))
+            bound = _bound(_layout_bytes(L, 4) + 4 * 4 * (xs.shape[0] + L.n),
+                           OPS["apply"] * L.slots * 4)
+            kernels["sellcs_shard_plap_apply k=4"] = dict(
+                max_abs_err=err[0], max_rel_err=err[1],
+                ms=_time_ms(lambda: K.sellcs_shard_plap_apply(
+                    sh, xs, DIST_P, EPS)),
+                device_ms=_device_ms(lambda: K.sellcs_shard_plap_apply(
+                    sh, xs, DIST_P, EPS))["per_call_ms"],
+                plain_ms=_time_ms(lambda: K.sellcs_shard_plap_apply_plain(
+                    sh, xs, DIST_P, EPS), 3, 3),
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+        tdist.barrier()
+    out["kernels"] = kernels
+    out["shard"] = dict(rows=L.n, slots=L.slots, x_src_rows=int(
+        x_src[4].shape[0]), halo_width=int(Ap.halo_width))
+    return out
+
+
+def dist_phase(W, counters, torch, args) -> tuple:
+    """Phase 13: ``partition_for_mesh(W, 4, sellcs=True)`` in this
+    process, the single-process ``sellcs`` references, then four spawned
+    ranks on the card over gloo (``_dist_rank``).  Returns (launches by
+    path, kernel rows 1d and 2b, the phase's summary)."""
+    import pickle
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import lobpcg
+    from repro_torch.graphs import partition_for_mesh
+    from repro_torch.grblas import Descriptor, mxm
+    from repro_torch.grblas.semiring import plap_edge_semiring
+
+    summary, by_path = {}, {}
+    _reset(counters)
+    t0 = time.perf_counter()
+    Ap, labels, info = partition_for_mesh(W, DIST_S, sellcs=True)
+    torch.cuda.synchronize()
+    summary["partition_s"] = time.perf_counter() - t0
+    by_path["dist/partition_for_mesh"] = _counts(counters)
+    summary["partition"] = dict(
+        rcut=info["rcut"], sizes=info["sizes"], mode=Ap.mode,
+        halo_width=int(Ap.halo_width), rows_per_shard=Ap.rows_per_shard,
+        halo_rows_true=int(Ap.halo_rows_true),
+        wire_bytes_k1=Ap.wire_bytes(1), wire_bytes_k8=Ap.wire_bytes(8))
+    print(f"dist partition_for_mesh: {summary['partition_s']!r} s "
+          f"rcut={info['rcut']!r} sizes={info['sizes']} mode={Ap.mode} "
+          f"H={Ap.halo_width} R={Ap.rows_per_shard} "
+          f"wire_bytes k=1 {Ap.wire_bytes(1)} k=8 {Ap.wire_bytes(8)}",
+          flush=True)
+    if Ap.mode != "halo":
+        raise AssertionError(f"dist: the placed partition is a {Ap.mode} "
+                             "plan, expected halo")
+
+    # single-process references on the card (same inputs as the ranks)
+    desc = Descriptor(backend="sellcs")
+    gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
+    Xs = {k: torch.randn((W.n_rows, k), generator=gen, device="cuda")
+          for k in DIST_KS}
+    ref = {f"reals k={k}": mxm(W, Xs[k], desc=desc).cpu() for k in DIST_KS}
+    ref["apply k=4"] = mxm(W, Xs[4], plap_edge_semiring(DIST_P, EPS),
+                           desc=desc).cpu()
+    t0 = time.perf_counter()
+    ev, U = lobpcg.smallest_eigvecs(W, 4, desc=desc)
+    torch.cuda.synchronize()
+    summary["lobpcg_single_process_s"] = time.perf_counter() - t0
+    summary["lobpcg_single_process_evals"] = ev.tolist()
+    ref["lobpcg U"] = U.cpu()
+    del Xs, U
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with open(Path(tmp) / "part.pkl", "wb") as f:
+            pickle.dump(Ap, f, protocol=pickle.HIGHEST_PROTOCOL)
+        torch.save(ref, Path(tmp) / "ref.pt")
+        rows, cols, vals = W.host_coo()
+        np.savez(Path(tmp) / "coo.npz", rows=rows, cols=cols, vals=vals)
+        summary["handoff_s"] = time.perf_counter() - t0
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        mp.spawn(_dist_rank, args=(tmp, port), nprocs=DIST_S, join=True)
+        summary["ranks_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(DIST_S):
+            with open(Path(tmp) / f"rank{r}.json") as f:
+                ranks.append(json.load(f))
+    del ref
+
+    for res in ranks:
+        r = res["rank"]
+        print(f"dist rank {r}: {res['device']} backend={res['backend']} "
+              f"staged={res['staged']} launches products="
+              f"{res['launches_products']} lobpcg={res['launches_lobpcg']} "
+              f"plain_calls={res['plain_calls']} max_abs_err_vs_sellcs="
+              f"{res['max_abs_err_vs_sellcs']} halo_nan_rows="
+              f"{res['halo_nan_rows']} shard={res['shard']}", flush=True)
+        for name, kr in res["kernels"].items():
+            print(f"dist rank {r} {name}: kernel_ms={kr['ms']!r} "
+                  f"device_ms={kr['device_ms']!r} (profiler) "
+                  f"twin_ms={kr['plain_ms']!r} bound_ms={kr['bound_ms']!r} "
+                  f"({kr['bound_by']}) library_ms={kr['library_ms']!r}",
+                  flush=True)
+        for k, t in res["collectives"].items():
+            print(f"dist rank {r} k={k}: {t}", flush=True)
+        print(f"dist rank {r}: lobpcg_s={res['lobpcg_s']!r} (single process "
+              f"{summary['lobpcg_single_process_s']!r}) sin_theta="
+              f"{res['lobpcg_sin_theta']!r} evals={res['lobpcg_evals']} "
+              f"memo_partition_s={res['lobpcg_memo_partition_s']!r} "
+              f"{res['lobpcg_partition']} gloo_cuda_probe="
+              f"{res['gloo_cuda_probe']}", flush=True)
+    print(f"dist single-process lobpcg evals="
+          f"{summary['lobpcg_single_process_evals']}", flush=True)
+    for path in ("products", "lobpcg"):
+        key = f"launches_{path}"
+        want = ({f"sellcs_shard_spmm k={k}" for k in DIST_KS}
+                | {"sellcs_shard_plap_apply k=4"} if path == "products"
+                else {"sellcs_shard_spmm k=8", "sellcs_shard_spmm k=24"})
+        for res in ranks:
+            if not want <= {n for n, c in res[key].items() if c > 0}:
+                raise AssertionError(f"dist/{path}: rank {res['rank']} "
+                                     f"launched {res[key]}, expected {want}")
+
+    def launches(prefix):
+        by = {f"dist/{path}": {f"rank {res['rank']}": sum(
+            c for n, c in res[f"launches_{path}"].items()
+            if n.startswith(prefix)) for res in ranks}
+            for path in ("products", "lobpcg")}
+        return sum(sum(v.values()) for v in by.values()), by
+
+    src = "src/repro_torch/kernels/sellcs_spmm/csrc/sellcs_kernels.cu"
+    refk = "src/repro/kernels/sellcs_spmm/sellcs_spmm.py"
+    rows = []
+    for name, line, prefix in (("sellcs_shard_spmm", 95,
+                                "sellcs_shard_spmm k="),
+                               ("sellcs_shard_plap_apply", 109,
+                                "sellcs_shard_plap_apply k=")):
+        main = f"{name} k=4"
+        k4 = ranks[0]["kernels"][main]
+        err = max(res["kernels"][main]["max_abs_err"] for res in ranks)
+        row = _row(name, src, f"{refk}:{line}", (err, max(
+            res["kernels"][main]["max_rel_err"] for res in ranks)),
+            k4["ms"], k4["plain_ms"], (k4["bound_ms"], k4["bound_by"]),
+            k4["library_ms"])
+        row["launches"], row["launches_by_path"] = launches(prefix)
+        row["by_rank"] = {f"rank {res['rank']}": {
+            n: kr for n, kr in res["kernels"].items() if n.startswith(prefix)}
+            for res in ranks}
+        rows.append(row)
+    summary["ranks"] = [{k: v for k, v in res.items() if k != "kernels"}
+                        for res in ranks]
+    return by_path, rows, summary
+
+
 def _visible_pairs(S: int, window) -> int:
     """(query, key) pairs the causal and window masks leave, Sq = Sk = S."""
     i = np.arange(S)
@@ -2093,6 +2522,11 @@ def main() -> int:
     by_path.update(paths)
     phase_done("serve")
 
+    # ---- the distributed SpMM: four ranks on the one card over gloo
+    paths, dist_rows, dist_summary = dist_phase(W, counters, torch, args)
+    by_path.update(paths)
+    phase_done("dist")
+
     for row in rows:
         counter = row.get("counter", row["name"])
         row["launches_by_path"] = {p: c[counter] for p, c in by_path.items()}
@@ -2109,6 +2543,7 @@ def main() -> int:
             row["launches_by_k"] = {p: c["sellcs_plap_apply_by_k"]
                                     for p, c in by_path.items()
                                     if c.get("sellcs_plap_apply_by_k")}
+    rows += dist_rows        # their launches are the ranks' own counts
     print(f"kmeans_assign launches per solve: "
           f"{ {p: c['kmeans_assign'] for p, c in by_path.items()} }",
           flush=True)
@@ -2124,6 +2559,7 @@ def main() -> int:
                       "hvp_counts": hvps}), flush=True)
     print(json.dumps({"resilience": resilience}, default=str), flush=True)
     print(json.dumps({"serve": serve}, default=str), flush=True)
+    print(json.dumps({"dist": dist_summary}, default=str), flush=True)
     print(json.dumps({"kernels": rows, "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

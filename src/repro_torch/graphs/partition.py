@@ -3,9 +3,9 @@ the paper's own algorithm (port of ``repro.graphs.partition``).
 
 ``partition(W, n_parts)`` runs GrB-pGrass to get a balanced min-RCut
 assignment; ``cut_edges`` counts the stored entries it cuts (the halo
-volume a distributed SpMM would exchange under that placement).
-``partition_for_mesh``, which builds the distributed row partition from
-it, waits for the distributed backend (ROADMAP.md queue 1, item 15).
+volume a distributed SpMM would exchange under that placement);
+``partition_for_mesh`` builds the distributed row partition
+(``grblas.dist``) from it, same-cluster rows on one shard.
 """
 from __future__ import annotations
 
@@ -94,3 +94,32 @@ def cut_edges(W: SparseMatrix, labels: np.ndarray) -> int:
     of the distributed SpMM under this placement."""
     r, c, _ = W.host_coo()
     return int(np.sum(labels[r] != labels[c]))
+
+
+def partition_for_mesh(W: SparseMatrix, n_shards: int, *,
+                       p_target: float = 1.4, seed: int = 0,
+                       cfg: Optional[PSCConfig] = None,
+                       multilevel: Union[bool, str] = "auto",
+                       solver: str = "newton",
+                       mode: str = "auto", sellcs: bool = False,
+                       sell_c: int = 32):
+    """Cluster W with its own algorithm, then build the halo-exchange
+    row partition with cluster-aligned placement.
+
+    Runs :func:`partition` (balanced min-RCut assignment, the V-cycle on
+    big graphs), hands the assignment to
+    ``grblas.dist.make_row_partition`` so same-cluster rows share a
+    shard, and returns ``(Ap, labels, info)``; ``info`` adds the halo
+    plan's stats (mode, halo width, wire bytes of a k=1 call) to the cut
+    metrics.  ``mode``/``sellcs``/``sell_c`` pass through to the
+    partition builder.
+    """
+    from repro_torch.grblas.dist import make_row_partition
+
+    labels, info = partition(W, n_shards, p_target=p_target, seed=seed,
+                             cfg=cfg, multilevel=multilevel, solver=solver)
+    Ap = make_row_partition(W, n_shards, assignment=labels, mode=mode,
+                            sellcs=sellcs, sell_c=sell_c)
+    info = dict(info)
+    info["halo"] = {"mode": Ap.mode, **Ap.wire_bytes(k=1)}
+    return Ap, labels, info

@@ -1,5 +1,6 @@
 """grblas — the GraphBLAS-style algebraic layer of the port (containers,
-semirings, the descriptor-driven ``mxm`` API and its backends)."""
+semirings, the descriptor-driven ``mxm`` API and its backends, and the
+distributed SpMM of ``dist``)."""
 from repro_torch.grblas.semiring import (
     EdgeSemiring,
     PairEdgeSemiring,
@@ -25,6 +26,14 @@ from repro_torch.grblas.api import (
     vxm,
 )
 from repro_torch.grblas.backends import register_backend, registered_backends
+from repro_torch.grblas.dist import (
+    HALO_FALLBACK_FRAC,
+    RowPartitionedMatrix,
+    device_mesh,
+    init_distributed,
+    make_row_partition,
+    shard_mxm,
+)
 from repro_torch.grblas.ops import apply, e_wise_apply, reduce as grb_reduce
 
 __all__ = [
@@ -36,4 +45,6 @@ __all__ = [
     "Descriptor", "BackendUnavailableError", "mxm", "mxv", "vxm",
     "available_backends", "capable_desc", "register_backend",
     "registered_backends", "e_wise_apply", "apply", "grb_reduce",
+    "HALO_FALLBACK_FRAC", "RowPartitionedMatrix", "device_mesh",
+    "init_distributed", "make_row_partition", "shard_mxm",
 ]

@@ -6,8 +6,10 @@ Port of ``repro.grblas.api``::
     mxv(A, x, ring, ...)                                   # alias of mxm
     vxm(x, A, ring, ...)                                   # transposed mxm
 
-``Descriptor.backend`` is "auto" or a registered backend ("sellcs",
-"ell", "bsr_pallas", "edge_pallas", "coo", "spgemm"; ``backends.py``);
+``Descriptor.backend`` is "auto" or a registered backend ("dist",
+"dist_sellcs", "sellcs", "ell", "bsr_pallas", "edge_pallas", "coo",
+"spgemm"; ``backends.py``); ``Descriptor.mesh`` (a ``grblas.dist``
+mesh) enables the dist backends, which then outrank every other;
 a named backend that cannot execute the operands raises
 BackendUnavailableError instead of silently falling back.  A
 PairEdgeSemiring takes X=(U, Eta); a SparseMatrix X makes the product
@@ -30,7 +32,7 @@ descriptor that ``capable_desc`` degrades to auto bumps
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -49,6 +51,8 @@ class Descriptor:
 
     backend: str = "auto"
     transpose: bool = False
+    mesh: Any = None            # grblas.dist.Mesh: enables the dist backends
+    axis: str = "data"          # mesh axis the rows are sharded over
 
     def transposed(self) -> "Descriptor":
         return dataclasses.replace(self, transpose=not self.transpose)
@@ -117,7 +121,7 @@ def _execute_observed(be, A, X, ring, desc, tr):
                  n=int(getattr(A, "n_rows", 0)), k=k, nnz=nnz) as sp:
         Y = be.execute(A, X, ring, desc)
         sp.fence(Y)
-        sp.set(bytes=_traffic_bytes(A, k, A.vals.element_size()))
+        sp.set(bytes=_traffic_bytes(A, k, Y.element_size()))
     _obs_metrics.DEFAULT.counter("grblas_dispatch_total", backend=be.name,
                                  ring=kind).inc()
     _obs_metrics.DEFAULT.counter("grblas_nnz_total", backend=be.name).inc(nnz)

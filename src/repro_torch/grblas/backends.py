@@ -8,6 +8,10 @@ cannot) or, under "auto", the first capable backend in the port's own
 order:
 
   name         layout needed  rings                            auto rank
+  dist         padded ELL /   reals, plap_apply (square);         -2
+               a row partition   only with ``desc.mesh``
+  dist_sellcs  the same,      the same; square                    -1
+               sliced SELL-C-σ   only with ``desc.mesh``
   sellcs       SELL-C-σ       reals (incl. (nnz,k) multivalues),    0
                               plap_apply, plap_hvp
   ell          padded ELL     rings with a padded reducer          10
@@ -34,8 +38,11 @@ product.  A graph built with BSR and COO only runs its reals SpMMs on
 ``bsr_pallas``, as the reference does on the TPU.  (The reference's
 TPU order, which puts the Pallas kernels first and defers ``sellcs`` to
 ELL on low-fill graphs, is not evidence on this card.)  ``spgemm`` is
-the sparse x sparse product, host-side like the reference's; the
-``dist`` backends are still to be ported (ROADMAP.md queue 1).
+the sparse x sparse product, host-side like the reference's.  The two
+``dist`` backends (``grblas.dist``) run only when the descriptor names a
+mesh, and then ahead of every other, as in the reference; a plain
+SparseMatrix is row-partitioned on first use and the partition memoized
+on the container.
 """
 from __future__ import annotations
 
@@ -46,6 +53,8 @@ import numpy as np
 import torch
 
 from repro_torch.grblas.containers import SparseMatrix
+from repro_torch.grblas.dist import (RowPartitionedMatrix,
+                                     make_row_partition, shard_mxm)
 from repro_torch.kernels.bsr_spmm.bsr_spmm import MAX_BLOCK
 from repro_torch.kernels.segment_sum import segment_sum
 from repro_torch.grblas.semiring import (
@@ -321,6 +330,88 @@ def _edge_pallas_execute(A, X, ring, desc):
         return K.plap_hvp(A, X[0].contiguous(), X[1].contiguous(), float(p),
                           float(eps))
     return K.plap_apply(A, X.contiguous(), float(p), float(eps))
+
+
+# ------------------------------------------------------------ dist backends
+
+def _dist_supports(A, X, ring, desc):
+    if desc.mesh is None or desc.transpose or _is_pair(X) or _is_sparse(X):
+        return False
+    if isinstance(A, RowPartitionedMatrix):
+        ok_layout = True
+    elif isinstance(A, SparseMatrix):
+        ok_layout = A.ell_cols is not None and A.vals.ndim == 1
+    else:
+        return False
+    if isinstance(ring, EdgeSemiring):
+        # the shard body folds the padded axis with a plain sum, so pad
+        # entries (val = 0) must be annihilated by the edge multiply: true
+        # of the plap kind, not of generic closures.  Square only: the
+        # shard reads x_i from its own row block.
+        return (ok_layout and _square(A) and ring.base.name == "reals_+x"
+                and ring.kind == "plap_apply")
+    return (ok_layout and isinstance(ring, Semiring)
+            and ring.name == "reals_+x")
+
+
+def _dist_partition_for(A, desc, *, sellcs: bool):
+    """Resolve (and memoize) the row partition of a plain SparseMatrix.
+
+    The memo lives on the container and is keyed on (shard count,
+    identity of the ``ell_vals`` buffer, layout): a caller that swaps the
+    value buffers on the same pattern must not be served a partition
+    carved from the stale values."""
+    n_shards = int(desc.mesh.shape[desc.axis])
+    cache = getattr(A, "_dist_partitions", None)
+    if cache is None:
+        cache = {}
+        A._dist_partitions = cache   # host-side memo
+    key = (n_shards, id(A.ell_vals), sellcs)
+    if key not in cache:
+        # a matrix has one live ell_vals buffer, so every entry pinning
+        # another is superseded: evict them all (entries for other shard
+        # counts or layouts of the CURRENT buffer stay)
+        for stale in [k for k, v in cache.items()
+                      if v[0] is not A.ell_vals]:
+            del cache[stale]
+        # the entry pins the keyed buffer so its id cannot be recycled
+        cache[key] = (A.ell_vals,
+                      make_row_partition(A, n_shards, sellcs=sellcs))
+    return cache[key][1]
+
+
+@register_backend("dist", priority=-2, supports=_dist_supports)
+def _dist_execute(A, X, ring, desc):
+    """Row-block sharded SpMM over ``desc.mesh``: the halo exchange (one
+    all_to_all of the remote rows each shard's columns touch), or the
+    all-gather where the plan fell back to it; each shard's block is a
+    gather and a sum on its padded ELL rows."""
+    Ap = A if isinstance(A, RowPartitionedMatrix) else _dist_partition_for(
+        A, desc, sellcs=False)
+    return shard_mxm(Ap, X, desc.mesh, axis=desc.axis, ring=ring)
+
+
+def _dist_sellcs_supports(A, X, ring, desc):
+    """The gates of "dist", plus: square only (the per-shard sort shares
+    the halo plan's one row space), and a pre-built partition must carry
+    the DistSellCS slicing."""
+    if not _dist_supports(A, X, ring, desc):
+        return False
+    if isinstance(A, RowPartitionedMatrix):
+        return A.sell is not None
+    return _square(A)
+
+
+@register_backend("dist_sellcs", priority=-1, supports=_dist_sellcs_supports)
+def _dist_sellcs_execute(A, X, ring, desc):
+    """Sharded SELL-C-σ SpMM: the exchange of "dist", then each shard's
+    width runs through the shard launches of the SELL-C-σ kernels.  A
+    plain SparseMatrix is partitioned with sellcs=True, memoized apart
+    from the full-ELL partition."""
+    Ap = A if isinstance(A, RowPartitionedMatrix) else _dist_partition_for(
+        A, desc, sellcs=True)
+    return shard_mxm(Ap, X, desc.mesh, axis=desc.axis, ring=ring,
+                     layout="sellcs")
 
 
 # --------------------------------------------------------- spgemm backend

@@ -18,6 +18,21 @@ through the per-run twins ``*_ref`` — the port of the reference's
 ``kernels/sellcs_spmm/ref.py`` — then un-permuted, exactly the
 computation of the reference's ``backends.sellcs_run``.
 
+Two more wrappers drive the same kernels over one rank's shard of a
+distributed partition (the "dist_sellcs" backend, ``grblas.dist``)::
+
+    sellcs_shard_spmm(sh, x_src)             y = sum vals * x_src[cols]
+    sellcs_shard_plap_apply(sh, x_src, p, eps)
+
+``sh`` is a ``ShardLayout`` (``shard_layout``): the shard's width runs
+as the slot-major ``SellKernelLayout`` the row kernel reads, with
+``perm`` the packed rows' own ids offset by ``row0``, and ``x_src`` the
+shard's extended-local vector (its own rows from ``row0``, then the halo
+slots; the whole gathered vector under a gather plan).  They return the
+shard's (R, k) rows in local order and count their launches in
+``SHARD_LAUNCHES`` (by kind and k); the plain versions are the ports of
+the reference's ``sellcs_shard_*_ref``.
+
 ``launch_plan`` routes a launch: every wrapper runs the row kernel at a
 compiled width (k = 4, 8, 16, 24, with 16-byte loads; ``lanes`` threads
 a row, one per 32 bytes of it) or its generic variant (chunks of 4
@@ -33,13 +48,16 @@ nothing.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from pathlib import Path
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import phi as PHI
+from repro_torch.grblas.containers import SellKernelLayout
 from repro_torch.kernels.nvcc import F64, I32, PTR, NvccLibrary, check
 
 LIBRARY = NvccLibrary(
@@ -55,6 +73,10 @@ LIBRARY = NvccLibrary(
 LAUNCHES = {"sellcs_spmm": 0, "sellcs_plap_apply": 0, "sellcs_plap_hvp": 0}
 LAUNCHES_BY_SHAPE: Dict[str, int] = {}
 APPLY_LAUNCHES_BY_K: Dict[int, int] = {}
+# shard launches (the dist_sellcs backend) by kind and k, in this
+# process (one rank): "sellcs_shard_spmm k=8", "sellcs_shard_plap_apply
+# k=4"
+SHARD_LAUNCHES: Dict[str, int] = {}
 
 _KIND = {"sellcs_spmm": 0, "sellcs_plap_apply": 1, "sellcs_plap_hvp": 2}
 # the widths the row kernel is compiled for (16-byte loads); any other k
@@ -69,6 +91,7 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
     LAUNCHES_BY_SHAPE.clear()
     APPLY_LAUNCHES_BY_K.clear()
+    SHARD_LAUNCHES.clear()
 
 
 def start_build() -> None:
@@ -220,14 +243,13 @@ def _check(A, *Xs) -> bool:
     return True
 
 
-def _launch(name: str, A, X: torch.Tensor, E: torch.Tensor, p: float = 0.0,
-            eps: float = 0.0) -> torch.Tensor:
-    """One launch of wrapper ``name``'s kernel over the whole layout."""
-    L = A.sell_kernel
-    n, k = X.shape
+def _enqueue(name: str, L, X: torch.Tensor, E: torch.Tensor, Y: torch.Tensor,
+             n: int, p: float, eps: float) -> None:
+    """Plan and enqueue one launch of ``name``'s kernel over the first n
+    permuted rows of layout L (it reads X and E, writes Y at ``perm``)."""
+    k = X.shape[1]
     if n * k >= 2 ** 31 * THREADS:
         raise ValueError("multivector too large for the kernels' grid")
-    Y = torch.empty_like(X)
     multivalue = L.vals.ndim == 2
     vector_operands = (X, E, Y, L.vals) if multivalue else (X, E, Y)
     aligned = all(t.data_ptr() % 16 == 0 for t in vector_operands)
@@ -244,9 +266,18 @@ def _launch(name: str, A, X: torch.Tensor, E: torch.Tensor, p: float = 0.0,
         k, float(p), float(eps),
         torch.cuda.current_stream(X.device).cuda_stream)
     check(lib, code, name)
+
+
+def _launch(name: str, A, X: torch.Tensor, E: torch.Tensor, p: float = 0.0,
+            eps: float = 0.0) -> torch.Tensor:
+    """One launch of wrapper ``name``'s kernel over the whole layout."""
+    L = A.sell_kernel
+    Y = torch.empty_like(X)
+    _enqueue(name, L, X, E, Y, X.shape[0], p, eps)
     LAUNCHES[name] += 1
+    k = X.shape[1]
     if name == "sellcs_spmm":
-        shape = f"{'multivalue' if multivalue else 'scalar'} k={k}"
+        shape = f"{'multivalue' if L.vals.ndim == 2 else 'scalar'} k={k}"
         LAUNCHES_BY_SHAPE[shape] = LAUNCHES_BY_SHAPE.get(shape, 0) + 1
     elif name == "sellcs_plap_apply":
         APPLY_LAUNCHES_BY_K[k] = APPLY_LAUNCHES_BY_K.get(k, 0) + 1
@@ -277,3 +308,152 @@ def sellcs_plap_hvp(A, U: torch.Tensor, E: torch.Tensor, p: float,
     if not _check(A, U, E):
         return sellcs_plap_hvp_plain(A, U, E, p, eps)
     return _launch("sellcs_plap_hvp", A, U, E, p, eps)
+
+
+# ------------------------------------------- shard launches (dist_sellcs)
+
+@dataclasses.dataclass
+class ShardLayout:
+    """One rank's slice of a ``grblas.dist.DistSellCS`` on a device.
+
+    ``runs`` holds the shard's width runs as the reference stores them,
+    (cols (rows_r, w_r) int32, vals (rows_r, w_r), own (rows_r,) int32),
+    for the plain versions; ``inv`` (R,) maps a local row to its packed
+    position.  ``kernel`` is the same shard slot-major for the row
+    kernel: ``n`` = R real rows (the pad rows of the last slice are not
+    launched: they hold own = 0 and would write local row 0), ``perm`` =
+    own + ``row0`` (x_i is ``x_src[row0 + own]`` and the kernel writes
+    row ``row0 + own`` of its output).  ``x_rows``: the rows ``x_src``
+    must have, the largest column id + 1 and at least row0 + R.
+    """
+
+    runs: Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], ...]
+    inv: torch.Tensor
+    kernel: SellKernelLayout
+    row0: int
+    x_rows: int
+
+    @property
+    def n(self) -> int:
+        return self.kernel.n
+
+
+def shard_layout(run_cols: Sequence[np.ndarray],
+                 run_vals: Sequence[np.ndarray],
+                 run_own: Sequence[np.ndarray], inv: np.ndarray, C: int,
+                 row0: int, device) -> ShardLayout:
+    """A ``ShardLayout`` on ``device`` from one shard's host runs
+    (``DistSellCS.run_*[i][d]``, run-major (rows_r, w_r)) and
+    ``DistSellCS.inv[d]``; ``row0``: where the shard's own rows start in
+    ``x_src`` (0 under a halo plan, d*R under a gather plan)."""
+    R = int(len(inv))
+    k_cols, k_vals, own_all, widths = [], [], [], []
+    for c, v, o in zip(run_cols, run_vals, run_own):
+        rows_r, w = c.shape
+        ns = rows_r // C
+        # run-major (slices, C, w) -> slot-major (slices, w, C)
+        k_cols.append(c.reshape(ns, C, w).transpose(0, 2, 1).reshape(-1))
+        k_vals.append(v.reshape(ns, C, w).transpose(0, 2, 1).reshape(-1))
+        own_all.append(o)
+        widths += [w] * ns
+    slice_w = np.asarray(widths, np.int64)
+    slots = slice_w * C
+    if int(slots.sum()) >= 2 ** 31:
+        raise ValueError("shard layout exceeds 2^31 stored slots; the "
+                         "kernels index with int32")
+    slice_ptr = np.concatenate([[0], np.cumsum(slots)[:-1]])
+    cols = np.concatenate(k_cols)
+    perm = np.concatenate(own_all)[:R].astype(np.int64) + int(row0)
+    x_rows = max(int(cols.max()) + 1 if cols.size else 0, int(row0) + R)
+    to = lambda a, dt=None: torch.as_tensor(
+        a if dt is None else a.astype(dt), device=device)
+    kernel = SellKernelLayout(
+        n=R, C=int(C), slice_ptr=to(slice_ptr, np.int32),
+        slice_w=to(slice_w, np.int32), perm=to(perm, np.int32),
+        cols=to(cols, np.int32), vals=to(np.concatenate(k_vals)),
+        scatter=None)          # no COO behind a shard: with_vals is unused
+    runs = tuple((to(c), to(v), to(o)) for c, v, o in
+                 zip(run_cols, run_vals, run_own))
+    return ShardLayout(runs=runs, inv=to(inv, np.int64), kernel=kernel,
+                       row0=int(row0), x_rows=x_rows)
+
+
+def sellcs_shard_spmm_ref(cols, vals, x_src):
+    """Reals-ring run of one shard: y = sum_w vals * x_src[cols]."""
+    return torch.sum(vals[..., None] * x_src[cols.long()], dim=1)
+
+
+def sellcs_shard_plap_apply_ref(cols, vals, x_src, x_own, p: float,
+                                eps: float):
+    """p-Laplacian apply run of one shard; x_own: (rows, k) the packed
+    rows' own entries."""
+    g = x_src[cols.long()]                         # x_j  (rows, w, k)
+    return torch.sum(vals[..., None] * PHI.phi(x_own[:, None, :] - g, p,
+                                               eps), dim=1)
+
+
+def sellcs_shard_spmm_plain(sh: ShardLayout, x_src):
+    return torch.cat([sellcs_shard_spmm_ref(c, v, x_src)
+                      for c, v, _ in sh.runs], dim=0)[sh.inv]
+
+
+def sellcs_shard_plap_apply_plain(sh: ShardLayout, x_src, p: float,
+                                  eps: float):
+    return torch.cat([
+        sellcs_shard_plap_apply_ref(c, v, x_src,
+                                    x_src[sh.row0 + o.long()], p, eps)
+        for c, v, o in sh.runs], dim=0)[sh.inv]
+
+
+def _shard_check(sh: ShardLayout, X: torch.Tensor) -> bool:
+    """Validate a shard launch's operand; True for the CUDA kernel,
+    False for the CPU twin.  X must reach every column id and the
+    shard's own rows (the global wrappers' X.shape[0] == n does not
+    hold here: X is R + S*H rows, or the gathered vector)."""
+    vals = sh.kernel.vals
+    if X.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"multivector dtype {X.dtype}: the kernels take "
+                        "float32 or float64")
+    if X.dtype != vals.dtype:
+        raise TypeError(f"multivector dtype {X.dtype} != shard dtype "
+                        f"{vals.dtype}")
+    if X.ndim != 2 or X.shape[0] < sh.x_rows:
+        raise ValueError(f"x_src shape {tuple(X.shape)}: expected "
+                         f"(>= {sh.x_rows}, k)")
+    if not X.is_contiguous():
+        raise ValueError("x_src must be contiguous")
+    if X.device != vals.device:
+        raise ValueError(f"x_src on {X.device}, shard on {vals.device}")
+    if X.device.type == "cpu":
+        return False
+    if X.device.type != "cuda":
+        raise ValueError(f"no SELL-C-σ kernel for device {X.device}")
+    return True
+
+
+def _shard_launch(name: str, sh: ShardLayout, X: torch.Tensor,
+                  p: float = 0.0, eps: float = 0.0) -> torch.Tensor:
+    """One launch of ``name``'s kernel over the shard's R real rows; the
+    kernel writes rows row0 .. row0 + R - 1 of its output."""
+    Y = torch.empty((sh.row0 + sh.n, X.shape[1]), dtype=X.dtype,
+                    device=X.device)
+    _enqueue(name, sh.kernel, X, X, Y, sh.n, p, eps)
+    key = f"{name.replace('sellcs_', 'sellcs_shard_')} k={X.shape[1]}"
+    SHARD_LAUNCHES[key] = SHARD_LAUNCHES.get(key, 0) + 1
+    return Y[sh.row0:]
+
+
+def sellcs_shard_spmm(sh: ShardLayout, x_src: torch.Tensor) -> torch.Tensor:
+    """Reals-ring SpMM of one shard (one launch): (R, k) in local order."""
+    if not _shard_check(sh, x_src):
+        return sellcs_shard_spmm_plain(sh, x_src)
+    return _shard_launch("sellcs_spmm", sh, x_src)
+
+
+def sellcs_shard_plap_apply(sh: ShardLayout, x_src: torch.Tensor, p: float,
+                            eps: float) -> torch.Tensor:
+    """p-Laplacian apply of one shard (one launch): (R, k) in local
+    order."""
+    if not _shard_check(sh, x_src):
+        return sellcs_shard_plap_apply_plain(sh, x_src, p, eps)
+    return _shard_launch("sellcs_plap_apply", sh, x_src, p, eps)

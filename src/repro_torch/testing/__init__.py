@@ -1,10 +1,11 @@
 """repro_torch.testing — deterministic fault injection for the chaos
-tests (the solver, backend and serve injectors of ``repro.testing``).
+tests (the solver, backend, serve and halo injectors of ``repro.testing``).
 Production code never imports this package."""
 from repro_torch.testing.faultinject import (
     InjectionLog,
     backend_fault,
     chaos_seed,
+    halo_corruption,
     nan_in_multivector,
     rank_collapse,
     serve_batch_fault,
@@ -13,7 +14,8 @@ from repro_torch.testing.faultinject import (
 )
 
 __all__ = [
-    "InjectionLog", "backend_fault", "chaos_seed", "nan_in_multivector",
+    "InjectionLog", "backend_fault", "chaos_seed", "halo_corruption",
+    "nan_in_multivector",
     "rank_collapse", "serve_batch_fault", "serve_churn_fault",
     "solver_stall",
 ]

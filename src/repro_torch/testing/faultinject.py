@@ -16,8 +16,9 @@ multilevel paths all see the injected driver.  ``backend_fault`` swaps
 ``grblas.backends._REGISTRY[name]``; the port runs eagerly and has no
 trace cache that could replay around the dispatch.  The serve injectors
 set the clustering serve engine's ``_SOLVE_FAULT`` / ``_CHURN_FAULT``
-seams (``serve.psc_engine``).  The reference's dist injectors wait for
-the distributed backend (ROADMAP.md queue 1, item 15).
+seams (``serve.psc_engine``).  ``halo_corruption`` sets the distributed
+SpMM's halo seam (``grblas.dist.set_halo_fault_hook``) in the process it
+runs in: each rank enters it for itself.
 """
 from __future__ import annotations
 
@@ -263,3 +264,34 @@ def serve_churn_fault(*, fail_attempts: int = 1,
         yield log
     finally:
         _eng._CHURN_FAULT = prev
+
+
+# --------------------------------------------------------------- dist seams
+
+@contextlib.contextmanager
+def halo_corruption(mode: str = "nan", *, shard: int = 0,
+                    log: Optional[InjectionLog] = None):
+    """Corrupt the received halo block of the distributed SpMM in this
+    process (this rank): ``mode="nan"`` poisons the rows received from
+    ``shard`` (a corrupted wire payload), ``mode="drop"`` zeroes them (a
+    dropped shard: the peer never answered).  Each rank that should see
+    the fault enters the context itself."""
+    from repro_torch.grblas import dist as _dist
+
+    if mode not in ("nan", "drop"):
+        raise ValueError(f"mode must be 'nan' or 'drop', got {mode!r}")
+    log = log if log is not None else InjectionLog()
+    fill = float("nan") if mode == "nan" else 0.0
+
+    def hook(recv, Ap):
+        log.record("halo_corruption", f"{mode}@shard{shard}")
+        H = Ap.halo_width
+        block = torch.arange(recv.shape[0], device=recv.device) // max(H, 1)
+        mask = (block == shard).reshape((-1,) + (1,) * (recv.ndim - 1))
+        return torch.where(mask, torch.full_like(recv, fill), recv)
+
+    _dist.set_halo_fault_hook(hook)
+    try:
+        yield log
+    finally:
+        _dist.set_halo_fault_hook(None)

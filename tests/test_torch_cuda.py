@@ -1376,3 +1376,71 @@ def test_cuda_kernel_error_leaves_the_serve_engine(cuda_device, monkeypatch):
     with pytest.raises(KernelError, match="injected"):
         eng.flush()
     assert eng.stats.n_failed == 0
+
+
+def _shard_operands(case, C, dtype, k, device):
+    """Rank d's SELL-C-σ shard of a 3-shard partition of ``_graph(1000)``
+    and its x_src, built by hand: under a halo plan the extended-local
+    vector (own rows, then at R + s*H + h row send[s, d*H + h] of shard
+    s), under a gather plan the whole vector with own rows at d*R.  R =
+    334 is not a multiple of C, so the last slice is partial."""
+    from repro_torch.grblas import make_row_partition
+
+    coo, shape = _graph(1000)
+    W = convert.sparse_matrix(coo, shape, device="cpu", dtype=dtype,
+                              build_ell=True)
+    S, d = 3, 1
+    Ap = make_row_partition(W, S, mode="halo" if case != "gather" else
+                            "gather", sellcs=True, sell_c=C)
+    R, H = Ap.rows_per_shard, Ap.halo_width
+    assert R % C != 0
+    x = np.random.default_rng(k).standard_normal((S * R, k)).astype(dtype)
+    x[shape[0]:] = 0.0
+    if case == "gather":
+        x_src, row0 = x, d * R
+    else:
+        send = Ap.send_idx
+        x_src = np.concatenate([x[d * R:(d + 1) * R]] + [
+            x[s * R + send[s, d * H:(d + 1) * H]] for s in range(S)])
+        row0 = 0
+    sell = Ap.sell
+    sh = K.shard_layout([c[d] for c in sell.run_cols],
+                        [v[d] for v in sell.run_vals],
+                        [o[d] for o in sell.run_own], sell.inv[d], C, row0,
+                        device)
+    return sh, torch.as_tensor(x_src, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("C", [8, 32])
+@pytest.mark.parametrize("k", [1, 4, 8, 24, 5])
+@pytest.mark.parametrize("case", ["halo", "gather"])
+def test_cuda_shard_launch_matches_twin(cuda_device, case, k, C, dtype):
+    """The shard launches of the SELL-C-σ reals and apply kernels
+    against their plain versions on the same CUDA tensors.  "halo": the
+    pad rows of the partial last slice (own = 0, val = 0) are not
+    launched, or they would overwrite local row 0; "gather": x_i is read
+    at d*R + own and the result taken from there."""
+    sh, xs = _shard_operands(case, C, dtype, k, cuda_device)
+    tol = TOL[dtype]
+    K.reset_launch_counts()
+    got = K.sellcs_shard_spmm(sh, xs)
+    want = K.sellcs_shard_spmm_plain(sh, xs)
+    assert got.shape == (sh.n, k) and bool(want[0].abs().sum() > 0)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol)
+    got = K.sellcs_shard_plap_apply(sh, xs, 1.5, 1e-8)
+    want = K.sellcs_shard_plap_apply_plain(sh, xs, 1.5, 1e-8)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol)
+    assert K.SHARD_LAUNCHES == {f"sellcs_shard_spmm k={k}": 1,
+                                f"sellcs_shard_plap_apply k={k}": 1}
+    assert K.LAUNCHES["sellcs_spmm"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_shard_launch_rejects_bad_operands(cuda_device):
+    sh, xs = _shard_operands("halo", 8, np.float32, 4, cuda_device)
+    short = xs[:sh.x_rows - 1]      # misses the largest column id
+    for bad in (short, xs.double(), xs.T.contiguous().T, xs.cpu()):
+        with pytest.raises((TypeError, ValueError)):
+            K.sellcs_shard_spmm(sh, bad)

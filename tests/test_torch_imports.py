@@ -60,6 +60,10 @@ def test_import_repro_torch_loads_no_jax_or_reference():
             "from repro_torch.core.grassmann import rtr_minimize_batched\n"
             "from repro_torch.testing import serve_batch_fault, "
             "serve_churn_fault\n"
+            "from repro_torch.grblas import dist, device_mesh, "
+            "make_row_partition, shard_mxm\n"
+            "from repro_torch.graphs import partition_for_mesh\n"
+            "from repro_torch.testing import halo_corruption\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
