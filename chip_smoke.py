@@ -32,7 +32,10 @@ Phases, none of which catches its own failure:
      ``torch.sparse.mm`` on the CSR form of W, a yardstick the port never
      calls) and with (nnz, 4) multivalues, the apply and the HVP at
      k = 4, and the apply at k = 1 (the inverse-power driver's one
-     column, the generic variant).  Every kernel runs twice, equal bit
+     column, the generic variant); ``grblas.ops.fused_plap_apply`` at
+     k = 4 (one apply launch, equal bit for bit to ``api.mxm`` under
+     ``plap_edge_semiring``, within the tolerance of the plain version,
+     timed).  Every kernel runs twice, equal bit
      for bit, and (at k = 4) with a NaN in one row of X (the HVP: one
      row of U and one of E), NaN where the plain versions put it.  Then the COO backend's reals SpMM with
      full-size W-hat multivalues and ``row_sums``, each twice, equal bit
@@ -361,6 +364,32 @@ def _repeat(name, fn) -> None:
     print(f"{name}: two runs equal bit for bit", flush=True)
 
 
+def fused_plap_check(W, U, K, torch) -> None:
+    """``grblas.ops.fused_plap_apply`` once on the phase's W and U: one
+    launch of the SELL-C-σ apply kernel (the backend ``auto`` picks on
+    the card), bit for bit ``api.mxm(W, U, plap_edge_semiring(P, EPS))``
+    and within the fp32 tolerance of the plain version; its time."""
+    from repro_torch.grblas import api, ops
+    from repro_torch.grblas.semiring import plap_edge_semiring
+
+    before = K.LAUNCHES["sellcs_plap_apply"]
+    got = ops.fused_plap_apply(W, U, P, EPS)
+    launched = K.LAUNCHES["sellcs_plap_apply"] - before
+    if launched != 1:
+        raise AssertionError(f"fused_plap_apply: {launched} launches of "
+                             "sellcs_plap_apply, expected 1")
+    if not torch.equal(got, api.mxm(W, U, plap_edge_semiring(P, EPS))):
+        raise AssertionError("fused_plap_apply: differs from api.mxm under "
+                             "plap_edge_semiring")
+    print("fused_plap_apply: equal bit for bit to api.mxm(W, U, "
+          "plap_edge_semiring(p, eps))", flush=True)
+    _compare("fused_plap_apply", got,
+             K.sellcs_plap_apply_plain(W, U, P, EPS))
+    ms = _time_ms(lambda: ops.fused_plap_apply(W, U, P, EPS))
+    print(f"fused_plap_apply k={U.shape[1]}: ms={ms!r} (grblas.ops through "
+          f"api.mxm, one sellcs_plap_apply launch)", flush=True)
+
+
 def sellcs_kernel_phase(W, K, torch) -> list:
     """Each SELL-C-σ kernel against its plain version at the main path's
     shapes: ``sellcs_spmm`` with scalar values at k = 4 and LOBPCG's 8 and
@@ -454,6 +483,7 @@ def sellcs_kernel_phase(W, K, torch) -> list:
         _time_ms(lambda: K.sellcs_plap_apply_plain(W, U, P, EPS), 3, 3),
         _bound(_layout_bytes(L, item) + 2 * dense_bytes,
                OPS["apply"] * L.slots * k), None))
+    fused_plap_check(W, U, K, torch)
     # the apply at k = 1: the inverse-power driver's one column (the
     # generic variant)
     U1 = U[:, :1].contiguous()
@@ -1415,6 +1445,8 @@ DIST_S = 4                     # ranks, one shard each, all on the one card
 DIST_KS = (4, 8, 24)           # the k = 4 multivector, LOBPCG's 8 and 24
 DIST_P = 1.5                   # the edge ring's p (eps = EPS)
 DIST_SEED = 13
+DIST_LOBPCG_ITERS = 100        # a depth cut of LOBPCG's 200 iterations, to
+                               # keep the smoke well inside its time limit
 
 
 def _dist_expected_nan(Ap, shard: int) -> np.ndarray:
@@ -1542,7 +1574,8 @@ def _dist_rank_body(rank, tmp, mesh, torch, tdist) -> dict:
     out["lobpcg_partition"] = {"mode": Wp.mode, **Wp.wire_bytes(8)}
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    ev, U = lobpcg.smallest_eigvecs(Wr, 4, desc=desc)
+    ev, U = lobpcg.smallest_eigvecs(Wr, 4, max_iters=DIST_LOBPCG_ITERS,
+                                    desc=desc)
     torch.cuda.synchronize()
     out["lobpcg_s"] = time.perf_counter() - t0
     out["launches_lobpcg"] = dict(K.SHARD_LAUNCHES)
@@ -1721,8 +1754,11 @@ def dist_phase(W, counters, torch, args) -> tuple:
     ref = {f"reals k={k}": mxm(W, Xs[k], desc=desc).cpu() for k in DIST_KS}
     ref["apply k=4"] = mxm(W, Xs[4], plap_edge_semiring(DIST_P, EPS),
                            desc=desc).cpu()
+    print(f"dist lobpcg iterations cut: max_iters={DIST_LOBPCG_ITERS} "
+          "(smallest_eigvecs default 200)", flush=True)
     t0 = time.perf_counter()
-    ev, U = lobpcg.smallest_eigvecs(W, 4, desc=desc)
+    ev, U = lobpcg.smallest_eigvecs(W, 4, max_iters=DIST_LOBPCG_ITERS,
+                                    desc=desc)
     torch.cuda.synchronize()
     summary["lobpcg_single_process_s"] = time.perf_counter() - t0
     summary["lobpcg_single_process_evals"] = ev.tolist()

@@ -1,12 +1,16 @@
-"""Algebraic operators: eWiseApply / apply / reduce (port of
-``repro.grblas.ops``).  The SpMM family lives in ``grblas.api``."""
+"""Algebraic operators: eWiseApply / apply / reduce and the fused
+p-Laplacian apply (port of ``repro.grblas.ops``).  The SpMM family
+lives in ``grblas.api``."""
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
 
-from repro_torch.grblas.semiring import Semiring, fast_paths, reals_ring
+from repro_torch.grblas import api
+from repro_torch.grblas.containers import SparseMatrix
+from repro_torch.grblas.semiring import (Semiring, fast_paths,
+                                         plap_edge_semiring, reals_ring)
 
 
 def e_wise_apply(a: torch.Tensor, b: torch.Tensor, op: Callable) -> torch.Tensor:
@@ -41,3 +45,13 @@ def reduce(a: torch.Tensor, ring: Semiring = reals_ring, axis=None) -> torch.Ten
                                          device=x.device)])
         x = ring.add(x[0::2], x[1::2])
     return x[0]
+
+
+def fused_plap_apply(A: SparseMatrix, U: torch.Tensor, p: float,
+                     eps: float = 1e-9, k: int = 1) -> torch.Tensor:
+    """(Delta_p U)_i = sum_j w_ij phi_p(u_i - u_j), all k columns fused:
+    one ``api.mxm`` under ``plap_edge_semiring(p, eps)``, so on the card
+    it launches whichever p-Laplacian apply kernel the backend chosen for
+    ``A`` runs.  ``k`` is not read: it exists only to keep the
+    reference's signature, whose jit took the column count as static."""
+    return api.mxm(A, U, plap_edge_semiring(p, eps))

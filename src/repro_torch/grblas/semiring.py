@@ -197,6 +197,16 @@ register_ring_fast_paths("bool_|&", segment=_bool_segment,
                          dense=_dense(torch.any))
 
 
+def phi_p(x: torch.Tensor, p: float, eps: float = 0.0) -> torch.Tensor:
+    """phi_p(x) = |x|^{p-1} sign(x), optionally eps-smoothed for p<2.
+
+    The smoothed variant (x^2+eps)^{(p-2)/2} * x keeps the p-Laplacian
+    differentiable at x=0 (needed by Newton for p<2); the same function
+    as ``core.phi.phi``, which the edge rings below evaluate.
+    """
+    return PHI.phi(x, p, eps)
+
+
 def plap_edge_semiring(p: float, eps: float = 1e-9) -> EdgeSemiring:
     """Edge-semiring computing  w_ij * phi_p(x_i - x_j)  per edge."""
 
@@ -220,3 +230,18 @@ def plap_hvp_edge_semiring(p: float, eps: float = 1e-9) -> PairEdgeSemiring:
     return PairEdgeSemiring(base=reals_ring, edge_mul=edge_mul,
                             name=f"plap_hvp_p{p}", kind="plap_hvp",
                             params=(p, eps))
+
+
+def plap_hess_edge_semiring(p: float, eps: float = 1e-9) -> EdgeSemiring:
+    """Deprecated pre-fused Hessian edge-semiring (kept one release).
+
+    Superseded by ``plap_hvp_edge_semiring``: the pair-edge ring sees
+    (U, Eta) directly instead of a caller-prefused w*phi'(du) weight.
+    Its kind is generic, so no kernel claims it.
+    """
+
+    def edge_mul(w_and_du, eta_src, eta_dst):
+        return w_and_du * (eta_dst - eta_src)
+
+    return EdgeSemiring(base=reals_ring, edge_mul=edge_mul,
+                        name=f"plap_hess_p{p}")

@@ -193,6 +193,7 @@ def backend_fault(backend: str = "sellcs", *, edge_rings_only: bool = True,
     mirroring a broken kernel rather than a missing layout.  The
     original backend record is restored on exit."""
     log = log if log is not None else InjectionLog()
+    # pscheck: disable=api-boundary (fault injection swaps a backend's execute hook in place; the public registry API is read-only by design)
     orig = _backends._REGISTRY[backend]
 
     def execute(A, X, ring, desc):
@@ -204,10 +205,12 @@ def backend_fault(backend: str = "sellcs", *, edge_rings_only: bool = True,
                 f"(repro_torch.testing.faultinject)")
         return orig.execute(A, X, ring, desc)
 
+    # pscheck: disable=api-boundary (install the faulted hook; restored in the finally below)
     _backends._REGISTRY[backend] = dataclasses.replace(orig, execute=execute)
     try:
         yield log
     finally:
+        # pscheck: disable=api-boundary (restore the pre-fault backend record)
         _backends._REGISTRY[backend] = orig
 
 

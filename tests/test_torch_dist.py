@@ -131,7 +131,7 @@ def _spec(S, inp, pfm):
                                           sellcs=True, sell_c=8),
         "halo64": make_row_partition(W64, S, sellcs=True, sell_c=8),
     }
-    jobs = [("mesh", "mesh", {})]
+    jobs = [("mesh", "mesh", {}), ("initialized", "initialized", {})]
     for be in ("dist", "dist_sellcs"):
         for k in KS:
             X = inp["X"][k]
@@ -203,6 +203,19 @@ def test_mesh_on_every_rank(worlds, S):
         assert res["mesh"] == dict(size=S, rank=r, backend="gloo",
                                    device="cpu", shape={"data": S},
                                    staged=False)
+
+
+def test_is_distributed_initialized_false_in_a_plain_process():
+    from repro_torch.grblas import dist
+
+    assert not torch.distributed.is_initialized()
+    assert dist.is_distributed_initialized() is False
+
+
+@pytest.mark.parametrize("S", WORLDS)
+def test_is_distributed_initialized_on_every_rank(worlds, S):
+    _, _, ranks = worlds[S]
+    assert [res["initialized"] for res in ranks] == [True] * S
 
 
 @pytest.mark.parametrize("backend", ["dist", "dist_sellcs"])

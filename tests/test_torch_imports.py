@@ -64,6 +64,46 @@ def test_import_repro_torch_loads_no_jax_or_reference():
             "make_row_partition, shard_mxm\n"
             "from repro_torch.graphs import partition_for_mesh\n"
             "from repro_torch.testing import halo_corruption\n"
+            "import repro_torch.analysis, repro_torch.analysis.rules\n"
+            "from repro_torch.analysis import __main__, profile, scopes\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    env = {"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("first", ["repro_torch.core", "repro_torch.grblas"])
+def test_core_exports_load_lazily_without_a_cycle(first):
+    """``repro_torch.core`` exports the reference's names through a lazy
+    module ``__getattr__``: importing the package imports none of its
+    submodules, and either package imported first leaves no cycle."""
+    code = (f"import importlib, sys\n"
+            f"importlib.import_module({first!r})\n"
+            "import repro_torch.core as core\n"
+            f"if {first!r} == 'repro_torch.core':\n"
+            "    assert 'repro_torch.core.psc' not in sys.modules\n"
+            "from repro_torch.core import (PSCConfig, PSCResult, "
+            "p_spectral_cluster, spectral_cluster, plap, metrics, kmeans, "
+            "lobpcg, grassmann, phi, solvers)\n"
+            "from repro_torch.core import psc\n"
+            "assert PSCConfig is psc.PSCConfig and PSCResult is psc.PSCResult\n"
+            "assert p_spectral_cluster is psc.p_spectral_cluster\n"
+            "assert spectral_cluster is psc.spectral_cluster\n"
+            "assert solvers.__name__ == 'repro_torch.core.solvers'\n"
+            "assert sorted(core.__all__) == sorted(['PSCConfig', "
+            "'PSCResult', 'p_spectral_cluster', 'spectral_cluster', 'plap', "
+            "'metrics', 'kmeans', 'lobpcg', 'grassmann', 'phi', "
+            "'solvers'])\n"
+            "assert set(core.__all__) <= set(dir(core))\n"
+            "try:\n"
+            "    core.no_such_name\n"
+            "except AttributeError:\n"
+            "    pass\n"
+            "else:\n"
+            "    raise SystemExit('no AttributeError')\n"
+            "import repro_torch.grblas\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

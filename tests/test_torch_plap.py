@@ -113,3 +113,60 @@ def test_graphblas_hvp_builds_what_once(graph, monkeypatch):
     plap.hess_eta_graphblas(port, Ut, Et, 1.4, EPS,
                             desc=Descriptor(backend="sellcs"))
     assert len(calls) == 1
+
+
+# ------------------------------------------- grblas names of the reference
+
+@pytest.mark.parametrize("eps", [0.0, 1e-6])
+@pytest.mark.parametrize("p", [1.1, 1.5, 2.0])
+def test_phi_p_matches_reference(p, eps):
+    """``grblas.semiring.phi_p``, both branches, on the same seeded fp64
+    inputs as the reference's (to 1e-12; 0 maps to 0 exactly)."""
+    from repro.grblas.semiring import phi_p as ref_phi_p
+    from repro_torch.grblas.semiring import phi_p
+
+    x = np.random.default_rng(3).standard_normal(64) * 3.0
+    x[:2] = 0.0
+    got = _np(phi_p(convert.tensor(x, device="cpu"), p, eps))
+    want = np.asarray(ref_phi_p(jnp.asarray(x), p, eps))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    assert (got[:2] == 0.0).all()
+
+
+def test_plap_hess_edge_semiring_matches_reference(graph):
+    """The deprecated pre-fused Hessian ring: the same name and kind as
+    the reference's, and the same product under ``coo`` (fp64, 1e-10)."""
+    from repro.grblas import mxm as ref_mxm
+    from repro.grblas.semiring import plap_hess_edge_semiring as ref_ring
+    from repro_torch.grblas import api
+    from repro_torch.grblas.semiring import plap_hess_edge_semiring
+
+    W, port, _, eta = graph
+    ring, rring = plap_hess_edge_semiring(1.5), ref_ring(1.5)
+    assert "Deprecated" in plap_hess_edge_semiring.__doc__
+    assert (ring.name, ring.kind) == (rring.name, rring.kind)
+    got = api.mxm(port, convert.tensor(eta, device="cpu"), ring,
+                  desc=Descriptor(backend="coo"))
+    want = ref_mxm(W, jnp.asarray(eta), rring, desc=RefDesc(backend="coo"))
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("p", [1.2, 1.5, 2.0])
+def test_fused_plap_apply_matches_reference(graph, p):
+    """``grblas.ops.fused_plap_apply`` is one ``api.mxm`` under
+    ``plap_edge_semiring``: bit-equal to that call in the port, and to
+    the reference's fused apply within 1e-10 (fp64).  The reference's
+    body runs unjitted (``__wrapped__``): under its ``jax.jit`` a traced
+    ``eps`` reaches ``core.phi``'s python ``if eps == 0.0`` and raises."""
+    from repro.grblas import ops as ref_ops
+    from repro_torch.grblas import api, ops
+    from repro_torch.grblas.semiring import plap_edge_semiring
+
+    W, port, U, _ = graph
+    Ut = convert.tensor(U, device="cpu")
+    got = ops.fused_plap_apply(port, Ut, p, EPS, k=3)
+    same = api.mxm(port, Ut, plap_edge_semiring(p, EPS))
+    assert torch.equal(got, same)
+    want = ref_ops.fused_plap_apply.__wrapped__(W, jnp.asarray(U), p, EPS,
+                                                k=3)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)

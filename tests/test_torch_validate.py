@@ -1,6 +1,6 @@
 """Graph validation, connected components, degenerate inputs, Matrix
 Market I/O and partitioning in the port, against the reference
-(``tests/test_degenerate_graphs.py`` without its serve case,
+(``tests/test_degenerate_graphs.py``, its serve case included,
 ``tests/test_mmio.py``, ``tests/test_partition.py``'s balanced partition),
 and the rings they need: the boolean, min-plus and max-times rings
 through ``api.mxv`` / ``vxm`` and the generic folds.
@@ -204,6 +204,64 @@ def test_k_equals_one_and_n_validated():
                                   (n, n), device="cpu")
     res = p_spectral_cluster(loops, PSCConfig(k=n, validate=True))
     np.testing.assert_array_equal(res.labels, np.arange(n))
+
+
+def test_trivial_k_short_circuits_multilevel():
+    """k = 1 under a V-cycle: every label 0, no hierarchy, no p path —
+    as the reference's ``test_degenerate_graphs.py`` asks of it."""
+    from repro.core.psc import PSCConfig as RefPSCConfig
+    from repro.core.psc import p_spectral_cluster as ref_cluster
+    from repro.multilevel.vcycle import MultilevelConfig as RefMLConfig
+
+    W, _ = ring_of_cliques(4, 6, device="cpu")
+    res = p_spectral_cluster(W, PSCConfig(
+        k=1, multilevel=MultilevelConfig(coarse_size=8)))
+    assert (res.labels == 0).all()
+    assert res.levels is None and res.p_path == []
+    Wr, _ = ref_graphs.ring_of_cliques(4, 6)
+    ref = ref_cluster(Wr, RefPSCConfig(k=1,
+                                       multilevel=RefMLConfig(coarse_size=8)))
+    np.testing.assert_array_equal(np.asarray(res.labels),
+                                  np.asarray(ref.labels))
+    assert (ref.levels, ref.p_path) == (res.levels, res.p_path)
+
+
+def test_serve_tiny_and_degenerate_k():
+    """Tiny serve requests: k == n goes to the solo lane, k = 1 labels
+    everything 0, a 9-vertex star splits in two; k = 5 on n = 2 raises
+    at submit and nothing fails.  The reference's engine takes the same
+    requests and must give the same ok flags, lanes and partitions."""
+    from repro.core.psc import PSCConfig as RefPSCConfig
+    from repro.serve.psc_engine import ClusterServeEngine as RefEngine
+    from repro_torch.serve import ClusterServeEngine
+
+    W2 = _sym([(0, 1)], 2)
+    Wstar = _sym([(0, i) for i in range(1, 9)], 9)
+    runs = []
+    for eng, conv in (
+            (ClusterServeEngine(PSCConfig(k=2, newton_iters=6, tcg_iters=4)),
+             lambda W: W),
+            (RefEngine(RefPSCConfig(k=2, newton_iters=6, tcg_iters=4)),
+             _ref)):
+        rid_edge = eng.submit(conv(W2))              # k == n -> solo lane
+        rid_one = eng.submit(conv(Wstar), k=1)
+        rid_star = eng.submit(conv(Wstar))
+        done = eng.flush()
+        with pytest.raises(ValueError, match="k="):
+            eng.submit(conv(W2), k=5)
+        assert eng.stats.n_failed == 0
+        runs.append([done[r] for r in (rid_edge, rid_one, rid_star)])
+    (edge, one, star), ref = runs
+    assert edge.ok
+    assert sorted(edge.labels.tolist()) == [0, 1]
+    assert edge.stats.lane == "solo"
+    assert one.ok and (one.labels == 0).all()
+    assert star.ok
+    assert len(set(star.labels.tolist())) == 2
+    for got, want in zip(runs[0], ref):
+        assert (got.ok, got.stats.lane) == (want.ok, want.stats.lane)
+        assert _same_partition(np.asarray(got.labels),
+                               np.asarray(want.labels))
 
 
 # ------------------------------------------------------------- disconnected

@@ -177,9 +177,15 @@ def job_mesh(ctx):
                 device=str(m.device), shape=dict(m.shape), staged=m.staged)
 
 
+def job_initialized(ctx):
+    from repro_torch.grblas import dist
+
+    return dist.is_distributed_initialized()
+
+
 JOBS = {"product": job_product, "memo": job_memo, "backends": job_backends,
         "traced": job_traced, "halo": job_halo, "lobpcg": job_lobpcg,
-        "mesh": job_mesh}
+        "mesh": job_mesh, "initialized": job_initialized}
 
 
 def halo_rows(Ap, shard: int) -> np.ndarray:
