@@ -84,8 +84,12 @@ Phases, none of which catches its own failure:
      raises BackendUnavailableError.
   9. dense kernels: flash attention at Gemma-2B's serve shape (B 4,
      Hq 8, Hkv 1, S 2048, D 256, bf16, causal), at a ragged S = 1000,
-     with window = 512 and at D 128 with group 4 (all four on the wgmma
-     kernel), then the mma.sync kernel at D 32 and the fp32 kernel at
+     with window = 512, at D 128 with group 4 and at mixtral-8x22b's
+     prefill shape (B 2, Hq 48, Hkv 8, S 6144, D 128, window 4096; all
+     five on the wgmma kernel), then the mma.sync kernel at
+     deepseek-v3's MLA prefill shape (B 4, Hq = Hkv = 128, S 2048, q/k
+     head dim 192, value head dim 128: the op pads v to 192 and keeps
+     128 columns) and at D 32, and the fp32 kernel at
      D 128, each against fp32 math on the same inputs (bf16:
      |d| <= 2^-6 (1 + |ref|): bf16 keeps 8 significant bits, and the
      kernel rounds P and O; fp32: the parity tolerance), each printed
@@ -104,14 +108,29 @@ Phases, none of which catches its own failure:
      twice bit for bit, a set alone equal to the batch, and stage 3 at
      each k, every assignment through the kernels.  Every assignment's
      device time (the profiler's) is printed beside its CUDA-event time.
- 10. LM serve path: Gemma-2B at full width (2.51 B parameters, fp32
-     params, bf16 compute) with seeded weights on the card; the
-     ServeEngine answers 4 requests of 2048-token prompts with 32 greedy
-     new tokens.  It fails unless the prefill launched the wgmma flash
-     kernel once per layer (18), the last-token prefill logits through the
-     kernel are within 2^-5 relative of the same prefill through the
-     plain attention, and one decode step's logits are within 2^-5
-     relative of a full forward's over the same 2049 tokens.
+ 10. LM serve path (``LM_CELLS``), each model at full width with
+     seeded weights on the card, bf16 compute, served by the ServeEngine
+     with 32 greedy new tokens: Gemma-2B (2.51 B fp32 parameters, all 18
+     layers; 4 requests of 2048-token prompts); Mixtral-8x22B (bf16
+     parameters, 8 of 56 layers, printed as a cut; 2 requests of
+     6144-token prompts, so the 4096-token window masks in prefill and
+     decode; capacity factor 1.25); DeepSeek-V3 (bf16 parameters, 5 of
+     61 layers: the 3 dense and 2 MoE layers, printed as a cut; 4
+     requests of 2048 tokens; MLA, 256 routed experts top 8 plus the
+     shared one).  Each fails unless the prefill launched the flash
+     kernel its head dim routes to once per layer and no other (wgmma
+     for Gemma and mixtral, mma for deepseek's D 192), the logits are
+     finite, the last-token prefill logits through the kernel are within
+     2^-5 relative of the same prefill through the plain attention (the
+     router picks that differ between the two printed beside it), and
+     one decode step's logits are within 2^-5 relative of a full
+     forward's over the same tokens (the MoE models under a capacity
+     factor of n_experts / top_k, C = T, so no pair drops in either; on
+     deepseek's 128-token prompts, where the no-drop buffer fits).  Each
+     MoE layer's dropped pairs and largest expert load over C in the
+     prefill are printed, from the port's router on the layer's input,
+     outside the timed run; and a profiler window of one decode step and
+     one prefill.
  11. resilience and telemetry, on the SELL-C-σ graph of phases 2-4
      (C = 32, k = 4, fp32): (a) ``solver="guarded", validate=True,
      trace=True`` with matrix_free HVPs: it fails unless the recovery
@@ -1871,40 +1890,54 @@ def _compare_bf16(name, got, ref32, torch) -> tuple:
     return max_abs, scaled
 
 
-def flash_kernel_phase(torch) -> dict:
+def flash_kernel_phase(torch) -> list:
     """Flash attention against its plain version at the serve shape and
-    three variants (all on the wgmma kernel), then the mma.sync and fp32
-    kernels at shapes routed to them; returns the row of the kernel the
-    serve path runs."""
+    four variants on the wgmma kernel (mixtral's D 128, group 6, window
+    4096 among them), then the mma.sync kernel at MLA's D 192 with a
+    value head dim of 128 (deepseek's prefill) and at D 32, and the
+    fp32 kernel; returns the rows of the two kernels the serve paths
+    run: wgmma (Gemma's and mixtral's prefill) and mma (deepseek's)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as KF
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    shapes = [  # (tag, B, Hq, Hkv, S, D, window, dtype)
-        ("serve", 4, 8, 1, 2048, 256, None, torch.bfloat16),
-        ("ragged_S1000", 4, 8, 1, 1000, 256, None, torch.bfloat16),
-        ("window512", 4, 8, 1, 2048, 256, 512, torch.bfloat16),
-        ("D128_group4", 4, 8, 2, 2048, 128, None, torch.bfloat16),
+    shapes = [  # (tag, B, Hq, Hkv, S, D, Dv, window, dtype)
+        ("serve", 4, 8, 1, 2048, 256, 256, None, torch.bfloat16),
+        ("ragged_S1000", 4, 8, 1, 1000, 256, 256, None, torch.bfloat16),
+        ("window512", 4, 8, 1, 2048, 256, 256, 512, torch.bfloat16),
+        ("D128_group4", 4, 8, 2, 2048, 128, 128, None, torch.bfloat16),
+        # mixtral-8x22b's prefill: 48 q heads over 8 kv heads, a window
+        # that masks at S 6144
+        ("mixtral_D128_group6_window4096", 2, 48, 8, 6144, 128, 128, 4096,
+         torch.bfloat16),
+        # deepseek-v3's MLA prefill: q/k 128 + 64 rotary, v 128 (padded
+        # to 192 by the op)
+        ("mla_D192_Dv128", 4, 128, 128, 2048, 192, 128, None,
+         torch.bfloat16),
         # the kernels of the other routes: a head dim off wgmma's (the
         # reduced test configs' 16 and 32), and fp32
-        ("mma_D32", 4, 8, 2, 2048, 32, None, torch.bfloat16),
-        ("f32_D128", 1, 8, 2, 2048, 128, None, torch.float32)]
-    out = []
-    for tag, B, Hq, Hkv, S, D, window, dtype in shapes:
+        ("mma_D32", 4, 8, 2, 2048, 32, 32, None, torch.bfloat16),
+        ("f32_D128", 1, 8, 2, 2048, 128, 128, None, torch.float32)]
+    out = {}
+    for tag, B, Hq, Hkv, S, D, Dv, window, dtype in shapes:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda",
                                dtype=dtype)
                    for shape in ((B, Hq, S, D), (B, Hkv, S, D),
-                                 (B, Hkv, S, D)))
+                                 (B, Hkv, S, Dv)))
         variant = KF.kernel_variant(dtype, D, S)
         name = f"flash_attention_{variant}"
         before = KF.LAUNCHES[name]
         got = KF.flash_attention(q, k, v, causal=True, window=window)
-        if KF.LAUNCHES[name] != before + 1:
+        if KF.LAUNCHES[name] != before + 1 or got.shape[-1] != Dv:
             raise AssertionError(f"flash_attention[{tag}]: {name} did not "
-                                 "launch")
-        ref32 = KF.attention_ref(q.float(), k.float(), v.float(),
-                                 causal=True, window=window)
+                                 "launch once, or the output is not Dv wide")
+        # fp32 math on the same inputs; query-chunked where the (S, S)
+        # scores of every head would not fit beside the rest
+        ref = (KF.attention_ref if B * Hq * S * S * 4 <= 2 ** 32
+               else KF.attention_ref_chunked)
+        ref32 = ref(q.float(), k.float(), v.float(), causal=True,
+                    window=window)
         if dtype == torch.float32:
             err = _compare(f"flash_attention[{tag}] ({variant})", got, ref32)
         else:
@@ -1923,12 +1956,14 @@ def flash_kernel_phase(torch) -> dict:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, attn_mask=mask, enable_gqa=True)
         item = q.element_size()
-        nbytes = item * (2 * q.numel() + k.numel() + v.numel())
-        flops = 4 * B * Hq * D * _visible_pairs(S, window)
+        nbytes = item * (q.numel() + k.numel() + v.numel()
+                         + B * Hq * S * Dv)
+        flops = 2 * B * Hq * (D + Dv) * _visible_pairs(S, window)
         bound = _bound(nbytes, flops, BF16_OPS_PER_S
                        if dtype == torch.bfloat16 else FP32_OPS_PER_S)
-        row = dict(shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, D=D, window=window,
-                              dtype=str(dtype).split(".")[-1], causal=True),
+        row = dict(shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, D=D, Dv=Dv,
+                              window=window, causal=True,
+                              dtype=str(dtype).split(".")[-1]),
                    variant=variant, max_abs_err=err[0], max_rel_err=err[1],
                    max_abs_err_vs_plain=err_plain,
                    ms=_time_ms(lambda: KF.flash_attention(
@@ -1942,21 +1977,31 @@ def flash_kernel_phase(torch) -> dict:
               f"bound_ms={row['bound_ms']!r} ({row['bound_by']}, "
               f"{row['gflop']!r} GFLOP) sdpa_ms={row['library_ms']!r} "
               f"|kernel-plain|={err_plain!r}", flush=True)
-        out.append((tag, row))
+        out[tag] = row
         del q, k, v
-    serve = out[0][1]
-    row = _row("flash_attention",
-               "src/repro_torch/kernels/flash_attention/csrc/"
-               "flash_attention_wgmma.cu",
-               "src/repro/kernels/flash_attention/flash_attention.py:74",
-               (serve["max_abs_err"], serve["max_rel_err"]), serve["ms"],
-               serve["plain_ms"], (serve["bound_ms"], serve["bound_by"]),
-               serve["library_ms"])
-    # the serve path's kernel; its launches are read from this counter
-    row["counter"] = "flash_attention_wgmma"
-    row["shape"] = serve["shape"]
-    row["variants"] = {tag: r for tag, r in out[1:]}
-    return row
+        torch.cuda.empty_cache()
+
+    def kernel_row(variant, source, main, others):
+        r = out[main]
+        row = _row(f"flash_attention_{variant}" if variant != "wgmma"
+                   else "flash_attention",
+                   f"src/repro_torch/kernels/flash_attention/csrc/{source}",
+                   "src/repro/kernels/flash_attention/flash_attention.py:74",
+                   (r["max_abs_err"], r["max_rel_err"]), r["ms"],
+                   r["plain_ms"], (r["bound_ms"], r["bound_by"]),
+                   r["library_ms"])
+        # the serve paths' launches of this kernel are read from this
+        # counter
+        row["counter"] = f"flash_attention_{variant}"
+        row["shape"] = r["shape"]
+        row["variants"] = {tag: out[tag] for tag in others}
+        return row
+
+    return [kernel_row("wgmma", "flash_attention_wgmma.cu", "serve",
+                       ["ragged_S1000", "window512", "D128_group4",
+                        "mixtral_D128_group6_window4096"]),
+            kernel_row("mma", "flash_attention.cu", "mla_D192_Dv128",
+                       ["mma_D32"])]
 
 
 def kmeans_kernel_phase(U, torch, psc) -> dict:
@@ -2199,9 +2244,71 @@ def _profile(tag, fn, torch, reps: int) -> None:
               f"x{e.count / reps} {e.key[:90]}", flush=True)
 
 
-def lm_serve_phase(torch, counters) -> tuple:
-    """Gemma-2B at full width through the ServeEngine; returns (launch
-    counts of the served run, summary)."""
+def _routing(MOE, calls, torch, force=None):
+    """Patch ``MOE._router`` to record each MoE layer's routing: the
+    expert ids its own router picks (``ids``), and for the ids the layer
+    runs with, the pairs dropped and the largest expert load over C.
+    With ``force`` (one (T, k) id tensor a MoE layer, in call order) the
+    layers run with those ids instead, weighed by their own router's
+    probabilities (renormalised as the router does): two runs then
+    compare with the same routing, so a pick that a rounding difference
+    flips does not hide or stand in for the difference being checked."""
+    from unittest import mock
+
+    router = MOE._router
+    forced = None if force is None else iter(force)
+
+    def _router(cfg, router_w, x):
+        m = cfg.moe
+        weights, ids, aux = router(cfg, router_w, x)
+        run = ids
+        if forced is not None:
+            run = next(forced)
+            probs = torch.softmax((x @ router_w.to(x.dtype)).float(), -1)
+            w = probs.gather(1, run)
+            if m.router_scale:
+                w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
+            weights = w.to(x.dtype)
+        T = x.shape[0]
+        C = MOE._capacity(cfg, T)
+        _, eid, _, keep = MOE._dispatch_indices(cfg, run, T, C, 0,
+                                                m.n_experts)
+        load = (eid[:, None] == torch.arange(m.n_experts, device=x.device)
+                ).sum(0).max()
+        calls.append(dict(ids=ids, run=run, C=C, dropped=(~keep).sum(),
+                          max_load=load))
+        return weights, run, aux
+
+    return mock.patch.object(MOE, "_router", _router)
+
+
+def _flips(a, b, torch) -> int:
+    """Router picks that differ between two runs' (T, k) expert ids,
+    each token's picks taken as a set."""
+    return int((torch.sort(a, dim=-1)[0] != torch.sort(b, dim=-1)[0]).sum())
+
+
+LM_CELLS = {  # arch: (layers run or None for all, requests, prompt, new,
+              #        decode-check prompt)
+    "gemma-2b": (None, 4, 2048, 32, 2048),
+    "mixtral-8x22b": (8, 2, 6144, 32, 6144),
+    # the no-drop decode check's (256, T, 7168) buffer is 30 GB at 4 x
+    # 2049 tokens, 1.9 GB at 4 x 129
+    "deepseek-v3-671b": (5, 4, 2048, 32, 128),
+}
+
+
+def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
+    """One model of ``LM_CELLS`` at full width (depth cut where the cell
+    says, printed) through the ServeEngine; returns (launch counts of the
+    served run, summary).  It fails unless the prefill launched the
+    flash kernel its head dim routes to once per layer (and no other),
+    the logits are finite and the tokens in the vocabulary, the
+    last-token prefill logits through the kernel are within 2^-5
+    relative of the same prefill through the plain attention, and one
+    decode step's logits are within 2^-5 relative of a full forward's
+    over the same tokens (MoE: under a capacity factor of n_experts /
+    top_k, so that no pair drops in either)."""
     from unittest import mock
 
     from repro_torch.configs import get_config
@@ -2209,21 +2316,31 @@ def lm_serve_phase(torch, counters) -> tuple:
     from repro_torch.models import attention as ATT
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
     from repro_torch.serve import GenerationConfig, ServeEngine
 
-    cfg = get_config("gemma-2b")
-    B, S, new = 4, 2048, 32
+    n_layers, B, S, new, check_S = LM_CELLS[arch]
+    full = get_config(arch)
+    cfg = (full if n_layers is None
+           else dataclasses.replace(full, n_layers=n_layers))
+    tag = "lm_serve" if arch == "gemma-2b" else f"lm_serve/{arch}"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"lm_serve: {cfg.name} n_layers={cfg.n_layers} "
+    D = (cfg.mla.nope_dim + cfg.mla.rope_dim if cfg.mla
+         else cfg.resolved_head_dim)
+    variant = KF.kernel_variant(torch.bfloat16, D)
+    print(f"{tag}: {cfg.name} n_layers={cfg.n_layers} "
           f"d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
-          f"head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
-          f"vocab={cfg.padded_vocab} params={n_params} "
+          f"qk_head_dim={D} d_ff={cfg.d_ff} moe={cfg.moe} mla={cfg.mla} "
+          f"window={cfg.window} vocab={cfg.padded_vocab} params={n_params} "
           f"({cfg.params_dtype}, compute {cfg.compute_dtype}) "
           f"init_s={time.perf_counter() - t0!r}", flush=True)
+    if n_layers is not None:
+        print(f"{tag}: depth cut to {n_layers} of {full.n_layers} layers "
+              "(full width)", flush=True)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab, (B, S)).astype(np.int32)
     engine = ServeEngine(cfg, params, max_len=S + new)
@@ -2235,6 +2352,8 @@ def lm_serve_phase(torch, counters) -> tuple:
     wall = time.perf_counter() - t0
     launches = _counts(counters)
     t = engine.timing
+    flash = {k: v for k, v in launches.items()
+             if k.startswith("flash_attention_")}
     summary = dict(
         requests=B, prompt_len=S, new_tokens=new, generated=int(out.size),
         wall_s=wall, prefill_s=t["prefill_s"],
@@ -2242,47 +2361,112 @@ def lm_serve_phase(torch, counters) -> tuple:
         decode_steps=t["decode_steps"], tokens_per_s=out.size / wall,
         prompt_tokens_per_s=B * S / t["prefill_s"],
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-        flash_launches=launches["flash_attention_wgmma"])
-    print(f"lm_serve: {summary}", flush=True)
-    print(f"lm_serve: first request's tokens {out[0].tolist()}", flush=True)
-    if launches["flash_attention_wgmma"] != cfg.n_layers:
-        raise AssertionError(f"lm_serve: {launches['flash_attention_wgmma']}"
-                             f" launches of the wgmma flash kernel, not "
-                             f"{cfg.n_layers}")
+        flash_launches=flash, n_layers=cfg.n_layers,
+        full_n_layers=full.n_layers, params=n_params)
+    print(f"{tag}: {summary}", flush=True)
+    print(f"{tag}: first request's tokens {out[0].tolist()}", flush=True)
+    want = {k: cfg.n_layers if k == f"flash_attention_{variant}" else 0
+            for k in flash}
+    if flash != want:
+        raise AssertionError(f"{tag}: flash launches {flash}, expected "
+                             f"{want}")
     if not ((out >= 0) & (out < cfg.vocab)).all():
-        raise AssertionError("lm_serve: token ids out of the vocabulary")
+        raise AssertionError(f"{tag}: token ids out of the vocabulary")
 
     def rel(a, b):
         return float((a.float() - b.float()).norm() / b.float().norm())
 
+    no_drop = cfg
+    if cfg.moe is not None:
+        no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
     tok = torch.as_tensor(prompts, device="cuda")
+    plain = mock.patch.object(ATT, "flash_attention", KF.plain_attention)
+    kc, pc, qc, cc, dc, fc, gc = ([] for _ in range(7))
     with torch.no_grad():
-        lk, cache, pos = M.prefill(cfg, params, tok, S + new)
-        with mock.patch.object(ATT, "flash_attention", KF.plain_attention):
-            lp, _, _ = M.prefill(cfg, params, tok, S + new)
+        with _routing(MOE, kc, torch):
+            lk, cache, pos = M.prefill(cfg, params, tok, S + new)
+        with _routing(MOE, pc, torch), plain:
+            lp = lp_own = M.prefill(cfg, params, tok, S + new)[0]
+        if cfg.moe is not None:
+            # the plain prefill again with the kernel prefill's routing
+            with _routing(MOE, qc, torch, force=[c["run"] for c in kc]), \
+                    plain:
+                lp = M.prefill(cfg, params, tok, S + new)[0]
         nxt = torch.argmax(lk[:, -1], dim=-1)[:, None].to(torch.int32)
-        ld, _ = M.decode_step(cfg, params, cache, nxt, torch.full(
-            (B, 1), pos, dtype=torch.int32, device="cuda"))
-        x, _ = M.forward_train(cfg, params, torch.cat([tok, nxt], dim=1))
-        lf = L.unembed_logits(params["embed"], x[:, -1:],
-                              real_vocab=cfg.vocab)
+        # decode against a full forward over the same check_S + 1 tokens
+        ctok = tok[:, :check_S]
+        with _routing(MOE, cc, torch):
+            lc, ccache, cpos = M.prefill(no_drop, params, ctok, check_S + 1)
+        cnxt = torch.argmax(lc[:, -1], dim=-1)[:, None].to(torch.int32)
+        with _routing(MOE, dc, torch):
+            ld, _ = M.decode_step(no_drop, params, ccache, cnxt, torch.full(
+                (B, 1), cpos, dtype=torch.int32, device="cuda"))
+        seq = torch.cat([ctok, cnxt], dim=1)
+
+        def forward_logits():
+            x, _ = M.forward_train(no_drop, params, seq)
+            return L.unembed_logits(params["embed"], x[:, -1:],
+                                    real_vocab=cfg.vocab)
+
+        with _routing(MOE, fc, torch):
+            lf = lf_own = forward_logits()
+        k = cfg.moe.top_k if cfg.moe else 0
+        if cfg.moe is not None:
+            # the forward again with the prefill's and the decode's
+            # routing
+            cache_path = [torch.cat([a["run"].view(B, check_S, k),
+                                     b["run"].view(B, 1, k)], 1).view(-1, k)
+                          for a, b in zip(cc, dc)]
+            with _routing(MOE, gc, torch, force=cache_path):
+                lf = forward_logits()
+        del ccache
+
+    def flips(a, b, last=False):
+        """Router picks that differ, by MoE layer (a forward's calls
+        against a decode's: the last position only)."""
+        return [_flips(x["ids"].view(B, -1, k)[:, -1] if last else x["ids"],
+                       y["ids"], torch) for x, y in zip(a, b)]
+
     checks = dict(
         prefill_rel_err_kernel_vs_plain=rel(lk, lp),
+        prefill_rel_err_kernel_vs_plain_own_routing=rel(lk, lp_own),
         prefill_argmax_equal=int((lk.argmax(-1) == lp.argmax(-1)).sum()),
+        prefill_router_flips_kernel_vs_plain=flips(pc, kc),
+        decode_check_prompt_len=check_S,
+        decode_capacity_factor=no_drop.moe.capacity_factor
+        if cfg.moe else None,
         decode_rel_err_vs_full_forward=rel(ld, lf),
+        decode_rel_err_vs_full_forward_own_routing=rel(ld, lf_own),
         decode_argmax_equal=int((ld.argmax(-1) == lf.argmax(-1)).sum()),
+        decode_router_flips_vs_full_forward=flips(fc, dc, last=True),
+        prompt_router_flips_cache_prefill_vs_full_forward=[
+            _flips(f["ids"].view(B, -1, k)[:, :-1].reshape(-1, k), c["ids"],
+                   torch) for f, c in zip(fc, cc)],
+        decode_check_dropped=[int(c["dropped"]) for c in cc + dc + fc + gc],
         tolerance=LM_TOL, logits_finite=bool(torch.isfinite(lk).all()
                                              and torch.isfinite(ld).all()))
     summary.update(checks)
-    print(f"lm_serve checks: {checks}", flush=True)
+    print(f"{tag} checks (rel_err: both runs with the same routing; "
+          f"_own_routing: each with its router's own picks, reported): "
+          f"{checks}", flush=True)
+    if cfg.moe is not None:
+        moe = [dict(layer=i, C=c["C"], dropped=int(c["dropped"]),
+                    of_pairs=int(c["ids"].numel()),
+                    max_load_over_C=int(c["max_load"]) / c["C"])
+               for i, c in enumerate(kc)]
+        summary["moe_prefill"] = moe
+        print(f"{tag} moe prefill (capacity factor "
+              f"{cfg.moe.capacity_factor}): {moe}", flush=True)
     if not (checks["logits_finite"]
             and checks["prefill_rel_err_kernel_vs_plain"] <= LM_TOL
-            and checks["decode_rel_err_vs_full_forward"] <= LM_TOL):
-        raise AssertionError("lm_serve: logits off their plain versions")
+            and checks["decode_rel_err_vs_full_forward"] <= LM_TOL
+            and not any(checks["decode_check_dropped"])):
+        raise AssertionError(f"{tag}: logits off their plain versions")
     positions = torch.full((B, 1), pos, dtype=torch.int32, device="cuda")
-    _profile("lm_serve decode step", lambda: M.decode_step(
+    _profile(f"{tag} decode step", lambda: M.decode_step(
         cfg, params, cache, nxt, positions), torch, reps=3)
-    _profile("lm_serve prefill", lambda: M.prefill(
+    _profile(f"{tag} prefill", lambda: M.prefill(
         cfg, params, tok, S + new), torch, reps=1)
     del params, engine, cache
     torch.cuda.empty_cache()
@@ -2541,10 +2725,15 @@ def main() -> int:
     # ---- dense slice: flash attention, kmeans_assign, Gemma-2B serving
     rows.append(kmeans_kernel_phase(stage3_U, torch, psc))
     rows[-1]["large_k"] = kmeans_large_k_phase(torch, psc)
-    rows.append(flash_kernel_phase(torch))
+    rows += flash_kernel_phase(torch)
     phase_done("dense_kernels")
     by_path["lm_serve"], lm = lm_serve_phase(torch, counters)
     phase_done("lm_serve")
+    lm = {"gemma-2b": lm}
+    for arch in ("mixtral-8x22b", "deepseek-v3-671b"):
+        by_path[f"lm_serve/{arch}"], lm[arch] = lm_serve_phase(
+            torch, counters, arch)
+        phase_done(f"lm_serve/{arch}")
 
     # ---- resilience and telemetry, on the SELL-C-σ graph again
     paths, resilience = resilience_phase(W, counters, torch, psc,

@@ -48,7 +48,8 @@ def lm_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     (nested dicts of arrays).  The reference stacks the blocks of a
     layer scan on a leading axis (``params["blocks"]["attn"]["wq"]`` is
     (L, d, H, hd)); the port holds one block per layer, so layer i's
-    leaf becomes ``blocks.i.attn.wq``.  Dtypes are kept."""
+    leaf becomes ``blocks.i.attn.wq``; deepseek's leading dense layers
+    (``dense_blocks``) split the same way.  Dtypes are kept."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping, prefix: str, layer=None):
@@ -61,7 +62,7 @@ def lm_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             out[f"{prefix}{name}"] = torch.from_numpy(a)
 
     for name, sub in params.items():
-        if name == "blocks":
+        if name in ("blocks", "dense_blocks"):
             n = np.shape(next(_leaves(sub)))[0]
             for i in range(n):
                 walk(sub, f"{name}.{i}.", i)

@@ -123,10 +123,10 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q, k and v must be (B, H, S, D)")
     B, Hq, _, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+    if k.shape[0] != B or k.shape[3] != D or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}: expected k and v "
-                         f"(B, Hkv, Sk, D) with q's B and D")
+                         f"v {tuple(v.shape)}: expected k (B, Hkv, Sk, D) "
+                         f"with q's B and D and v (B, Hkv, Sk, Dv)")
     Hkv = k.shape[1]
     if Hkv < 1 or Hq % Hkv != 0:
         raise ValueError(f"{Hq} q heads do not group over {Hkv} kv heads")
@@ -143,8 +143,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True,
                          window: Optional[int] = None) -> torch.Tensor:
     """One launch of the kernel ``kernel_variant`` picks: (B, Hq, Sq, D)
-    in q's dtype."""
+    in q's dtype.  v must have k's shape (``ops.flash_attention`` pads a
+    narrower value head dim)."""
     check_operands(q, k, v, window)
+    if v.shape != k.shape:
+        raise ValueError(f"v {tuple(v.shape)}: the kernels take v of k's "
+                         f"shape {tuple(k.shape)}")
     if q.device.type != "cuda":
         raise ValueError(f"the flash_attention kernels take CUDA tensors, "
                          f"not {q.device}")

@@ -2,13 +2,19 @@
 ``kernels/flash_attention/ops.py::flash_attention``.
 
 ``flash_attention(q, k, v, causal=True, window=None)`` takes q
-(B, Hq, S, D) and k, v (B, Hkv, S, D) and returns (B, Hq, S, D).  A CUDA
+(B, Hq, S, D), k (B, Hkv, S, D) and v (B, Hkv, S, Dv) and returns
+(B, Hq, S, Dv); MLA's value head dim Dv is narrower than D.  A CUDA
 tensor goes to the hand-written kernel (``flash_attention_cuda``); a CPU
 tensor to the plain version, ``attention_ref`` up to S = 1024 and the
 query-chunked ``attention_ref_chunked`` above, as the reference's jnp
-path does; any other device raises.  It is differentiable: the forward
-is wrapped in a ``torch.autograd.Function`` whose backward recomputes
-through ``attention_ref``, as the reference's ``custom_vjp`` does.
+path does; any other device raises.  On the card a v narrower than k is
+zero-padded to D, the kernel launches on it, and the first Dv columns
+of its output are returned: exact, since the padded columns of P V are
+zero.  A kernel that reads only Dv columns of V would save the padded
+reads and products; that is later performance work.  It is
+differentiable: the forward is wrapped in a ``torch.autograd.Function``
+whose backward recomputes through ``attention_ref``, as the
+reference's ``custom_vjp`` does.
 """
 from __future__ import annotations
 
@@ -36,8 +42,15 @@ def _forward(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
     check_operands(q, k, v, window)
     if q.device.type == "cpu":
         return plain_attention(q, k, v, causal, window)
-    return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                v.contiguous(), causal, window)
+    D, Dv = k.shape[3], v.shape[3]
+    if Dv > D:
+        raise ValueError(f"value head dim {Dv} above the q/k head dim {D}: "
+                         "the kernels take Dv <= D")
+    if Dv < D:
+        v = torch.nn.functional.pad(v, (0, D - Dv))
+    out = flash_attention_cuda(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal, window)
+    return out[..., :Dv] if Dv < D else out
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -60,5 +73,5 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """(B, Hq, S, D) attention output in q's dtype."""
+    """(B, Hq, S, Dv) attention output in q's dtype."""
     return _FlashAttention.apply(q, k, v, causal, window)

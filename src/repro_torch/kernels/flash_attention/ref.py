@@ -12,7 +12,7 @@
                          chunks have the reference's size and the last
                          one is shorter, so any Sq is right.
 
-q is (B, Hq, Sq, D) and k, v are (B, Hkv, Sk, D) with Hq % Hkv == 0;
+q is (B, Hq, Sq, D), k (B, Hkv, Sk, D) and v (B, Hkv, Sk, Dv) with Hq % Hkv == 0;
 the result is (B, Hq, Sq, Dv).
 """
 from __future__ import annotations

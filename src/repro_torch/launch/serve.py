@@ -5,9 +5,14 @@ flash attention kernel, then the decode loop).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v3-671b --reduced --device cpu
 
-It runs on ``cuda`` unless ``--device cpu`` is given.  Only the dense
-family is ported (ROADMAP.md queue 1, item 17).
+It runs on ``cuda`` unless ``--device cpu`` is given.  The dense and
+moe families are ported (mixtral-8x22b and deepseek-v3-671b among the
+archs; at full size neither fits one 80 GB card: serve them with
+``--reduced``); the others raise NotImplementedError naming ROADMAP.md
+queue 1, item 17.
 """
 from __future__ import annotations
 

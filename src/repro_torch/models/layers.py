@@ -62,6 +62,9 @@ class ParamTree(nn.Module):
     def __getitem__(self, key: str):
         return getattr(self, key)
 
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
 
 # ------------------------------------------------------------------ norms
 

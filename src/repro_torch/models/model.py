@@ -1,15 +1,21 @@
-"""Model assembly for the ``dense`` family: parameters, the train /
-prefill forward, and decode.  Port of the dense path of the reference's
-``repro.models.model``.
+"""Model assembly for the ``dense`` and ``moe`` families: parameters, the
+train / prefill forward, and decode.  Port of the dense and moe paths of
+the reference's ``repro.models.model``.
 
 The reference stacks its layers on a leading ``layers`` axis and runs
 them under ``lax.scan``; here the parameter tree is an ``nn.Module``
-with one block per layer (``params["blocks"][i]``), and a Python loop
-runs them.  The decode cache keeps the reference's layout: one
-``KVCache`` whose k and v are stacked over layers, (L, B, Hkv, Smax,
-hd).  ``decode_step`` writes into it in place.
+with one block per layer (``params["blocks"][i]``, and deepseek's
+leading dense layers in ``params["dense_blocks"][i]``), and a Python
+loop runs them.  The decode cache keeps the reference's layout: one
+``KVCache`` (k and v (L, B, Hkv, Smax, hd)) or, under MLA, one
+``MLACache`` (c_kv (L, B, Smax, rank), k_rope (L, B, Smax, rope))
+stacked over the layers of each run of blocks.  ``decode_step`` writes
+into it in place.
 
-Other families (moe, ssm, hybrid, encdec, vlm) raise NotImplementedError
+Every forward returns (hidden_states, aux), aux the sum of the MoE
+layers' load-balancing losses (0 for the dense family).
+
+Other families (ssm, hybrid, encdec, vlm) raise NotImplementedError
 naming ROADMAP.md queue 1, item 17.
 """
 from __future__ import annotations
@@ -21,11 +27,14 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ArchConfig
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None:
+    dense = cfg.family == "dense" and cfg.moe is None and cfg.mla is None
+    moe = cfg.family == "moe" and cfg.moe is not None
+    if not (dense or moe):
         raise NotImplementedError(
             f"the {cfg.family} family ({cfg.name}) {ATT.NOT_PORTED}")
     if cfg.norm != "rmsnorm" or cfg.pos_embedding != "rope":
@@ -34,22 +43,31 @@ def _check_family(cfg: ArchConfig) -> None:
             f"{ATT.NOT_PORTED}")
 
 
+def _n_dense(cfg: ArchConfig) -> int:
+    """Leading dense blocks of a moe model (deepseek's first_dense)."""
+    return cfg.moe.first_dense if cfg.family == "moe" else 0
+
+
 # ================================================================ params
 
-def _attn_block_ab(cfg):
+def _attn_block_ab(cfg, ffn: str):
     return {"ln1": L.rmsnorm_ab(cfg.d_model), "ln2": L.rmsnorm_ab(cfg.d_model),
-            "attn": ATT.gqa_ab(cfg),
-            "ffn": L.mlp_ab(cfg.d_model, cfg.d_ff, cfg.gated)}
+            "attn": ATT.mla_ab(cfg) if cfg.mla else ATT.gqa_ab(cfg),
+            "ffn": (MOE.moe_ab(cfg) if ffn == "moe"
+                    else L.mlp_ab(cfg.d_model, cfg.d_ff, cfg.gated))}
 
 
 def abstract_params(cfg: ArchConfig) -> dict:
     _check_family(cfg)
-    return {
-        "embed": L.embedding_ab(cfg.vocab, cfg.d_model,
-                                pad_to=cfg.vocab_pad_to),
-        "final_norm": L.rmsnorm_ab(cfg.d_model),
-        "blocks": [_attn_block_ab(cfg) for _ in range(cfg.n_layers)],
-    }
+    p = {"embed": L.embedding_ab(cfg.vocab, cfg.d_model,
+                                 pad_to=cfg.vocab_pad_to),
+         "final_norm": L.rmsnorm_ab(cfg.d_model)}
+    nd = _n_dense(cfg)
+    if nd:
+        p["dense_blocks"] = [_attn_block_ab(cfg, "mlp") for _ in range(nd)]
+    ffn = "moe" if cfg.family == "moe" else "mlp"
+    p["blocks"] = [_attn_block_ab(cfg, ffn) for _ in range(cfg.n_layers - nd)]
+    return p
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None,
@@ -64,77 +82,125 @@ def init_params(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None,
 
 # ================================================================ blocks
 
+def _ffn(cfg, blk, h):
+    """The block's FFN: (out, aux); aux is 0.0 for a dense MLP."""
+    if "router" in blk["ffn"]:
+        return MOE.moe_block(cfg, blk["ffn"], h)
+    return L.mlp(blk["ffn"], h, cfg.act, cfg.gated), 0.0
+
+
 def _attn_block(cfg, blk, x, positions, collect=False):
-    """Pre-norm attention block (train / prefill path)."""
+    """Pre-norm attention block (train / prefill path): (out, aux[,
+    cache piece])."""
     h = L.rmsnorm(blk["ln1"], x, cfg.norm_eps)
     piece = None
-    if collect:
+    if cfg.mla:
+        if collect:
+            h, lat = ATT.mla_train(cfg, blk["attn"], h, positions,
+                                   return_latent=True)
+            piece = ATT.MLACache(c_kv=lat[0], k_rope=lat[1])
+        else:
+            h = ATT.mla_train(cfg, blk["attn"], h, positions)
+    elif collect:
         h, kv = ATT.gqa_train(cfg, blk["attn"], h, positions,
                               return_kv=True)
         piece = ATT.KVCache(k=kv[0], v=kv[1])
     else:
         h = ATT.gqa_train(cfg, blk["attn"], h, positions)
     x = x + h
-    h = L.rmsnorm(blk["ln2"], x, cfg.norm_eps)
-    out = x + L.mlp(blk["ffn"], h, cfg.act, cfg.gated)
+    h, aux = _ffn(cfg, blk, L.rmsnorm(blk["ln2"], x, cfg.norm_eps))
+    out = x + h
     if collect:
-        return out, piece
-    return out
+        return out, aux, piece
+    return out, aux
+
+
+def _stack(pieces):
+    """Per-layer cache pieces (one NamedTuple each) stacked along a
+    leading layers axis."""
+    return type(pieces[0])(*(torch.stack(f) for f in zip(*pieces)))
+
+
+def _run_blocks(cfg, blocks, x, positions, collect):
+    """(x, aux summed over the blocks, stacked pieces or None)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    pieces = []
+    for blk in blocks:
+        out = _attn_block(cfg, blk, x, positions, collect=collect)
+        x, aux = out[0], aux + out[1]
+        if collect:
+            pieces.append(out[2])
+    return x, aux, (_stack(pieces) if collect else None)
 
 
 def forward_train(cfg: ArchConfig, params, tokens, collect_cache=False):
     """Train / prefill forward -> (hidden (B,S,D), aux[, cache pieces]).
 
-    aux is the MoE load-balancing loss of the reference, 0 for the dense
-    family.  collect_cache: also return the per-layer KV pieces, stacked
-    along a leading layers axis, as ``(KVCache, None, None)`` (the
-    reference's (pieces, dense_pieces, enc_out))."""
+    aux is the sum of the MoE layers' load-balancing losses, 0 for the
+    dense family.  collect_cache: also return the per-layer KV (or MLA
+    latent) pieces, stacked along a leading layers axis, as
+    ``(pieces, dense_pieces, None)`` (the reference's (pieces,
+    dense_pieces, enc_out)); dense_pieces are those of deepseek's
+    leading dense blocks, else None."""
     _check_family(cfg)
     cd = torch_dtype(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, cfg.embed_scale).to(cd)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    pieces = []
-    for blk in params["blocks"]:
-        if collect_cache:
-            x, piece = _attn_block(cfg, blk, x, positions, collect=True)
-            pieces.append(piece)
-        else:
-            x = _attn_block(cfg, blk, x, positions)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    dense_pieces = None
+    if "dense_blocks" in params:
+        x, a, dense_pieces = _run_blocks(cfg, params["dense_blocks"], x,
+                                         positions, collect_cache)
+        aux = aux + a
+    x, a, pieces = _run_blocks(cfg, params["blocks"], x, positions,
+                               collect_cache)
+    aux = aux + a
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if collect_cache:
-        stacked = ATT.KVCache(k=torch.stack([p.k for p in pieces]),
-                              v=torch.stack([p.v for p in pieces]))
-        return x, aux, (stacked, None, None)
+        return x, aux, (pieces, dense_pieces, None)
     return x, aux
 
 
 # ================================================================ decode
 
 class DecodeCache(NamedTuple):
-    layers: Any            # KVCache stacked over layers
-    dense_layers: Any      # deepseek's leading dense blocks: None here
+    layers: Any            # KVCache or MLACache stacked over layers
+    dense_layers: Any      # the same for deepseek's leading dense blocks
     enc_out: Any           # encdec cross-attention memory: None here
+
+
+def _layer_cache(cfg, batch, max_len, dtype, device, n):
+    init = ATT.mla_init_cache if cfg.mla else ATT.gqa_init_cache
+    one = init(cfg, batch, max_len, dtype, device)
+    return type(one)(*(f[None].repeat(n, *(1,) * f.ndim) for f in one))
 
 
 def cache_zeros(cfg: ArchConfig, batch, max_len, dtype=torch.bfloat16,
                 device: DeviceLike = None) -> DecodeCache:
     _check_family(cfg)
     dev = resolve_device(device)
-    one = ATT.gqa_init_cache(cfg, batch, max_len, torch_dtype(dtype), dev)
-    layers = ATT.KVCache(
-        k=one.k[None].repeat(cfg.n_layers, 1, 1, 1, 1),
-        v=one.v[None].repeat(cfg.n_layers, 1, 1, 1, 1))
-    return DecodeCache(layers=layers, dense_layers=None, enc_out=None)
+    dt = torch_dtype(dtype)
+    nd = _n_dense(cfg)
+    layers = _layer_cache(cfg, batch, max_len, dt, dev, cfg.n_layers - nd)
+    dense = _layer_cache(cfg, batch, max_len, dt, dev, nd) if nd else None
+    return DecodeCache(layers=layers, dense_layers=dense, enc_out=None)
 
 
 def _attn_block_decode(cfg, blk, x, cache, positions):
     h = L.rmsnorm(blk["ln1"], x, cfg.norm_eps)
-    h, cache = ATT.gqa_decode(cfg, blk["attn"], h, cache, positions)
+    decode = ATT.mla_decode if cfg.mla else ATT.gqa_decode
+    h, cache = decode(cfg, blk["attn"], h, cache, positions)
     x = x + h
-    h = L.rmsnorm(blk["ln2"], x, cfg.norm_eps)
-    return x + L.mlp(blk["ffn"], h, cfg.act, cfg.gated), cache
+    h, _ = _ffn(cfg, blk, L.rmsnorm(blk["ln2"], x, cfg.norm_eps))
+    return x + h, cache
+
+
+def _decode_blocks(cfg, blocks, x, stacked, positions):
+    for i, blk in enumerate(blocks):
+        layer = type(stacked)(*(f[i] for f in stacked))    # views
+        x, _ = _attn_block_decode(cfg, blk, x, layer, positions)
+    return x
 
 
 def decode_step(cfg: ArchConfig, params, cache: DecodeCache, tokens,
@@ -145,35 +211,40 @@ def decode_step(cfg: ArchConfig, params, cache: DecodeCache, tokens,
     _check_family(cfg)
     cd = torch_dtype(cfg.compute_dtype)
     x = L.embed(params["embed"], tokens, cfg.embed_scale).to(cd)
-    for i, blk in enumerate(params["blocks"]):
-        layer = ATT.KVCache(k=cache.layers.k[i], v=cache.layers.v[i])
-        x, _ = _attn_block_decode(cfg, blk, x, layer, positions)
+    if "dense_blocks" in params:
+        x = _decode_blocks(cfg, params["dense_blocks"], x,
+                           cache.dense_layers, positions)
+    x = _decode_blocks(cfg, params["blocks"], x, cache.layers, positions)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed_logits(params["embed"], x, real_vocab=cfg.vocab)
     return logits, cache
 
 
-def _pad_piece(piece: ATT.KVCache, max_len) -> ATT.KVCache:
-    """Left-align stacked prefill pieces (L, B, H, S, hd) into max_len
-    buffers along the sequence axis."""
-    def pad(x):
-        return torch.nn.functional.pad(x, (0, 0, 0, max_len - x.shape[3]))
+def _pad_piece(piece, max_len, dtype):
+    """Left-align stacked prefill pieces into max_len buffers along the
+    sequence axis, in ``dtype``: KV (L,B,H,S,hd) on axis 3, MLA
+    (L,B,S,r) on axis 2."""
+    axis = 3 if isinstance(piece, ATT.KVCache) else 2
 
-    return ATT.KVCache(k=pad(piece.k), v=pad(piece.v))
+    def pad(x):
+        widths = [0, 0] * (x.ndim - 1 - axis) + [0, max_len - x.shape[axis]]
+        return torch.nn.functional.pad(x, widths).to(dtype)
+
+    return type(piece)(*(pad(f) for f in piece))
 
 
 def prefill(cfg: ArchConfig, params, tokens, max_len):
     """Run the full prompt once, returning (last-token logits, a decode
-    cache valid for positions < S, next position S).  The KV pieces are
-    captured in the same pass as the forward and left-aligned into
-    max_len buffers in the compute dtype."""
+    cache valid for positions < S, next position S).  The KV / latent
+    pieces are captured in the same pass as the forward and left-aligned
+    into max_len buffers in the compute dtype."""
     S = tokens.shape[1]
-    x, _, (pieces, _, _) = forward_train(cfg, params, tokens,
-                                         collect_cache=True)
+    x, _, (pieces, dense_pieces, _) = forward_train(cfg, params, tokens,
+                                                    collect_cache=True)
     logits = L.unembed_logits(params["embed"], x[:, -1:],
                               real_vocab=cfg.vocab)
     cd = torch_dtype(cfg.compute_dtype)
-    padded = _pad_piece(pieces, max_len)
-    layers = ATT.KVCache(k=padded.k.to(cd), v=padded.v.to(cd))
-    return logits, DecodeCache(layers=layers, dense_layers=None,
-                               enc_out=None), S
+    dense = (_pad_piece(dense_pieces, max_len, cd)
+             if dense_pieces is not None else None)
+    return logits, DecodeCache(layers=_pad_piece(pieces, max_len, cd),
+                               dense_layers=dense, enc_out=None), S

@@ -2,10 +2,13 @@
 static-shape KV cache; greedy or temperature sampling; per-request stop.
 Port of the reference's ``repro.serve.engine``.
 
-The reference ``jit``s its prefill and decode step; here both run
-eagerly (no CUDA graphs yet), on the device of the parameters.  Prefill
-goes through the port's flash attention op (the hand-written kernel on
-the card); decode is plain torch ops over the cache, updated in place.
+It serves the families ``models.model`` ports: dense (Gemma-2B and its
+kin) and moe (mixtral-8x22b, deepseek-v3-671b with MLA).  The reference
+``jit``s its prefill and decode step; here both run eagerly (no CUDA
+graphs yet), on the device of the parameters.  Prefill goes through the
+port's flash attention op (the hand-written kernel on the card); decode
+is plain torch ops over the cache (KV, or MLA's latent), updated in
+place.
 Temperature sampling draws from a ``torch.Generator`` seeded with
 ``GenerationConfig.seed`` (the reference's ``jax.random`` stream cannot
 be reproduced; greedy decoding is the same in both packages).

@@ -560,6 +560,43 @@ def test_cuda_flash_wgmma_matches_fp32_math(cuda_device, D, B, Hq, Hkv, S,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,Hq,Hkv,S,D,Dv,window", [
+    (torch.bfloat16, 1, 4, 4, 300, 192, 128, None),   # MLA: the mma route
+    (torch.bfloat16, 2, 6, 1, 200, 128, 64, 50),      # the wgmma route
+    (torch.float32, 1, 4, 2, 77, 24, 16, None),       # the fp32 route
+])
+def test_cuda_flash_takes_a_narrower_value_head_dim(cuda_device, dtype, B,
+                                                    Hq, Hkv, S, D, Dv,
+                                                    window):
+    """v (B, Hkv, S, Dv) with Dv < D: one launch on v padded to D, the
+    first Dv columns returned, against fp32 math on the same inputs."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(S + Dv)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+               for shape in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, Dv)))
+    name = f"flash_attention_{KF.kernel_variant(dtype, D)}"
+    before = dict(KF.LAUNCHES)
+    got = flash_attention(q, k, v, causal=True, window=window)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=True,
+                         window=window)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in KF.LAUNCHES.items()} == {
+        n: int(n == name) for n in KF.LAUNCHES}
+    assert got.dtype == dtype and got.shape == (B, Hq, S, Dv)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(convert.to_numpy(got),
+                                   convert.to_numpy(want), rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        _bf16_close(got, want)
+    with pytest.raises(ValueError, match="Dv <= D"):
+        flash_attention(q[..., :Dv].contiguous(), k[..., :Dv].contiguous(),
+                        torch.cat([v, v], dim=-1))
+
+
+@pytest.mark.cuda
 def test_cuda_flash_gradient_recomputes_through_the_plain_version(
         cuda_device):
     from repro_torch.kernels.flash_attention import flash_attention
@@ -706,6 +743,35 @@ def test_cuda_engine_runs_through_the_flash_kernel(cuda_device,
         got = M.prefill(cfg, P, tok.to(cuda_device), 160)[0].float().cpu()
         want = M.prefill(cfg, Pc, tok, 160)[0].float()
         assert float((got - want).norm() / want.norm()) <= 2 ** -6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b"])
+def test_cuda_moe_engine_runs_through_the_flash_kernel(cuda_device, arch):
+    """A reduced mixtral (window cut to 64, so it masks) and deepseek (MLA,
+    a leading dense layer, a shared expert) served on the card in fp32:
+    one flash launch per layer per prefill and the greedy tokens of the
+    CPU engine on the same weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.serve import GenerationConfig, ServeEngine
+
+    cfg = get_reduced_config(arch)
+    if cfg.window:
+        cfg = dataclasses.replace(cfg, window=64)
+    P = M.init_params(cfg, seed=1, device=cuda_device)
+    Pc = M.init_params(cfg, seed=1, device="cpu")
+    Pc.load_state_dict({k: v.cpu() for k, v in P.state_dict().items()})
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 150))
+    gen = GenerationConfig(max_new_tokens=5)
+    KF.reset_launch_counts()
+    out = ServeEngine(cfg, P, max_len=160).generate(prompts, gen)
+    assert KF.LAUNCHES["flash_attention_f32"] == cfg.n_layers
+    assert sum(KF.LAUNCHES.values()) == cfg.n_layers
+    np.testing.assert_array_equal(
+        out, ServeEngine(cfg, Pc, max_len=160).generate(prompts, gen))
 
 
 # ------------------------------------- SELL-C-σ: the redesigned row kernels

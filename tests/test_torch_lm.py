@@ -1,6 +1,15 @@
 """The port's LM serve path (``repro_torch.models``, ``serve``, ``launch``)
 against the reference on reduced configs, with the reference's weights
-carried across by ``convert.lm_state_dict``.
+carried across by ``convert.lm_state_dict``: the dense family and the
+moe family (mixtral: MoE with GQA and a sliding window; deepseek: MoE
+with a shared expert, a leading dense layer and MLA).
+
+Decode against a full forward agrees only where no (token, expert) pair
+drops: the forward over S + 1 tokens may drop the last position's
+pairs, the decode step with its own capacity does not.  The MoE
+teacher-forcing checks therefore run under a capacity factor of
+n_experts / top_k (C = T); the comparisons with the reference keep the
+published 1.25, since both packages drop the same pairs.
 
 Tolerances: in fp32 (the reduced configs' compute dtype), activations
 to rtol/atol 1e-5 and logits, whose magnitude reaches ~100 (the
@@ -38,13 +47,23 @@ torch.set_num_threads(1)
 ACT = dict(rtol=1e-5, atol=1e-5)
 LOGITS = dict(rtol=1e-5, atol=1e-4)
 DENSE = ["gemma-2b", "internlm2-20b", "granite-8b", "chatglm3-6b"]
+MOE_ARCHS = ["mixtral-8x22b", "deepseek-v3-671b"]
 
 
-def _pair(cfg_name, seed=0, **override):
+def _no_drop(cfg):
+    """cfg with capacity factor n_experts / top_k: C = T, no pair drops."""
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+
+
+def _pair(cfg_name, seed=0, no_drop=False, **override):
     """(port cfg, port params, reference cfg, reference params) with the
     reference's weights loaded into the port."""
     rcfg = dataclasses.replace(ref_reduced(cfg_name), **override)
     cfg = dataclasses.replace(get_reduced_config(cfg_name), **override)
+    if no_drop:
+        cfg, rcfg = _no_drop(cfg), _no_drop(rcfg)
     rp = RM.init_params(rcfg, jax.random.PRNGKey(seed))
     P = M.init_params(cfg, device="cpu")
     P.load_state_dict(convert.lm_state_dict(jax.tree.map(np.asarray, rp)))
@@ -92,6 +111,39 @@ def test_state_dict_keys_and_shapes_follow_reference():
         sd["blocks.1.ffn.gate"].numpy(),
         np.asarray(rp["blocks"]["ffn"]["gate"][1]))
     assert sd["embed.table"].shape == (cfg.padded_vocab, cfg.d_model)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_state_dict_keys_and_shapes_follow_reference(arch):
+    """One key a leaf and layer of each stacked run (``blocks`` and
+    deepseek's ``dense_blocks``): the router, the (E, ., .) expert
+    weights, the shared expert and MLA's projections."""
+    cfg, P, rcfg, rp = _pair(arch)
+    sd = P.state_dict()
+    n_leaves = {name: len(jax.tree.leaves(rp[name]))
+                for name in ("blocks", "dense_blocks") if name in rp}
+    nd = cfg.moe.first_dense
+    assert len(sd) == 2 + n_leaves["blocks"] * (cfg.n_layers - nd) + (
+        n_leaves.get("dense_blocks", 0) * nd)
+    m = cfg.moe
+    E, d = m.n_experts, cfg.d_model
+    assert sd["blocks.0.ffn.router"].shape == (d, E)
+    assert sd["blocks.0.ffn.up"].shape == (E, d, m.d_expert)
+    assert sd["blocks.0.ffn.down"].shape == (E, m.d_expert, d)
+    np.testing.assert_array_equal(
+        sd[f"blocks.{cfg.n_layers - nd - 1}.ffn.gate"].numpy(),
+        np.asarray(rp["blocks"]["ffn"]["gate"][-1]))
+    if arch == "deepseek-v3-671b":
+        assert sd["dense_blocks.0.ffn.up"].shape == (d, cfg.d_ff)
+        assert sd["blocks.1.ffn.shared.up"].shape == (d, m.d_expert)
+        np.testing.assert_array_equal(
+            sd["dense_blocks.0.attn.wkv_a"].numpy(),
+            np.asarray(rp["dense_blocks"]["attn"]["wkv_a"][0]))
+        assert "blocks.0.attn.wq" not in sd
+    else:
+        assert "dense_blocks.0.ln1.scale" not in sd
+        assert sd["blocks.1.attn.wk"].shape == rp["blocks"]["attn"][
+            "wk"].shape[1:]
 
 
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
@@ -154,32 +206,52 @@ def test_embed_and_unembed_match_reference():
     assert float(got[..., 500:].max()) < -1e29
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE_ARCHS)
 def test_forward_train_matches_reference(arch):
+    """Hidden states and aux: the sum of the MoE layers' Switch losses
+    (0 for the dense family)."""
     cfg, P, rcfg, rp = _pair(arch, seed=1)
     toks = _tokens(cfg, 2, 12, seed=1)
     x, aux = M.forward_train(cfg, P, torch.from_numpy(toks))
     rx, raux = RM.forward_train(rcfg, rp, jnp.asarray(toks))
     np.testing.assert_allclose(_np(x), np.asarray(rx), **ACT)
-    assert float(aux) == float(raux) == 0.0
+    if cfg.moe is None:
+        assert float(aux) == float(raux) == 0.0
+    else:
+        assert float(raux) > 0
+        np.testing.assert_allclose(float(aux), float(raux), **ACT)
 
 
-@pytest.mark.parametrize("window", [None, 5])
-def test_prefill_and_decode_match_reference(window):
+def _assert_cache_close(got, want):
+    """A stacked KVCache / MLACache (or None) against the reference's."""
+    assert (got is None) == (want is None)
+    if got is None:
+        return
+    assert type(got).__name__ == type(want).__name__
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(_np(g), np.asarray(w), **ACT)
+
+
+@pytest.mark.parametrize("arch,window", [
+    pytest.param("gemma-2b", None, id="None"),
+    pytest.param("gemma-2b", 5, id="5"),
+    pytest.param("mixtral-8x22b", 4, id="mixtral-8x22b-4"),
+    pytest.param("deepseek-v3-671b", None, id="deepseek-v3-671b")])
+def test_prefill_and_decode_match_reference(arch, window):
     """Prefill logits and cache, then three decode steps, each step's
-    logits and the cache it leaves (a sliding window of 5 exercises the
-    windowed masks of both the prefill and the decode)."""
-    cfg, P, rcfg, rp = _pair("gemma-2b", seed=2, window=window)
+    logits and the cache it leaves (a sliding window of 5, or mixtral's
+    window cut to 4, exercises the windowed masks of both the prefill
+    and the decode; deepseek's cache is MLA latents, its leading dense
+    layer in ``dense_layers``)."""
+    cfg, P, rcfg, rp = _pair(arch, seed=2, window=window)
     toks = _tokens(cfg, 2, 9, seed=2)
     logits, cache, pos = M.prefill(cfg, P, torch.from_numpy(toks), 16)
     rlogits, rcache, rpos = RM.prefill(rcfg, rp, jnp.asarray(toks), 16)
     assert pos == rpos == 9
     np.testing.assert_allclose(_np(logits), np.asarray(rlogits), **LOGITS)
-    assert cache.layers.k.shape == rcache.layers.k.shape
-    np.testing.assert_allclose(_np(cache.layers.k),
-                               np.asarray(rcache.layers.k), **ACT)
-    np.testing.assert_allclose(_np(cache.layers.v),
-                               np.asarray(rcache.layers.v), **ACT)
+    _assert_cache_close(cache.layers, rcache.layers)
+    _assert_cache_close(cache.dense_layers, rcache.dense_layers)
     nxt = toks[:, -1:]
     for i in range(3):
         positions = np.full((2, 1), pos + i, np.int32)
@@ -191,8 +263,8 @@ def test_prefill_and_decode_match_reference(window):
                                    **LOGITS)
         nxt = np.asarray(jnp.argmax(rlogits[:, -1], -1))[:, None].astype(
             np.int32)
-    np.testing.assert_allclose(_np(cache.layers.k),
-                               np.asarray(rcache.layers.k), **ACT)
+    _assert_cache_close(cache.layers, rcache.layers)
+    _assert_cache_close(cache.dense_layers, rcache.dense_layers)
 
 
 def test_cache_zeros_matches_reference_layout():
@@ -204,9 +276,24 @@ def test_cache_zeros_matches_reference_layout():
     assert c.dense_layers is None and c.enc_out is None
 
 
-def test_engine_greedy_tokens_equal_reference_engine():
-    cfg, P, rcfg, rp = _pair("gemma-2b", seed=3)
-    prompts = _tokens(cfg, 2, 8, seed=3)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_cache_zeros_matches_reference_layout(arch):
+    c = M.cache_zeros(get_reduced_config(arch), 3, 20, device="cpu")
+    rc = RM.cache_zeros(ref_reduced(arch), 3, 20)
+    for got, want in ((c.layers, rc.layers),
+                      (c.dense_layers, rc.dense_layers)):
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert type(got).__name__ == type(want).__name__
+            assert [f.shape for f in got] == [f.shape for f in want]
+            assert all(f.dtype == torch.bfloat16 and not f.any()
+                       for f in got)
+    assert c.enc_out is None
+
+
+def _engine_tokens_equal_reference(arch, seed):
+    cfg, P, rcfg, rp = _pair(arch, seed=seed)
+    prompts = _tokens(cfg, 2, 8, seed=seed)
     gen = dict(max_new_tokens=6, temperature=0.0)
     got = ServeEngine(cfg, P, max_len=32).generate(
         prompts, GenerationConfig(**gen))
@@ -216,11 +303,18 @@ def test_engine_greedy_tokens_equal_reference_engine():
     np.testing.assert_array_equal(got, want)
 
 
-def test_engine_matches_teacher_forcing():
-    """Greedy engine tokens == argmax of the full forward, step by step
-    (the in-place cache updates of decode agree with recomputing)."""
-    cfg, P, _, _ = _pair("gemma-2b", seed=4)
-    prompt = _tokens(cfg, 1, 6, seed=4)
+def test_engine_greedy_tokens_equal_reference_engine():
+    _engine_tokens_equal_reference("gemma-2b", seed=3)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_engine_greedy_tokens_equal_reference_engine(arch):
+    _engine_tokens_equal_reference(arch, seed=3)
+
+
+def _engine_matches_teacher_forcing(arch, seed, **pair):
+    cfg, P, _, _ = _pair(arch, seed=seed, **pair)
+    prompt = _tokens(cfg, 1, 6, seed=seed)
     out = ServeEngine(cfg, P, max_len=32).generate(
         prompt, GenerationConfig(max_new_tokens=4))
     seq = prompt.copy()
@@ -230,6 +324,20 @@ def test_engine_matches_teacher_forcing():
         nxt = int(torch.argmax(logits[0, -1]))
         assert nxt == int(out[0, i]), f"step {i}"
         seq = np.concatenate([seq, [[nxt]]], axis=1)
+
+
+def test_engine_matches_teacher_forcing():
+    """Greedy engine tokens == argmax of the full forward, step by step
+    (the in-place cache updates of decode agree with recomputing)."""
+    _engine_matches_teacher_forcing("gemma-2b", seed=4)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_engine_matches_teacher_forcing_without_drops(arch):
+    """As the dense case, under C = T (no pair drops): the in-place
+    GQA / MLA cache updates and the MoE's per-step capacity agree with
+    recomputing."""
+    _engine_matches_teacher_forcing(arch, seed=4, no_drop=True)
 
 
 def test_engine_sampling_is_seeded_and_stops_at_eos():
@@ -252,9 +360,9 @@ def test_engine_sampling_is_seeded_and_stops_at_eos():
         engine.generate(prompts, GenerationConfig(max_new_tokens=40))
 
 
-def test_bf16_forward_matches_reference_within_bf16_bound():
-    cfg, P, rcfg, rp = _pair("gemma-2b", seed=6, compute_dtype="bfloat16")
-    toks = _tokens(cfg, 2, 10, seed=6)
+def _bf16_prefill_within_bound(arch, seed):
+    cfg, P, rcfg, rp = _pair(arch, seed=seed, compute_dtype="bfloat16")
+    toks = _tokens(cfg, 2, 10, seed=seed)
     logits, _, _ = M.prefill(cfg, P, torch.from_numpy(toks), 16)
     rlogits, _, _ = RM.prefill(rcfg, rp, jnp.asarray(toks), 16)
     assert logits.dtype == torch.bfloat16
@@ -263,8 +371,18 @@ def test_bf16_forward_matches_reference_within_bf16_bound():
     assert rel <= 2 ** -6, rel
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b",
-                                  "mamba2-780m", "jamba-1.5-large-398b",
+def test_bf16_forward_matches_reference_within_bf16_bound():
+    _bf16_prefill_within_bound("gemma-2b", seed=6)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_bf16_forward_matches_reference_within_bf16_bound(arch):
+    """The whole model in bf16 (routing included) at the dense case's
+    2^-6."""
+    _bf16_prefill_within_bound(arch, seed=6)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-1.5-large-398b",
                                   "whisper-small", "internvl2-1b"])
 def test_unported_families_raise_naming_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -277,3 +395,12 @@ def test_launch_serve_runs_reduced_on_cpu(capsys):
                              "--max-new", "3"])
     assert out.shape == (2, 3)
     assert "on cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_launch_serve_runs_moe_reduced_on_cpu(arch, capsys):
+    out = launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                             "--batch", "2", "--prompt-len", "5",
+                             "--max-new", "3"])
+    assert out.shape == (2, 3)
+    assert f"{arch} on cpu" in capsys.readouterr().out
