@@ -84,9 +84,10 @@ Phases, none of which catches its own failure:
      raises BackendUnavailableError.
   9. dense kernels: flash attention at Gemma-2B's serve shape (B 4,
      Hq 8, Hkv 1, S 2048, D 256, bf16, causal), at a ragged S = 1000,
-     with window = 512, at D 128 with group 4 and at mixtral-8x22b's
-     prefill shape (B 2, Hq 48, Hkv 8, S 6144, D 128, window 4096; all
-     five on the wgmma kernel), then the mma.sync kernel at
+     with window = 512, at D 128 with group 4, at mixtral-8x22b's
+     prefill shape (B 2, Hq 48, Hkv 8, S 6144, D 128, window 4096) and
+     at jamba-1.5-large's (B 2, Hq 64, Hkv 8, S 4096, D 128, causal; all
+     six on the wgmma kernel), then the mma.sync kernel at
      deepseek-v3's MLA prefill shape (B 4, Hq = Hkv = 128, S 2048, q/k
      head dim 192, value head dim 128: the op pads v to 192 and keeps
      128 columns) and at D 32, and the fp32 kernel at
@@ -117,20 +118,32 @@ Phases, none of which catches its own failure:
      decode; capacity factor 1.25); DeepSeek-V3 (bf16 parameters, 5 of
      61 layers: the 3 dense and 2 MoE layers, printed as a cut; 4
      requests of 2048 tokens; MLA, 256 routed experts top 8 plus the
-     shared one).  Each fails unless the prefill launched the flash
-     kernel its head dim routes to once per layer and no other (wgmma
-     for Gemma and mixtral, mma for deepseek's D 192), the logits are
+     shared one); mamba2-780m (fp32 parameters, all 48 layers,
+     attention-free; 4 requests of 2048 tokens, 8 SSD chunks each);
+     Jamba-1.5-Large (bf16 parameters, 5 of 72 layers: Mamba2 + MLP,
+     Mamba2 + MoE twice, then attention + MLP, printed as a cut with its
+     parameter count; 2 requests of 4096 tokens; 16 experts top 2 at
+     capacity factor 1.25).  Each fails unless the prefill launched the
+     flash kernel its head dim routes to once per attention layer and
+     no other (wgmma for Gemma, mixtral and jamba, mma for deepseek's
+     D 192, none for mamba2, whose kernel-vs-plain check is printed as
+     vacuous), the logits are
      finite, the last-token prefill logits through the kernel are within
      2^-5 relative of the same prefill through the plain attention (the
      router picks that differ between the two printed beside it), and
      one decode step's logits are within 2^-5 relative of a full
      forward's over the same tokens (the MoE models under a capacity
      factor of n_experts / top_k, C = T, so no pair drops in either; on
-     deepseek's 128-token prompts, where the no-drop buffer fits).  Each
-     MoE layer's dropped pairs and largest expert load over C in the
-     prefill are printed, from the port's router on the layer's input,
-     outside the timed run; and a profiler window of one decode step and
-     one prefill.
+     deepseek's 128-token prompts, where the no-drop buffer fits; on
+     255-token prompts for mamba2 and jamba, whose SSD takes one chunk
+     of 256 or a multiple).  Each MoE layer's dropped pairs and largest
+     expert load over C in the prefill are printed, from the port's
+     router on the layer's input, outside the timed run; and a profiler
+     window of one decode step and one prefill.  For mamba2 and jamba,
+     layer 0's ``mamba_train`` over 1024 tokens (4 chunks: the
+     inter-chunk scan) must agree within 2^-5 relative, outputs and
+     final state, with ``mamba_decode`` run token by token from a zero
+     fp32 cache.
  11. resilience and telemetry, on the SELL-C-σ graph of phases 2-4
      (C = 32, k = 4, fp32): (a) ``solver="guarded", validate=True,
      trace=True`` with matrix_free HVPs: it fails unless the recovery
@@ -1892,11 +1905,12 @@ def _compare_bf16(name, got, ref32, torch) -> tuple:
 
 def flash_kernel_phase(torch) -> list:
     """Flash attention against its plain version at the serve shape and
-    four variants on the wgmma kernel (mixtral's D 128, group 6, window
-    4096 among them), then the mma.sync kernel at MLA's D 192 with a
+    five variants on the wgmma kernel (mixtral's D 128, group 6, window
+    4096 and jamba's D 128, group 8 among them), then the mma.sync kernel at MLA's D 192 with a
     value head dim of 128 (deepseek's prefill) and at D 32, and the
     fp32 kernel; returns the rows of the two kernels the serve paths
-    run: wgmma (Gemma's and mixtral's prefill) and mma (deepseek's)."""
+    run: wgmma (Gemma's, mixtral's and jamba's prefill) and mma
+    (deepseek's)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as KF
@@ -1910,6 +1924,10 @@ def flash_kernel_phase(torch) -> list:
         # mixtral-8x22b's prefill: 48 q heads over 8 kv heads, a window
         # that masks at S 6144
         ("mixtral_D128_group6_window4096", 2, 48, 8, 6144, 128, 128, 4096,
+         torch.bfloat16),
+        # jamba-1.5-large's prefill (its one attention layer a group): 64
+        # q heads over 8 kv heads, causal, no window
+        ("jamba_D128_group8", 2, 64, 8, 4096, 128, 128, None,
          torch.bfloat16),
         # deepseek-v3's MLA prefill: q/k 128 + 64 rotary, v 128 (padded
         # to 192 by the op)
@@ -1999,7 +2017,8 @@ def flash_kernel_phase(torch) -> list:
 
     return [kernel_row("wgmma", "flash_attention_wgmma.cu", "serve",
                        ["ragged_S1000", "window512", "D128_group4",
-                        "mixtral_D128_group6_window4096"]),
+                        "mixtral_D128_group6_window4096",
+                        "jamba_D128_group8"]),
             kernel_row("mma", "flash_attention.cu", "mla_D192_Dv128",
                        ["mma_D32"])]
 
@@ -2295,20 +2314,96 @@ LM_CELLS = {  # arch: (layers run or None for all, requests, prompt, new,
     # the no-drop decode check's (256, T, 7168) buffer is 30 GB at 4 x
     # 2049 tokens, 1.9 GB at 4 x 129
     "deepseek-v3-671b": (5, 4, 2048, 32, 128),
+    # the SSD takes a prompt of at most one chunk (256) or a multiple of
+    # it, so the decode check's forward runs over 255 + 1 tokens
+    "mamba2-780m": (None, 4, 2048, 32, 255),
+    # 5 of 72 layers: m+MLP, m+MoE, m+MLP, m+MoE, a+MLP (every kind of
+    # layer jamba has; 6 would add a MoE layer, 67 GB of weights)
+    "jamba-1.5-large-398b": (5, 2, 4096, 32, 255),
 }
+SCAN_CHECK_TOKENS = 1024       # the SSD scan check: 4 chunks of 256
+
+
+def _cut(full, n_layers):
+    """The config at full width with its depth cut to n_layers (a hybrid
+    model's group pattern cut with it)."""
+    if n_layers is None:
+        return full
+    if full.family == "hybrid":
+        return dataclasses.replace(full, n_layers=n_layers,
+                                   hybrid_group=full.hybrid_group[:n_layers])
+    return dataclasses.replace(full, n_layers=n_layers)
+
+
+def _attention_layers(cfg) -> int:
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.hybrid_group.count("a") * (cfg.n_layers
+                                              // len(cfg.hybrid_group))
+    return cfg.n_layers
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def ssd_scan_check(tag, cfg, params, tok, torch) -> dict:
+    """Layer 0's Mamba2 block over SCAN_CHECK_TOKENS tokens (several SSD
+    chunks, so the inter-chunk scan runs): ``mamba_train(...,
+    return_state=True)`` against ``mamba_decode`` token by token from a
+    zero fp32 cache (the exact recurrence), on the layer's real input
+    (the normed embeddings of the prompt).  It fails unless the outputs
+    and the final state agree within LM_TOL relative."""
+    from repro_torch.device import torch_dtype
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as SSM
+
+    blk = params["blocks"][0]
+    if cfg.family == "hybrid":
+        blk = blk["sub0"]
+    n = SCAN_CHECK_TOKENS
+    with torch.no_grad():
+        x = L.embed(params["embed"], tok[:, :n], cfg.embed_scale).to(
+            torch_dtype(cfg.compute_dtype))
+        h = L.rmsnorm(blk["ln1"], x, cfg.norm_eps)
+        y, c = SSM.mamba_train(cfg, blk["mamba"], h, return_state=True)
+        cache = SSM.mamba_init_cache(cfg, h.shape[0], torch.float32,
+                                     device="cuda")
+        t0 = time.perf_counter()
+        steps = torch.cat([SSM.mamba_decode(cfg, blk["mamba"],
+                                            h[:, t:t + 1], cache)[0]
+                           for t in range(n)], dim=1)
+        torch.cuda.synchronize()
+        out = dict(tokens=n, chunks=n // cfg.ssm.chunk,
+                   out_rel_err=_rel(steps, y),
+                   state_rel_err=_rel(cache.state, c.state),
+                   conv_tail_max_abs_diff=float(
+                       (cache.conv - c.conv.float()).abs().max()),
+                   recurrence_s=time.perf_counter() - t0,
+                   tolerance=LM_TOL)
+    print(f"{tag} ssd scan check (layer 0, mamba_train over "
+          f"{out['chunks']} chunks vs mamba_decode token by token, fp32 "
+          f"cache): {out}", flush=True)
+    if not (out["out_rel_err"] <= LM_TOL and out["state_rel_err"] <= LM_TOL):
+        raise AssertionError(f"{tag}: the chunked SSD disagrees with the "
+                             "recurrence")
+    return out
 
 
 def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
     """One model of ``LM_CELLS`` at full width (depth cut where the cell
     says, printed) through the ServeEngine; returns (launch counts of the
     served run, summary).  It fails unless the prefill launched the
-    flash kernel its head dim routes to once per layer (and no other),
-    the logits are finite and the tokens in the vocabulary, the
-    last-token prefill logits through the kernel are within 2^-5
-    relative of the same prefill through the plain attention, and one
-    decode step's logits are within 2^-5 relative of a full forward's
-    over the same tokens (MoE: under a capacity factor of n_experts /
-    top_k, so that no pair drops in either)."""
+    flash kernel its head dim routes to once per attention layer (and
+    no other; none for the attention-free mamba2), the logits are
+    finite and the tokens in the vocabulary, the last-token prefill
+    logits through the kernel are within 2^-5 relative of the same
+    prefill through the plain attention (vacuous without attention, and
+    printed so), and one decode step's logits are within 2^-5 relative
+    of a full forward's over the same tokens (MoE: under a capacity
+    factor of n_experts / top_k, so that no pair drops in either); a
+    model with Mamba2 layers also runs ``ssd_scan_check``."""
     from unittest import mock
 
     from repro_torch.configs import get_config
@@ -2321,26 +2416,31 @@ def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
 
     n_layers, B, S, new, check_S = LM_CELLS[arch]
     full = get_config(arch)
-    cfg = (full if n_layers is None
-           else dataclasses.replace(full, n_layers=n_layers))
+    cfg = _cut(full, n_layers)
     tag = "lm_serve" if arch == "gemma-2b" else f"lm_serve/{arch}"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
+    param_gb = sum(p.numel() * p.element_size()
+                   for p in params.parameters()) / 1e9
     D = (cfg.mla.nope_dim + cfg.mla.rope_dim if cfg.mla
          else cfg.resolved_head_dim)
-    variant = KF.kernel_variant(torch.bfloat16, D)
+    n_attn = _attention_layers(cfg)
+    variant = KF.kernel_variant(torch.bfloat16, D) if n_attn else None
     print(f"{tag}: {cfg.name} n_layers={cfg.n_layers} "
           f"d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
           f"qk_head_dim={D} d_ff={cfg.d_ff} moe={cfg.moe} mla={cfg.mla} "
+          f"ssm={cfg.ssm} layer_pattern={''.join(cfg.hybrid_group)} "
           f"window={cfg.window} vocab={cfg.padded_vocab} params={n_params} "
-          f"({cfg.params_dtype}, compute {cfg.compute_dtype}) "
+          f"({param_gb!r} GB {cfg.params_dtype}, compute "
+          f"{cfg.compute_dtype}) attention_layers={n_attn} "
           f"init_s={time.perf_counter() - t0!r}", flush=True)
     if n_layers is not None:
         print(f"{tag}: depth cut to {n_layers} of {full.n_layers} layers "
-              "(full width)", flush=True)
+              f"(full width): {n_params} parameters, {param_gb!r} GB",
+              flush=True)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab, (B, S)).astype(np.int32)
     engine = ServeEngine(cfg, params, max_len=S + new)
@@ -2362,10 +2462,11 @@ def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
         prompt_tokens_per_s=B * S / t["prefill_s"],
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
         flash_launches=flash, n_layers=cfg.n_layers,
-        full_n_layers=full.n_layers, params=n_params)
+        full_n_layers=full.n_layers, params=n_params, params_gb=param_gb,
+        attention_layers=n_attn)
     print(f"{tag}: {summary}", flush=True)
     print(f"{tag}: first request's tokens {out[0].tolist()}", flush=True)
-    want = {k: cfg.n_layers if k == f"flash_attention_{variant}" else 0
+    want = {k: n_attn if k == f"flash_attention_{variant}" else 0
             for k in flash}
     if flash != want:
         raise AssertionError(f"{tag}: flash launches {flash}, expected "
@@ -2374,7 +2475,9 @@ def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
         raise AssertionError(f"{tag}: token ids out of the vocabulary")
 
     def rel(a, b):
-        return float((a.float() - b.float()).norm() / b.float().norm())
+        # over the real vocabulary: the padded rows' -1e30 logits would
+        # overflow the fp32 norm (inf) and read as an error of 0
+        return _rel(a[..., :cfg.vocab], b[..., :cfg.vocab])
 
     no_drop = cfg
     if cfg.moe is not None:
@@ -2446,6 +2549,9 @@ def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
         decode_check_dropped=[int(c["dropped"]) for c in cc + dc + fc + gc],
         tolerance=LM_TOL, logits_finite=bool(torch.isfinite(lk).all()
                                              and torch.isfinite(ld).all()))
+    if not n_attn:
+        checks["prefill_kernel_vs_plain"] = (
+            "vacuous: no attention layer, the two prefills compute the same")
     summary.update(checks)
     print(f"{tag} checks (rel_err: both runs with the same routing; "
           f"_own_routing: each with its router's own picks, reported): "
@@ -2463,6 +2569,9 @@ def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
             and checks["decode_rel_err_vs_full_forward"] <= LM_TOL
             and not any(checks["decode_check_dropped"])):
         raise AssertionError(f"{tag}: logits off their plain versions")
+    if cfg.ssm is not None:
+        summary["ssd_scan_check"] = ssd_scan_check(tag, cfg, params, tok,
+                                                   torch)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device="cuda")
     _profile(f"{tag} decode step", lambda: M.decode_step(
         cfg, params, cache, nxt, positions), torch, reps=3)
@@ -2730,7 +2839,8 @@ def main() -> int:
     by_path["lm_serve"], lm = lm_serve_phase(torch, counters)
     phase_done("lm_serve")
     lm = {"gemma-2b": lm}
-    for arch in ("mixtral-8x22b", "deepseek-v3-671b"):
+    for arch in ("mixtral-8x22b", "deepseek-v3-671b", "mamba2-780m",
+                 "jamba-1.5-large-398b"):
         by_path[f"lm_serve/{arch}"], lm[arch] = lm_serve_phase(
             torch, counters, arch)
         phase_done(f"lm_serve/{arch}")

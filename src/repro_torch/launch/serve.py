@@ -1,18 +1,21 @@
 """Serving entry point of the port: initializes a model from a seed and
 serves batched requests through the ServeEngine (prefill through the
-flash attention kernel, then the decode loop).
+flash attention kernel and the chunked SSD, then the decode loop).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
-      --arch deepseek-v3-671b --reduced --device cpu
+      --arch jamba-1.5-large-398b --reduced --device cpu
 
-It runs on ``cuda`` unless ``--device cpu`` is given.  The dense and
-moe families are ported (mixtral-8x22b and deepseek-v3-671b among the
-archs; at full size neither fits one 80 GB card: serve them with
-``--reduced``); the others raise NotImplementedError naming ROADMAP.md
-queue 1, item 17.
+It runs on ``cuda`` unless ``--device cpu`` is given.  The dense, moe,
+ssm and hybrid families are ported; mixtral-8x22b, deepseek-v3-671b and
+jamba-1.5-large-398b do not fit one 80 GB card at full size: serve them
+with ``--reduced``.  A prompt longer than one SSD chunk must be a
+multiple of it (``--prompt-len``; 256 at full size, 32 reduced).  The
+encdec and vlm families raise NotImplementedError naming ROADMAP.md
+queue 1, items 17.4 and 17.5.
 """
 from __future__ import annotations
 

@@ -3,7 +3,8 @@ dense / moe / ssm / hybrid (mamba+attn) / encdec (audio) / vlm.
 
 A copy of the reference's ``repro.models.config``: the port keeps its
 own config dataclasses and imports nothing of the reference.  Of the
-families, the port runs ``dense`` and ``moe`` (``models/model.py``)."""
+families, the port runs ``dense``, ``moe``, ``ssm`` and ``hybrid``
+(``models/model.py``)."""
 from __future__ import annotations
 
 import dataclasses

@@ -1,14 +1,16 @@
 """Batched LM serving: prefill once, decode step by step with a
-static-shape KV cache; greedy or temperature sampling; per-request stop.
+static-shape cache; greedy or temperature sampling; per-request stop.
 Port of the reference's ``repro.serve.engine``.
 
 It serves the families ``models.model`` ports: dense (Gemma-2B and its
-kin) and moe (mixtral-8x22b, deepseek-v3-671b with MLA).  The reference
-``jit``s its prefill and decode step; here both run eagerly (no CUDA
-graphs yet), on the device of the parameters.  Prefill goes through the
-port's flash attention op (the hand-written kernel on the card); decode
-is plain torch ops over the cache (KV, or MLA's latent), updated in
-place.
+kin), moe (mixtral-8x22b, deepseek-v3-671b with MLA), ssm (mamba2-780m)
+and hybrid (jamba-1.5-large-398b).  The reference ``jit``s its prefill
+and decode step; here both run eagerly (no CUDA graphs yet), on the
+device of the parameters.  Prefill goes through the port's flash
+attention op (the hand-written kernel on the card) and the chunked SSD
+(plain torch products, as the reference's einsums); decode is plain
+torch ops over the cache (KV, MLA's latent, or the Mamba conv window
+and recurrent state), updated in place.
 Temperature sampling draws from a ``torch.Generator`` seeded with
 ``GenerationConfig.seed`` (the reference's ``jax.random`` stream cannot
 be reproduced; greedy decoding is the same in both packages).
@@ -59,7 +61,8 @@ class ServeEngine:
         if enc_frames is not None or extra_embeds is not None:
             raise NotImplementedError(
                 "encoder frames and vision embeddings (the encdec and vlm "
-                "families) are not ported yet: ROADMAP.md queue 1, item 17")
+                "families) are not ported yet: ROADMAP.md queue 1, items "
+                "17.4 and 17.5")
         B, S = tokens.shape
         if S + gen.max_new_tokens > self.max_len:
             raise ValueError(f"prompt {S} + {gen.max_new_tokens} new tokens "

@@ -774,6 +774,33 @@ def test_cuda_moe_engine_runs_through_the_flash_kernel(cuda_device, arch):
         out, ServeEngine(cfg, Pc, max_len=160).generate(prompts, gen))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-1.5-large-398b"])
+def test_cuda_ssm_engine_equals_cpu_engine(cuda_device, arch):
+    """A reduced mamba2 (attention-free) and jamba (one group: Mamba2
+    blocks, MoE at odd positions, one attention layer) served on the
+    card in fp32 over 160-token prompts (5 SSD chunks of 32): one flash
+    launch per attention layer per prefill (none for mamba2) and the
+    greedy tokens of the CPU engine on the same weights."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.serve import GenerationConfig, ServeEngine
+
+    cfg = get_reduced_config(arch)
+    P = M.init_params(cfg, seed=1, device=cuda_device)
+    Pc = M.init_params(cfg, seed=1, device="cpu")
+    Pc.load_state_dict({k: v.cpu() for k, v in P.state_dict().items()})
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 160))
+    gen = GenerationConfig(max_new_tokens=5)
+    KF.reset_launch_counts()
+    out = ServeEngine(cfg, P, max_len=176).generate(prompts, gen)
+    n_attn = cfg.hybrid_group.count("a")
+    assert KF.LAUNCHES["flash_attention_f32"] == n_attn
+    assert sum(KF.LAUNCHES.values()) == n_attn
+    np.testing.assert_array_equal(
+        out, ServeEngine(cfg, Pc, max_len=176).generate(prompts, gen))
+
+
 # ------------------------------------- SELL-C-σ: the redesigned row kernels
 
 def _sell_operands(W, k, seed):

@@ -382,10 +382,11 @@ def test_moe_bf16_forward_matches_reference_within_bf16_bound(arch):
     _bf16_prefill_within_bound(arch, seed=6)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-1.5-large-398b",
-                                  "whisper-small", "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
 def test_unported_families_raise_naming_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    item = {"whisper-small": "17.4", "internvl2-1b": "17.5"}[arch]
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP.*item {item}\b"):
         M.init_params(get_reduced_config(arch), device="cpu")
 
 
