@@ -4,13 +4,17 @@
     python3 chip_smoke.py [--newton-iters 30] [--tcg-iters 20] [--scf-sweeps 2]
     python3 chip_smoke.py --sellcs-src SRC
     python3 chip_smoke.py --kmeans-src SRC
+    python3 chip_smoke.py --flash-src SRC
 
 The second form only times the SELL-C-σ kernels of the tree whose
 ``src`` directory is SRC (this one, or an older commit unpacked with
-``git archive``) at the shapes of phase 2, the third ``kmeans_assign``
+``git archive``) at the shapes of phase 2 and each wrapper at k = 1,
+the third ``kmeans_assign``
 at the main path's shape, at stage 3's k = 48 fp64 and k = 70 fp32 and
 at k = 16, 17, 24 and 32 in both dtypes (2^20 points, 8 sets), also by
-the profiler's device time; each prints one JSON line with every call's
+the profiler's device time, the fourth the flash kernel at the served
+prefill shapes of phase 9 (Gemma's, mixtral's, jamba's and deepseek's
+MLA); each prints one JSON line with every call's
 time and a digest of its outputs (equal digests: equal bits), the third
 also a line with the seconds of stage 3 at k = 4, 48 and 70.  To compare two
 trees, run them in turns on one card, one after the other: old, new,
@@ -31,8 +35,10 @@ Phases, none of which catches its own failure:
      scalar values at k = 4, 8 and 24 (each also against
      ``torch.sparse.mm`` on the CSR form of W, a yardstick the port never
      calls) and with (nnz, 4) multivalues, the apply and the HVP at
-     k = 4, and the apply at k = 1 (the inverse-power driver's one
-     column, the generic variant); ``grblas.ops.fused_plap_apply`` at
+     k = 4, and the apply at k = 1 (the inverse_power solver's one
+     column, the row kernel's width-1 instance: it fails unless equal
+     bit for bit to the generic variant, timed beside it);
+     ``grblas.ops.fused_plap_apply`` at
      k = 4 (one apply launch, equal bit for bit to ``api.mxm`` under
      ``plap_edge_semiring``, within the tolerance of the plain version,
      timed).  Every kernel runs twice, equal bit
@@ -86,11 +92,11 @@ Phases, none of which catches its own failure:
      Hq 8, Hkv 1, S 2048, D 256, bf16, causal), at a ragged S = 1000,
      with window = 512, at D 128 with group 4, at mixtral-8x22b's
      prefill shape (B 2, Hq 48, Hkv 8, S 6144, D 128, window 4096) and
-     at jamba-1.5-large's (B 2, Hq 64, Hkv 8, S 4096, D 128, causal; all
-     six on the wgmma kernel), then the mma.sync kernel at
-     deepseek-v3's MLA prefill shape (B 4, Hq = Hkv = 128, S 2048, q/k
-     head dim 192, value head dim 128: the op pads v to 192 and keeps
-     128 columns) and at D 32, and the fp32 kernel at
+     at jamba-1.5-large's (B 2, Hq 64, Hkv 8, S 4096, D 128, causal) and
+     at deepseek-v3's MLA prefill shape (B 4, Hq = Hkv = 128, S 2048, q/k
+     head dim 192, value head dim 128 taken as is, group 1: two query
+     tiles of one head a block; all seven on the wgmma kernel), then the
+     mma.sync kernel at D 32 and the fp32 kernel at
      D 128, each against fp32 math on the same inputs (bf16:
      |d| <= 2^-6 (1 + |ref|): bf16 keeps 8 significant bits, and the
      kernel rounds P and O; fp32: the parity tolerance), each printed
@@ -125,8 +131,8 @@ Phases, none of which catches its own failure:
      parameter count; 2 requests of 4096 tokens; 16 experts top 2 at
      capacity factor 1.25).  Each fails unless the prefill launched the
      flash kernel its head dim routes to once per attention layer and
-     no other (wgmma for Gemma, mixtral and jamba, mma for deepseek's
-     D 192, none for mamba2, whose kernel-vs-plain check is printed as
+     no other (wgmma for Gemma, mixtral, deepseek's D 192 and jamba,
+     none for mamba2, whose kernel-vs-plain check is printed as
      vacuous), the logits are
      finite, the last-token prefill logits through the kernel are within
      2^-5 relative of the same prefill through the plain attention (the
@@ -159,7 +165,8 @@ Phases, none of which catches its own failure:
      newton's), ``sellcs_spmm`` at scalar k = 8 and 24 beyond stage 1's
      launches, every level's sweeps and subspace drift printed.  (c)
      ``solver="inverse_power", p_target=1.0``: it fails unless the apply
-     launched at k = 1, U is finite and orthonormal within 1e-4.  (d)
+     launched at k = 1, the SELL-C-σ generic variant never did
+     (``GENERIC_LAUNCHES``), U is finite and orthonormal within 1e-4.  (d)
      the ladder: a NaN injected into the second newton level must end on
      warm_restart, a fault of the ``sellcs`` backend on backend_fallback
      (backend ``coo``, not degraded, through ``segment_sum``), each rung
@@ -236,6 +243,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import importlib
 import json
 import math
 import subprocess
@@ -516,23 +524,39 @@ def sellcs_kernel_phase(W, K, torch) -> list:
         _bound(_layout_bytes(L, item) + 2 * dense_bytes,
                OPS["apply"] * L.slots * k), None))
     fused_plap_check(W, U, K, torch)
-    # the apply at k = 1: the inverse-power driver's one column (the
-    # generic variant)
+    # the apply at k = 1: the inverse_power solver's one column (the row
+    # kernel's width-1 instance), bit-equal to the generic variant
     U1 = U[:, :1].contiguous()
     err1 = _compare("sellcs_plap_apply k=1", K.sellcs_plap_apply(
         W, U1, P, EPS), K.sellcs_plap_apply_plain(W, U1, P, EPS))
     _repeat("sellcs_plap_apply k=1",
             lambda: K.sellcs_plap_apply(W, U1, P, EPS))
+    # the module (the package ``K`` re-exports only the public names)
+    KM = importlib.import_module(f"{K.__name__}.sellcs_spmm")
+    generic1 = lambda: KM._launch(  # noqa: E731
+        "sellcs_plap_apply", W, U1, U1, P, EPS, generic=True)
+    if not torch.equal(K.sellcs_plap_apply(W, U1, P, EPS), generic1()):
+        raise AssertionError("sellcs_plap_apply k=1: the width-1 instance "
+                             "and the generic variant differ")
+    print("sellcs_plap_apply k=1: equal bit for bit to the generic variant",
+          flush=True)
     bound1 = _bound(_layout_bytes(L, item) + 2 * n * item,
                     OPS["apply"] * L.slots)
     rows[-1]["k1"] = dict(
         max_abs_err=err1[0], max_rel_err=err1[1],
         plan=K.launch_plan("sellcs_plap_apply", n, 1, U1.dtype)._asdict(),
         ms=_time_ms(lambda: K.sellcs_plap_apply(W, U1, P, EPS)),
+        generic_ms=_time_ms(generic1),
+        device_ms=_device_ms(lambda: K.sellcs_plap_apply(
+            W, U1, P, EPS))["per_call_ms"],
+        generic_device_ms=_device_ms(generic1)["per_call_ms"],
         plain_ms=_time_ms(lambda: K.sellcs_plap_apply_plain(W, U1, P, EPS),
                           3, 3),
         bound_ms=bound1[0], bound_by=bound1[1], library_ms=None)
     print(f"sellcs_plap_apply k=1: kernel_ms={rows[-1]['k1']['ms']!r} "
+          f"generic_variant_ms={rows[-1]['k1']['generic_ms']!r} "
+          f"device_ms={rows[-1]['k1']['device_ms']!r} generic_variant_"
+          f"device_ms={rows[-1]['k1']['generic_device_ms']!r} "
           f"twin_ms={rows[-1]['k1']['plain_ms']!r} bound_ms={bound1[0]!r} "
           f"({bound1[1]}) plan={rows[-1]['k1']['plan']}", flush=True)
     del U1
@@ -779,6 +803,9 @@ def solve_phase(tag, W, counters, torch, psc, cfg, used,
     launches["sellcs_plap_apply_by_k"] = {
         kk: c for K in counters
         for kk, c in getattr(K, "APPLY_LAUNCHES_BY_K", {}).items()}
+    launches["sellcs_generic"] = {
+        name: c for K in counters
+        for name, c in getattr(K, "GENERIC_LAUNCHES", {}).items()}
     launches["wall_s"] = wall
     orth = _orthonormality(res.U, torch)
     print(f"{tag}: wall_s={wall!r} stage_s={res.stage_seconds} "
@@ -1006,14 +1033,20 @@ def resilience_phase(W, counters, torch, psc, ref, args) -> tuple:
         "inverse_power", W, counters, torch, psc, cfg,
         ["sellcs_plap_apply", "kmeans_assign"], all_clusters=False)
     k1 = by_path["inverse_power"]["sellcs_plap_apply_by_k"].get(1, 0)
+    generic = by_path["inverse_power"]["sellcs_generic"]
     out["inverse_power"] = dict(
         wall_s=by_path["inverse_power"]["wall_s"], stage_s=res.stage_seconds,
         rcut=res.rcut, init_rcut=res.init_rcut, p_path=res.p_path,
-        apply_k1_launches=k1, clusters=int(len(np.unique(res.labels))))
+        apply_k1_launches=k1, generic_launches=generic,
+        clusters=int(len(np.unique(res.labels))))
     print(f"inverse_power: rcut={res.rcut!r} apply k=1 launches={k1} "
+          f"generic variant launches={generic} "
           f"clusters={out['inverse_power']['clusters']}", flush=True)
     if k1 < 1:
         raise AssertionError("inverse_power: the apply never launched at k=1")
+    if any(generic.values()):
+        raise AssertionError(f"inverse_power: the generic variant launched "
+                             f"({generic})")
     del res
 
     # (d) the ladder at full size
@@ -1903,46 +1936,57 @@ def _compare_bf16(name, got, ref32, torch) -> tuple:
     return max_abs, scaled
 
 
+FLASH_SHAPES = [  # (tag, B, Hq, Hkv, S, D, Dv, window, dtype name)
+    ("serve", 4, 8, 1, 2048, 256, 256, None, "bfloat16"),
+    ("ragged_S1000", 4, 8, 1, 1000, 256, 256, None, "bfloat16"),
+    ("window512", 4, 8, 1, 2048, 256, 256, 512, "bfloat16"),
+    ("D128_group4", 4, 8, 2, 2048, 128, 128, None, "bfloat16"),
+    # mixtral-8x22b's prefill: 48 q heads over 8 kv heads, a window that
+    # masks at S 6144
+    ("mixtral_D128_group6_window4096", 2, 48, 8, 6144, 128, 128, 4096,
+     "bfloat16"),
+    # jamba-1.5-large's prefill (its one attention layer a group): 64 q
+    # heads over 8 kv heads, causal, no window
+    ("jamba_D128_group8", 2, 64, 8, 4096, 128, 128, None, "bfloat16"),
+    # deepseek-v3's MLA prefill: q/k 128 + 64 rotary, v 128 (group 1;
+    # the wgmma kernel takes v 128 wide)
+    ("mla_D192_Dv128", 4, 128, 128, 2048, 192, 128, None, "bfloat16"),
+    # the kernels of the other routes: a head dim off wgmma's (the reduced
+    # test configs' 16 and 32), and fp32
+    ("mma_D32", 4, 8, 2, 2048, 32, 32, None, "bfloat16"),
+    ("f32_D128", 1, 8, 2, 2048, 128, 128, None, "float32")]
+# the shapes the --flash-src timing takes: the wgmma kernel's on the
+# served paths (rows 8, 8a, 8b, 8c)
+FLASH_AB = ("serve", "mixtral_D128_group6_window4096", "jamba_D128_group8",
+            "mla_D192_Dv128")
+
+
+def _flash_inputs(shape, gen, torch) -> tuple:
+    _, B, Hq, Hkv, S, D, Dv, _, name = shape
+    dtype = getattr(torch, name)
+    return tuple(torch.randn(s, generator=gen, device="cuda", dtype=dtype)
+                 for s in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, Dv)))
+
+
 def flash_kernel_phase(torch) -> list:
     """Flash attention against its plain version at the serve shape and
-    five variants on the wgmma kernel (mixtral's D 128, group 6, window
-    4096 and jamba's D 128, group 8 among them), then the mma.sync kernel at MLA's D 192 with a
-    value head dim of 128 (deepseek's prefill) and at D 32, and the
-    fp32 kernel; returns the rows of the two kernels the serve paths
-    run: wgmma (Gemma's, mixtral's and jamba's prefill) and mma
-    (deepseek's)."""
+    six variants on the wgmma kernel (mixtral's D 128, group 6, window
+    4096, jamba's D 128, group 8 and deepseek's MLA, D 192 with a value
+    head dim of 128 at group 1, among them), then the mma.sync kernel at
+    D 32 and the fp32 kernel; returns the rows of the two kernels the
+    serve paths run, wgmma at Gemma's shape (its launches: Gemma's,
+    mixtral's, deepseek's and jamba's prefill) and at MLA's (deepseek's
+    launches), and the mma.sync kernel's (on no served path)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as KF
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    shapes = [  # (tag, B, Hq, Hkv, S, D, Dv, window, dtype)
-        ("serve", 4, 8, 1, 2048, 256, 256, None, torch.bfloat16),
-        ("ragged_S1000", 4, 8, 1, 1000, 256, 256, None, torch.bfloat16),
-        ("window512", 4, 8, 1, 2048, 256, 256, 512, torch.bfloat16),
-        ("D128_group4", 4, 8, 2, 2048, 128, 128, None, torch.bfloat16),
-        # mixtral-8x22b's prefill: 48 q heads over 8 kv heads, a window
-        # that masks at S 6144
-        ("mixtral_D128_group6_window4096", 2, 48, 8, 6144, 128, 128, 4096,
-         torch.bfloat16),
-        # jamba-1.5-large's prefill (its one attention layer a group): 64
-        # q heads over 8 kv heads, causal, no window
-        ("jamba_D128_group8", 2, 64, 8, 4096, 128, 128, None,
-         torch.bfloat16),
-        # deepseek-v3's MLA prefill: q/k 128 + 64 rotary, v 128 (padded
-        # to 192 by the op)
-        ("mla_D192_Dv128", 4, 128, 128, 2048, 192, 128, None,
-         torch.bfloat16),
-        # the kernels of the other routes: a head dim off wgmma's (the
-        # reduced test configs' 16 and 32), and fp32
-        ("mma_D32", 4, 8, 2, 2048, 32, 32, None, torch.bfloat16),
-        ("f32_D128", 1, 8, 2, 2048, 128, 128, None, torch.float32)]
     out = {}
-    for tag, B, Hq, Hkv, S, D, Dv, window, dtype in shapes:
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda",
-                               dtype=dtype)
-                   for shape in ((B, Hq, S, D), (B, Hkv, S, D),
-                                 (B, Hkv, S, Dv)))
+    for shape in FLASH_SHAPES:
+        tag, B, Hq, Hkv, S, D, Dv, window, _ = shape
+        q, k, v = _flash_inputs(shape, gen, torch)
+        dtype = q.dtype
         variant = KF.kernel_variant(dtype, D, S)
         name = f"flash_attention_{variant}"
         before = KF.LAUNCHES[name]
@@ -1999,28 +2043,35 @@ def flash_kernel_phase(torch) -> list:
         del q, k, v
         torch.cuda.empty_cache()
 
-    def kernel_row(variant, source, main, others):
+    def kernel_row(name, variant, source, main, others, paths=None):
         r = out[main]
-        row = _row(f"flash_attention_{variant}" if variant != "wgmma"
-                   else "flash_attention",
+        if r["variant"] != variant:
+            raise AssertionError(f"{name}: {main} ran on {r['variant']}, "
+                                 f"not {variant}")
+        row = _row(name,
                    f"src/repro_torch/kernels/flash_attention/csrc/{source}",
                    "src/repro/kernels/flash_attention/flash_attention.py:74",
                    (r["max_abs_err"], r["max_rel_err"]), r["ms"],
                    r["plain_ms"], (r["bound_ms"], r["bound_by"]),
                    r["library_ms"])
         # the serve paths' launches of this kernel are read from this
-        # counter
+        # counter (on ``paths`` only, where given)
         row["counter"] = f"flash_attention_{variant}"
+        row["paths"] = paths
         row["shape"] = r["shape"]
         row["variants"] = {tag: out[tag] for tag in others}
         return row
 
-    return [kernel_row("wgmma", "flash_attention_wgmma.cu", "serve",
+    return [kernel_row("flash_attention", "wgmma",
+                       "flash_attention_wgmma.cu", "serve",
                        ["ragged_S1000", "window512", "D128_group4",
                         "mixtral_D128_group6_window4096",
                         "jamba_D128_group8"]),
-            kernel_row("mma", "flash_attention.cu", "mla_D192_Dv128",
-                       ["mma_D32"])]
+            kernel_row("flash_attention_mla", "wgmma",
+                       "flash_attention_wgmma.cu", "mla_D192_Dv128", [],
+                       paths=["lm_serve/deepseek-v3-671b"]),
+            kernel_row("flash_attention_mma", "mma", "flash_attention.cu",
+                       "mma_D32", [])]
 
 
 def kmeans_kernel_phase(U, torch, psc) -> dict:
@@ -2592,9 +2643,13 @@ def _card() -> str:
 def _digest(out) -> str:
     """A digest of the bytes of a tensor or a tuple of tensors: equal
     digests, equal bits."""
+    import torch
+
     h = hashlib.sha1()
     for t in out if isinstance(out, tuple) else (out,):
-        h.update(t.contiguous().cpu().numpy().tobytes())
+        # the raw bytes: numpy has no bfloat16
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
     return h.hexdigest()[:16]
 
 
@@ -2613,8 +2668,9 @@ def _ab_line(src: Path, calls: dict, device: bool = False) -> None:
 def sellcs_times(src: Path, torch) -> int:
     """``--sellcs-src``: time the SELL-C-σ kernels of the tree at ``src``
     (its ``repro_torch`` imported and built) at the main path's shapes on
-    ``delaunay_graph(20)``, with the inputs and timer of the full run,
-    and print one JSON line with the card's name and power limit."""
+    ``delaunay_graph(20)`` and at k = 1, with the inputs and timer of the
+    full run and by the profiler's device time, and print one JSON line
+    with the card's name and power limit."""
     sys.path.insert(0, str(src.resolve()))
     from repro_torch.graphs import delaunay_graph
     from repro_torch.kernels import sellcs_spmm as K
@@ -2634,7 +2690,36 @@ def sellcs_times(src: Path, torch) -> int:
         W, U, P, EPS)
     calls["sellcs_plap_hvp k=4"] = lambda: K.sellcs_plap_hvp(
         W, U, E, P, EPS)
-    _ab_line(src, calls)
+    # k = 1: the inverse_power solver's column, and the other two wrappers
+    X1, U1, E1 = (T[:, :1].contiguous() for T in (X, U, E))
+    calls["sellcs_spmm scalar k=1"] = lambda: K.sellcs_spmm(W, X1)
+    calls["sellcs_plap_apply k=1"] = lambda: K.sellcs_plap_apply(
+        W, U1, P, EPS)
+    calls["sellcs_plap_hvp k=1"] = lambda: K.sellcs_plap_hvp(
+        W, U1, E1, P, EPS)
+    _ab_line(src, calls, device=True)
+    return 0
+
+
+def flash_times(src: Path, torch) -> int:
+    """``--flash-src``: time ``flash_attention`` of the tree at ``src``
+    (its ``repro_torch`` imported and built) at the shapes of
+    ``FLASH_AB``, with the inputs and timer of phase 9, by CUDA events
+    and by the profiler's device time, and print one JSON line with the
+    card's name and power limit."""
+    sys.path.insert(0, str(src.resolve()))
+    from repro_torch.kernels import flash_attention as KF
+
+    KF.build()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    calls = {}
+    for shape in FLASH_SHAPES:
+        if shape[0] in FLASH_AB:
+            q, k, v = _flash_inputs(shape, gen, torch)
+            calls[shape[0]] = (
+                lambda q=q, k=k, v=v, w=shape[7]: KF.flash_attention(
+                    q, k, v, causal=True, window=w))
+    _ab_line(src, calls, device=True)
     return 0
 
 
@@ -2700,6 +2785,9 @@ def main() -> int:
     ap.add_argument("--kmeans-src", type=Path, metavar="SRC",
                     help="only time kmeans_assign of the tree whose src "
                     "directory is SRC and print one JSON line")
+    ap.add_argument("--flash-src", type=Path, metavar="SRC",
+                    help="only time flash attention of the tree whose src "
+                    "directory is SRC and print one JSON line")
     args = ap.parse_args()
 
     import torch
@@ -2711,6 +2799,8 @@ def main() -> int:
         return sellcs_times(args.sellcs_src, torch)
     if args.kmeans_src is not None:
         return kmeans_times(args.kmeans_src, torch)
+    if args.flash_src is not None:
+        return flash_times(args.flash_src, torch)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -2864,7 +2954,9 @@ def main() -> int:
 
     for row in rows:
         counter = row.get("counter", row["name"])
-        row["launches_by_path"] = {p: c[counter] for p, c in by_path.items()}
+        row["launches_by_path"] = {p: c[counter] for p, c in by_path.items()
+                                   if row.get("paths") is None
+                                   or p in row["paths"]}
         row["launches"] = sum(row["launches_by_path"].values())
         if row["name"] == "bsr_spmm":
             row["launches_by_width"] = {p: c["bsr_spmm_by_width"]

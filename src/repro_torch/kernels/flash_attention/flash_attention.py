@@ -1,30 +1,36 @@
 """Flash attention, forward: the CUDA kernels and their wrapper.
 
-    flash_attention_cuda(q, k, v, causal, window)   (B, Hq, Sq, D) on the card
+    flash_attention_cuda(q, k, v, causal, window)   (B, Hq, Sq, Dv) on the card
 
 Causal or sliding-window GQA attention with an online softmax, fully
 masked K tiles skipped, q head h reading kv head h // (Hq / Hkv); the
 kernels replace the reference's Pallas ``flash_attention_pallas``.  q is
-(B, Hq, Sq, D) and k, v are (B, Hkv, Sk, D), all bfloat16 or all
-float32, with D at most 256 (a multiple of 8 in bfloat16).  Unlike the
-TPU kernel they mask a ragged sequence themselves, so any Sq and Sk are
-right.  Three kernels, routed by dtype and shape (``kernel_variant``),
-never on failure:
+(B, Hq, Sq, D), k is (B, Hkv, Sk, D) and v (B, Hkv, Sk, Dv), all
+bfloat16 or all float32, with D at most 256 (a multiple of 8 in
+bfloat16).  Unlike the TPU kernel they mask a ragged sequence
+themselves, so any Sq and Sk are right.  Three kernels, routed by dtype
+and shape (``kernel_variant``), never on failure:
 
-  wgmma  bfloat16, D in {64, 128, 256}: ``csrc/flash_attention_wgmma.cu``
+  wgmma  bfloat16, D in {64, 128, 192, 256}: ``csrc/flash_attention_wgmma.cu``
          (TMA loads into an mbarrier ring, wgmma products, one producer
-         and two consumer warpgroups sharing each K/V tile across two q
-         heads of a GQA group)
+         and two consumer warpgroups sharing each K/V tile: two q heads
+         of a GQA group, or at group 1 two adjacent 64-row query tiles
+         of one head; ``wgmma_blocks``).  It takes v of width Dv as is
+         at the compiled (D, Dv) of ``WGMMA_SHAPES``: (D, D) for each D,
+         and MLA's (192, 128)
   mma    bfloat16, any other D: ``csrc/flash_attention.cu``, mma.sync
   f32    float32: ``csrc/flash_attention.cu``, CUDA cores
 
-The wrapper takes CUDA tensors only: it checks device, dtype, shape,
-contiguity and alignment, launches, raises on a CUDA error and counts
-the launch in ``LAUNCHES["flash_attention_<variant>"]``.
-``ops.flash_attention`` is the public, differentiable function; it sends
-CPU tensors to the plain version in ``ref.py``.  The two libraries are
-built with nvcc at first use (``build``/``start_build``) into
-``build/torch_ext/``; importing this module builds nothing.
+The mma and f32 kernels, and wgmma at a (D, Dv) not compiled, take v of
+k's shape (``ops.flash_attention`` pads a narrower v to D:
+``takes_value_dim``).  The wrapper takes CUDA tensors only: it checks
+device, dtype, shape, contiguity and alignment, launches, raises on a
+CUDA error and counts the launch in
+``LAUNCHES["flash_attention_<variant>"]``.  ``ops.flash_attention`` is
+the public, differentiable function; it sends CPU tensors to the plain
+version in ``ref.py``.  The two libraries are built with nvcc at first
+use (``build``/``start_build``) into ``build/torch_ext/``; importing
+this module builds nothing.
 """
 from __future__ import annotations
 
@@ -48,8 +54,8 @@ LIBRARY = NvccLibrary(
 WGMMA_LIBRARY = NvccLibrary(
     "flash_attention_wgmma", CSRC / "flash_attention_wgmma.cu",
     {"flash_attention_wgmma_launch": (I32, [I32, PTR, PTR, PTR, PTR, I32, I32,
-                                            I32, I32, I32, I32, I32, I32, F32,
-                                            PTR])})
+                                            I32, I32, I32, I32, I32, I32, I32,
+                                            F32, PTR])})
 
 # kernel launches, one count per kernel: incremented where the kernel is
 # launched and nowhere else
@@ -58,7 +64,11 @@ LAUNCHES = {"flash_attention_wgmma": 0, "flash_attention_mma": 0,
 
 MAX_HEAD_DIM = 256
 MAX_GRID = 65535             # blocks along a grid's y axis
-WGMMA_HEAD_DIMS = (64, 128, 256)
+# the (q/k head dim, value head dim) pairs the wgmma kernel is compiled
+# for; it serves every D among them, on v padded to D where (D, Dv) is
+# not compiled
+WGMMA_SHAPES = ((64, 64), (128, 128), (192, 192), (192, 128), (256, 256))
+WGMMA_HEAD_DIMS = tuple(sorted({d for d, _ in WGMMA_SHAPES}))
 ROWS = 64                    # query rows per warpgroup (and keys per tile)
 
 
@@ -84,9 +94,9 @@ def build() -> float:
 
 
 def kernel_variant(dtype: torch.dtype, D: int, Sk: int = 1) -> str:
-    """The kernel that serves (dtype, head dim, key length): "wgmma" for
-    bfloat16 at D in {64, 128, 256} with at least one key, "mma" for any
-    other bfloat16 shape, "f32" for float32."""
+    """The kernel that serves (dtype, q/k head dim, key length): "wgmma"
+    for bfloat16 at D in {64, 128, 192, 256} with at least one key, "mma"
+    for any other bfloat16 shape, "f32" for float32."""
     if dtype == torch.float32:
         return "f32"
     if dtype != torch.bfloat16:
@@ -95,12 +105,21 @@ def kernel_variant(dtype: torch.dtype, D: int, Sk: int = 1) -> str:
     return "wgmma" if D in WGMMA_HEAD_DIMS and Sk >= 1 else "mma"
 
 
+def takes_value_dim(dtype: torch.dtype, D: int, Dv: int, Sk: int = 1) -> bool:
+    """Whether the kernel that serves (dtype, D, Sk) takes v of width Dv
+    as is: any Dv = D, and the wgmma kernel's compiled (D, Dv).  Else the
+    op pads v to D."""
+    return Dv == D or (kernel_variant(dtype, D, Sk) == "wgmma"
+                       and (D, Dv) in WGMMA_SHAPES)
+
+
 def head_pairs(Hq: int, Hkv: int) -> list:
     """The q heads of each wgmma block, in blockIdx.x order within a
-    batch: (kv head, first q head, second q head or None).  Two q heads
-    of one kv head share a block; an odd group leaves the second
-    warpgroup of each kv head's last pair idle (None), and so does every
-    block at group 1."""
+    batch, at a GQA group of 2 or more: (kv head, first q head, second q
+    head or None).  Two q heads of one kv head share a block; an odd
+    group leaves the second warpgroup of each kv head's last pair idle
+    (None).  At group 1 each block has one head (second slot None) whose
+    two adjacent query tiles fill both warpgroups (``wgmma_blocks``)."""
     group = Hq // Hkv
     out = []
     for kvh in range(Hkv):
@@ -112,8 +131,34 @@ def head_pairs(Hq: int, Hkv: int) -> list:
 
 def wgmma_grid(B: int, Hq: int, Hkv: int, Sq: int) -> tuple:
     """(x, y) blocks of a wgmma launch: x over (batch, kv head, pair of q
-    heads), y over 64-row query tiles."""
-    return B * len(head_pairs(Hq, Hkv)), -(-Sq // ROWS)
+    heads) at group >= 2 and over (batch, head) at group 1, y over query
+    tiles of 64 rows (group >= 2: one tile of two heads) or 128 (group 1:
+    two tiles of one head)."""
+    rows = 2 * ROWS if Hq == Hkv else ROWS
+    return B * len(head_pairs(Hq, Hkv)), -(-Sq // rows)
+
+
+def wgmma_blocks(Hq: int, Hkv: int, Sq: int) -> list:
+    """The work of each wgmma block of one batch, in (blockIdx.x,
+    blockIdx.y) order, as the kernel maps it: (x, y, slot 0, slot 1),
+    each slot the (q head, first query row) of one consumer warpgroup's
+    64 rows, or None for an idle one.  blockIdx.y counts from the last
+    (heaviest) query tile down."""
+    x_blocks, y_blocks = wgmma_grid(1, Hq, Hkv, Sq)
+    pairs = head_pairs(Hq, Hkv)
+    out = []
+    for x in range(x_blocks):
+        for y in range(y_blocks):
+            tile = y_blocks - 1 - y
+            if Hq == Hkv:
+                q0 = tile * 2 * ROWS
+                slots = ((x, q0), (x, q0 + ROWS) if q0 + ROWS < Sq else None)
+            else:
+                _, h0, h1 = pairs[x]
+                slots = ((h0, tile * ROWS),
+                         None if h1 is None else (h1, tile * ROWS))
+            out.append((x, y) + slots)
+    return out
 
 
 def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -142,23 +187,24 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True,
                          window: Optional[int] = None) -> torch.Tensor:
-    """One launch of the kernel ``kernel_variant`` picks: (B, Hq, Sq, D)
-    in q's dtype.  v must have k's shape (``ops.flash_attention`` pads a
-    narrower value head dim)."""
+    """One launch of the kernel ``kernel_variant`` picks: (B, Hq, Sq, Dv)
+    in q's dtype.  v must have k's shape unless the kernel takes its
+    width (``takes_value_dim``; ``ops.flash_attention`` pads a narrower
+    value head dim for the others)."""
     check_operands(q, k, v, window)
-    if v.shape != k.shape:
-        raise ValueError(f"v {tuple(v.shape)}: the kernels take v of k's "
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"dtype {q.dtype}: the kernels take bfloat16 or "
+                        "float32")
+    if not takes_value_dim(q.dtype, k.shape[3], v.shape[3], k.shape[2]):
+        raise ValueError(f"v {tuple(v.shape)}: this kernel takes v of k's "
                          f"shape {tuple(k.shape)}")
     if q.device.type != "cuda":
         raise ValueError(f"the flash_attention kernels take CUDA tensors, "
                          f"not {q.device}")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"dtype {q.dtype}: the kernels take bfloat16 or "
-                        "float32")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     B, Hq, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     bf16 = q.dtype == torch.bfloat16
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {D}: the kernels take 1 to "
@@ -174,7 +220,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{MAX_GRID}")
     if max(Sq, Sk) >= 2 ** 31:
         raise ValueError("the kernels index positions with int32")
-    o = torch.empty_like(q)
+    o = q.new_empty((B, Hq, Sq, Dv))
     if B * Hq * Sq == 0:
         return o
     dev = q.device.index if q.device.index is not None \
@@ -185,7 +231,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lib = WGMMA_LIBRARY.load()
         code = lib.flash_attention_wgmma_launch(
             dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
-            Hq, Hkv, Sq, Sk, D, int(causal), win, 1.0 / (D ** 0.5), stream)
+            Hq, Hkv, Sq, Sk, D, Dv, int(causal), win, 1.0 / (D ** 0.5),
+            stream)
     else:
         lib = LIBRARY.load()
         code = lib.flash_attention_launch(

@@ -7,14 +7,15 @@
 tensor goes to the hand-written kernel (``flash_attention_cuda``); a CPU
 tensor to the plain version, ``attention_ref`` up to S = 1024 and the
 query-chunked ``attention_ref_chunked`` above, as the reference's jnp
-path does; any other device raises.  On the card a v narrower than k is
-zero-padded to D, the kernel launches on it, and the first Dv columns
-of its output are returned: exact, since the padded columns of P V are
-zero.  A kernel that reads only Dv columns of V would save the padded
-reads and products; that is later performance work.  It is
-differentiable: the forward is wrapped in a ``torch.autograd.Function``
-whose backward recomputes through ``attention_ref``, as the
-reference's ``custom_vjp`` does.
+path does; any other device raises.  On the card the wgmma kernel takes
+v of width Dv as is at its compiled (D, Dv) (MLA's (192, 128) among
+them: no pad, Dv-wide tiles and products); on the other routes (the
+mma and fp32 kernels, wgmma at a (D, Dv) not compiled, such as D 128 /
+Dv 64) a v narrower than k is zero-padded to D, the kernel launches on
+it, and the first Dv columns of its output are returned: exact, since
+the padded columns of P V are zero.  It is differentiable: the forward
+is wrapped in a ``torch.autograd.Function`` whose backward recomputes
+through ``attention_ref``, as the reference's ``custom_vjp`` does.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention.flash_attention import (
-    check_operands, flash_attention_cuda)
+    check_operands, flash_attention_cuda, takes_value_dim)
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      attention_ref_chunked)
 
@@ -46,11 +47,12 @@ def _forward(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
     if Dv > D:
         raise ValueError(f"value head dim {Dv} above the q/k head dim {D}: "
                          "the kernels take Dv <= D")
-    if Dv < D:
+    pad = not takes_value_dim(q.dtype, D, Dv, k.shape[2])
+    if pad:
         v = torch.nn.functional.pad(v, (0, D - Dv))
     out = flash_attention_cuda(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal, window)
-    return out[..., :Dv] if Dv < D else out
+    return out[..., :Dv] if pad else out
 
 
 class _FlashAttention(torch.autograd.Function):

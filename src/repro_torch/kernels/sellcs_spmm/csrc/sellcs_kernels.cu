@@ -53,9 +53,18 @@
 // spends about half its time in powf, the HVP more (two a term), both
 // phi.cuh's.
 //
-// Widths 4, 8, 16 and 24 (the main path's) are compiled; any other k,
-// or operands off a 16-byte boundary, run the generic variant: one lane
-// per row and chunk of 4 columns (grid y), scalar loads.
+// Widths 1, 4, 8, 16 and 24 (the main path's) are compiled; any other k,
+// or operands of widths 4-24 off a 16-byte boundary, run the generic
+// variant: one lane per row and chunk of 4 columns (grid y), scalar
+// loads.  Width 1 (the inverse_power solver's one column) holds one
+// value a lane: one 4- or 8-byte gather a slot, which needs only element
+// alignment, and phi once a slot where the generic variant's chunk of 4
+// evaluates it on three dead columns too.  One gather a slot leaves a
+// thread little in flight, so width 1 takes kUnrollOne slots at once
+// (U = 2: the apply's device time 0.032 ms against 0.036 at U = 4 and
+// 0.039 at U = 8, the HVP's likewise, on delaunay_graph(20) on an H100,
+// PERF.md).  Its slot expression and slot order are the generic
+// variant's, so the two give the same bits.
 //
 // Each output is owned by one thread and summed over the slots in order,
 // j = 0 .. w-1, with one expression per slot (acc += v * x,
@@ -98,10 +107,15 @@ constexpr int kChunk = 4;  // columns per thread of the generic variant
 __host__ __device__ constexpr int lanes_for(int row_bytes) {
   return row_bytes <= 32 ? 1 : row_bytes / 32;
 }
-// Slots per step: 2 while a lane holds at most 16 bytes of a row on the
-// reals ring, else 1.
-__host__ __device__ constexpr int unroll_for(int kind, int lane_bytes) {
-  return kind == kReals && lane_bytes <= 16 ? 2 : 1;
+// Slots per step: kUnrollOne for one value a lane (width 1, every kind);
+// else 2 while a lane holds at most 16 bytes of a row on the reals ring,
+// and 1.
+constexpr int kUnrollOne = 2;
+__host__ __device__ constexpr int unroll_for(int kind, int lane_values,
+                                             int lane_bytes) {
+  return lane_values == 1                      ? kUnrollOne
+         : kind == kReals && lane_bytes <= 16 ? 2
+                                               : 1;
 }
 
 template <typename T, int VW>
@@ -143,7 +157,8 @@ __device__ __forceinline__ void store_piece(T* __restrict__ p, const T* in) {
 
 // The NP pieces of VW values a lane owns in one row of k values: piece i
 // starts at column c0 + (g + i G) VW; VEC: every piece lies below k and is
-// 16-byte aligned, else pieces are single columns, masked at k.
+// aligned to its VW values (16 bytes, or one value at width 1), else
+// pieces are single columns, masked at k.
 template <typename T, int NP, int VW, int G, bool VEC, bool STREAM>
 __device__ __forceinline__ void load_lane(const T* __restrict__ row, int c0,
                                           int g, int k, T* out) {
@@ -160,7 +175,7 @@ __device__ __forceinline__ void load_lane(const T* __restrict__ row, int c0,
 }
 
 // Every kind.  VEC: k == KW, lanes G = lanes_for(KW bytes), pieces of
-// 16 bytes.  Generic (!VEC): KW = kChunk columns c0 = blockIdx.y * KW
+// 16 bytes (width 1: one value).  Generic (!VEC): KW = kChunk columns c0 = blockIdx.y * KW
 // onwards, one lane per row, single-column pieces.  MV: (slots, k)
 // multivalues.  E: the HVP's second multivector (kind 2 only).
 // ``order``: the blocks' visiting order, or null.
@@ -171,12 +186,12 @@ __global__ void __launch_bounds__(kThreads) sell_row_kernel(
     const T* __restrict__ vals, const T* __restrict__ X,
     const T* __restrict__ E, T* __restrict__ Y, int32_t n, int32_t C,
     int32_t k, Ring<T> ring, const int32_t* __restrict__ order) {
-  constexpr int VW = VEC ? 16 / static_cast<int>(sizeof(T)) : 1;
+  constexpr int VW = VEC && KW > 1 ? 16 / static_cast<int>(sizeof(T)) : 1;
   constexpr int G = VEC ? lanes_for(KW * static_cast<int>(sizeof(T))) : 1;
   constexpr int NP = KW / (VW * G);   // pieces per lane
   constexpr int L = NP * VW;          // values per lane
   static_assert(NP * VW * G == KW, "a row splits into whole pieces");
-  constexpr int U = unroll_for(KIND, L * static_cast<int>(sizeof(T)));
+  constexpr int U = unroll_for(KIND, L, L * static_cast<int>(sizeof(T)));
   constexpr int V = MV ? L : 1;
   constexpr int LE = KIND == kHvp ? L : 1;   // values of E a lane holds
 
@@ -292,6 +307,7 @@ template <typename T, int KIND, bool MV>
 cudaError_t dispatch_width(int width, int lanes, const Args& a) {
   switch (width) {
     case 0: return launch_row<T, KIND, MV, kChunk, false>(a, lanes);
+    case 1: return launch_row<T, KIND, MV, 1, true>(a, lanes);
     case 4: return launch_row<T, KIND, MV, 4, true>(a, lanes);
     case 8: return launch_row<T, KIND, MV, 8, true>(a, lanes);
     case 16: return launch_row<T, KIND, MV, 16, true>(a, lanes);
@@ -323,7 +339,7 @@ cudaError_t dispatch(int kind, int multivalue, int width, int lanes,
 // multivector (read by kind 2 only), and ``order`` is the blocks'
 // visiting order or null.  The
 // wrapper has checked the operands' devices, dtypes, shapes, contiguity
-// and, for a compiled width, their 16-byte alignment.
+// and, for a compiled width above 1, their 16-byte alignment.
 extern "C" int sellcs_launch(int kind, int is_f64, int multivalue, int width,
                              int lanes, int device,
                              const void* slice_ptr, const void* slice_w,

@@ -35,11 +35,13 @@ the reference's ``sellcs_shard_*_ref``.
 
 ``launch_plan`` routes a launch: every wrapper runs the row kernel at a
 compiled width (k = 4, 8, 16, 24, with 16-byte loads; ``lanes`` threads
-a row, one per 32 bytes of it) or its generic variant (chunks of 4
-columns, scalar loads); how many slots a thread takes at once is the
-kernel's own choice.  The reals ring visits the blocks in the order
-``block_order`` gives (by the original id of their first row, cached on
-the layout); the apply and the HVP keep launch order.
+a row, one per 32 bytes of it; and k = 1, one value a thread, at any
+alignment) or its generic variant (chunks of 4 columns, scalar loads);
+how many slots a thread takes at once is the kernel's own choice.  The
+generic variant's launches are also counted in ``GENERIC_LAUNCHES``.
+The reals ring visits the blocks in the order ``block_order`` gives (by
+the original id of their first row, cached on the layout); the apply and
+the HVP keep launch order.
 
 The library is built with nvcc (``kernels/nvcc.py``) at first CUDA use
 (or by ``build``/``start_build``) into ``build/torch_ext/`` at the root
@@ -73,15 +75,19 @@ LIBRARY = NvccLibrary(
 LAUNCHES = {"sellcs_spmm": 0, "sellcs_plap_apply": 0, "sellcs_plap_hvp": 0}
 LAUNCHES_BY_SHAPE: Dict[str, int] = {}
 APPLY_LAUNCHES_BY_K: Dict[int, int] = {}
+# launches of the generic variant, by wrapper (global and shard launches)
+GENERIC_LAUNCHES = {"sellcs_spmm": 0, "sellcs_plap_apply": 0,
+                    "sellcs_plap_hvp": 0}
 # shard launches (the dist_sellcs backend) by kind and k, in this
 # process (one rank): "sellcs_shard_spmm k=8", "sellcs_shard_plap_apply
 # k=4"
 SHARD_LAUNCHES: Dict[str, int] = {}
 
 _KIND = {"sellcs_spmm": 0, "sellcs_plap_apply": 1, "sellcs_plap_hvp": 2}
-# the widths the row kernel is compiled for (16-byte loads); any other k
-# runs the generic variant on chunks of GENERIC_WIDTH columns
-ROW_WIDTHS = (4, 8, 16, 24)
+# the widths the row kernel is compiled for (16-byte loads; width 1 one
+# value a thread); any other k runs the generic variant on chunks of
+# GENERIC_WIDTH columns
+ROW_WIDTHS = (1, 4, 8, 16, 24)
 GENERIC_WIDTH = 4
 THREADS = 256       # threads per block (kThreads)
 
@@ -89,6 +95,7 @@ THREADS = 256       # threads per block (kThreads)
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        GENERIC_LAUNCHES[name] = 0
     LAUNCHES_BY_SHAPE.clear()
     APPLY_LAUNCHES_BY_K.clear()
     SHARD_LAUNCHES.clear()
@@ -125,19 +132,27 @@ def lanes(row_bytes: int) -> int:
 def launch_plan(name: str, n: int, k: int, dtype: torch.dtype,
                 aligned: bool = True) -> Plan:
     """The launch of wrapper ``name`` over n rows and k columns: variant,
-    columns, threads per row, grid, block size and block order.  ``aligned``: every dense operand starts on a 16-byte boundary
-    (the compiled widths read rows with 16-byte loads).  The slice height
-    C does not enter: the row kernels take any C."""
+    columns, threads per row, grid, block size and block order.
+    ``aligned``: every dense operand starts on a 16-byte boundary (the
+    compiled widths 4 to 24 read rows with 16-byte loads; width 1 reads
+    one value and takes the row kernel whatever ``aligned`` says).  The
+    slice height C does not enter: the row kernels take any C."""
     if name not in _KIND:
         raise ValueError(f"unknown SELL-C-σ kernel {name!r}")
     itemsize = torch.empty((), dtype=dtype).element_size()
-    ordered = name == "sellcs_spmm"
-    if k in ROW_WIDTHS and aligned:
+    if k in ROW_WIDTHS and (aligned or k == 1):
         g = lanes(k * itemsize)
         return Plan("row", k, g, (-(-n * g // THREADS), 1), THREADS,
-                    ordered)
+                    name == "sellcs_spmm")
+    return _generic_plan(name, n, k)
+
+
+def _generic_plan(name: str, n: int, k: int) -> Plan:
+    """The generic variant's launch: one thread a row and chunk of
+    GENERIC_WIDTH columns (grid y)."""
     return Plan("row_generic", GENERIC_WIDTH, 1,
-                (-(-n // THREADS), -(-k // GENERIC_WIDTH)), THREADS, ordered)
+                (-(-n // THREADS), -(-k // GENERIC_WIDTH)), THREADS,
+                name == "sellcs_spmm")
 
 
 def block_order(L, plan: Plan) -> torch.Tensor:
@@ -244,16 +259,19 @@ def _check(A, *Xs) -> bool:
 
 
 def _enqueue(name: str, L, X: torch.Tensor, E: torch.Tensor, Y: torch.Tensor,
-             n: int, p: float, eps: float) -> None:
+             n: int, p: float, eps: float, generic: bool = False) -> None:
     """Plan and enqueue one launch of ``name``'s kernel over the first n
-    permuted rows of layout L (it reads X and E, writes Y at ``perm``)."""
+    permuted rows of layout L (it reads X and E, writes Y at ``perm``);
+    ``generic``: the generic variant whatever the plan (for comparing the
+    two on the card)."""
     k = X.shape[1]
     if n * k >= 2 ** 31 * THREADS:
         raise ValueError("multivector too large for the kernels' grid")
     multivalue = L.vals.ndim == 2
     vector_operands = (X, E, Y, L.vals) if multivalue else (X, E, Y)
     aligned = all(t.data_ptr() % 16 == 0 for t in vector_operands)
-    plan = launch_plan(name, n, k, X.dtype, aligned)
+    plan = (_generic_plan(name, n, k) if generic
+            else launch_plan(name, n, k, X.dtype, aligned))
     order = block_order(L, plan) if plan.ordered else None
     lib = LIBRARY.load()
     dev = X.device.index if X.device.index is not None \
@@ -266,14 +284,17 @@ def _enqueue(name: str, L, X: torch.Tensor, E: torch.Tensor, Y: torch.Tensor,
         k, float(p), float(eps),
         torch.cuda.current_stream(X.device).cuda_stream)
     check(lib, code, name)
+    if plan.variant == "row_generic":
+        GENERIC_LAUNCHES[name] += 1
 
 
 def _launch(name: str, A, X: torch.Tensor, E: torch.Tensor, p: float = 0.0,
-            eps: float = 0.0) -> torch.Tensor:
-    """One launch of wrapper ``name``'s kernel over the whole layout."""
+            eps: float = 0.0, generic: bool = False) -> torch.Tensor:
+    """One launch of wrapper ``name``'s kernel over the whole layout
+    (``generic``: see ``_enqueue``)."""
     L = A.sell_kernel
     Y = torch.empty_like(X)
-    _enqueue(name, L, X, E, Y, X.shape[0], p, eps)
+    _enqueue(name, L, X, E, Y, X.shape[0], p, eps, generic)
     LAUNCHES[name] += 1
     k = X.shape[1]
     if name == "sellcs_spmm":

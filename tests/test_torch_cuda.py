@@ -560,16 +560,48 @@ def test_cuda_flash_wgmma_matches_fp32_math(cuda_device, D, B, Hq, Hkv, S,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Dv", [128, 192])
+@pytest.mark.parametrize("Hq,Hkv", [(2, 2), (4, 2)])
+@pytest.mark.parametrize("S", [1, 63, 64, 129, 300, 2048])
+@pytest.mark.parametrize("window", [None, 100])
+def test_cuda_flash_wgmma_at_mla_head_dims(cuda_device, Dv, Hq, Hkv, S,
+                                           window):
+    """The wgmma kernel at D 192 with v 128 (MLA, no pad) or 192 wide,
+    group 1 (two query tiles of one head a block, an odd tile count
+    leaving the last block's upper consumer idle) and group 2, causal
+    with and without a window: one launch, against fp32 math."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+
+    assert KF.kernel_variant(torch.bfloat16, 192, S) == "wgmma"
+    gen = torch.Generator(device=cuda_device).manual_seed(S + Dv + Hq)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               .to(torch.bfloat16)
+               for shape in ((1, Hq, S, 192), (1, Hkv, S, 192),
+                             (1, Hkv, S, Dv)))
+    before = dict(KF.LAUNCHES)
+    got = flash_attention(q, k, v, causal=True, window=window)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=True,
+                         window=window)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in KF.LAUNCHES.items()} == {
+        n: int(n == "flash_attention_wgmma") for n in KF.LAUNCHES}
+    assert got.dtype == torch.bfloat16 and got.shape == (1, Hq, S, Dv)
+    _bf16_close(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,B,Hq,Hkv,S,D,Dv,window", [
-    (torch.bfloat16, 1, 4, 4, 300, 192, 128, None),   # MLA: the mma route
-    (torch.bfloat16, 2, 6, 1, 200, 128, 64, 50),      # the wgmma route
+    (torch.bfloat16, 1, 4, 4, 300, 192, 128, None),   # MLA: wgmma, no pad
+    (torch.bfloat16, 2, 6, 1, 200, 128, 64, 50),      # wgmma on v padded
     (torch.float32, 1, 4, 2, 77, 24, 16, None),       # the fp32 route
 ])
 def test_cuda_flash_takes_a_narrower_value_head_dim(cuda_device, dtype, B,
                                                     Hq, Hkv, S, D, Dv,
                                                     window):
-    """v (B, Hkv, S, Dv) with Dv < D: one launch on v padded to D, the
-    first Dv columns returned, against fp32 math on the same inputs."""
+    """v (B, Hkv, S, Dv) with Dv < D: one launch, on v as is where the
+    kernel is compiled for (D, Dv), else on v padded to D with the first
+    Dv columns returned, against fp32 math on the same inputs."""
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
 
@@ -820,8 +852,8 @@ def _sell_operands(W, k, seed):
 def test_cuda_sellcs_row_kernels_match_plain_and_repeat_bitwise(
         cuda_device, dtype, eps, k, C):
     """sellcs_spmm (scalar values and (nnz, k) multivalues) and
-    sellcs_plap_apply at compiled widths (4, 8, 24) and through the
-    generic variant (1, 33), against their plain versions; two calls equal
+    sellcs_plap_apply at compiled widths (1, 4, 8, 24) and through the
+    generic variant (33), against their plain versions; two calls equal
     bit for bit; one launch each."""
     coo, shape = _graph(1000)
     W = convert.sparse_matrix(coo, shape, device=cuda_device, dtype=dtype,
@@ -848,11 +880,12 @@ def test_cuda_sellcs_row_kernels_match_plain_and_repeat_bitwise(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("k", [4, 8, 24])
+@pytest.mark.parametrize("k", [1, 4, 8, 24])
 def test_cuda_sellcs_misaligned_operands_take_the_generic_variant(
         cuda_device, dtype, k):
     """A contiguous multivector that does not start on a 16-byte boundary
-    runs the generic variant and matches the plain version."""
+    runs the generic variant (k = 1: the width-1 row instance, which
+    needs element alignment only) and matches the plain version."""
     coo, shape = _graph(500)
     W = convert.sparse_matrix(coo, shape, device=cuda_device, dtype=dtype,
                               build_sellcs=True, sell_c=32)
@@ -862,7 +895,8 @@ def test_cuda_sellcs_misaligned_operands_take_the_generic_variant(
     Xm.copy_(X)
     assert Xm.is_contiguous() and Xm.data_ptr() % 16 != 0
     assert K.launch_plan("sellcs_spmm", W.n_rows, k, X.dtype,
-                         aligned=False).variant == "row_generic"
+                         aligned=False).variant == (
+        "row" if k == 1 else "row_generic")
     for got, want in ((K.sellcs_spmm(W, Xm), K.sellcs_spmm_plain(W, X)),
                       (K.sellcs_plap_apply(W, Xm, 1.5, 1e-8),
                        K.sellcs_plap_apply_plain(W, X, 1.5, 1e-8))):
@@ -1117,15 +1151,15 @@ def _misaligned(X):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("k", [4, 8, 16, 24, 5])
+@pytest.mark.parametrize("k", [1, 4, 8, 16, 24, 5])
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("C", [8, 32])
 def test_cuda_sellcs_hvp_row_kernel_matches_plain_and_repeats_bitwise(
         cuda_device, dtype, k, aligned, C):
-    """sellcs_plap_hvp on the row kernel at the compiled widths (4, 8, 16,
-    24) and through the generic variant (k = 5, and misaligned operands),
-    against its plain version; two calls equal bit for bit; one launch
-    each."""
+    """sellcs_plap_hvp on the row kernel at the compiled widths (1, 4, 8,
+    16, 24; width 1 also misaligned) and through the generic variant
+    (k = 5, and misaligned operands at widths 4-24), against its plain
+    version; two calls equal bit for bit; one launch each."""
     coo, shape = _graph(1000)
     W = convert.sparse_matrix(coo, shape, device=cuda_device, dtype=dtype,
                               build_sellcs=True, sell_c=C)
@@ -1137,7 +1171,8 @@ def test_cuda_sellcs_hvp_row_kernel_matches_plain_and_repeats_bitwise(
     if not aligned:
         U, E = _misaligned(U), _misaligned(E)
     plan = K.launch_plan("sellcs_plap_hvp", W.n_rows, k, U.dtype, aligned)
-    assert plan.variant == ("row" if aligned and k != 5 else "row_generic")
+    assert plan.variant == ("row" if (aligned or k == 1) and k != 5
+                            else "row_generic")
     before = K.LAUNCHES["sellcs_plap_hvp"]
     got = K.sellcs_plap_hvp(W, U, E, 1.2, 1e-8)
     again = K.sellcs_plap_hvp(W, U, E, 1.2, 1e-8)
@@ -1334,9 +1369,9 @@ def test_cuda_sellcs_hvp_near_overflow_lands_where_plain(cuda_device, dtype,
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("p,eps", [(1.2, 1e-8), (1.0, 1e-8), (2.0, 0.0)])
 def test_cuda_apply_k1_matches_plain(cuda_device, dtype, p, eps):
-    """The p-Laplacian apply at k = 1 (the inverse-power driver's one
-    column; the generic variant) against its plain version, twice equal
-    bit for bit, counted under k = 1."""
+    """The p-Laplacian apply at k = 1 (the inverse_power solver's one
+    column; the row kernel's width-1 instance) against its plain version,
+    twice equal bit for bit, counted under k = 1."""
     coo, shape = _graph(1000)
     W = convert.sparse_matrix(coo, shape, device=cuda_device, dtype=dtype,
                               build_sellcs=True, sell_c=32)
@@ -1344,15 +1379,47 @@ def test_cuda_apply_k1_matches_plain(cuda_device, dtype, p, eps):
     u = torch.randn(W.n_rows, 1, generator=gen, device=cuda_device,
                     dtype=W.vals.dtype)
     assert K.launch_plan("sellcs_plap_apply", W.n_rows, 1,
-                         u.dtype).variant == "row_generic"
+                         u.dtype).variant == "row"
     K.reset_launch_counts()
     got = K.sellcs_plap_apply(W, u, p, eps)
     assert K.APPLY_LAUNCHES_BY_K == {1: 1}
+    assert not any(K.GENERIC_LAUNCHES.values())
     assert torch.equal(got, K.sellcs_plap_apply(W, u, p, eps))
     np.testing.assert_allclose(
         convert.to_numpy(got),
         convert.to_numpy(K.sellcs_plap_apply_plain(W, u, p, eps)),
         **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("C", [8, 32])
+def test_cuda_k1_row_instance_equals_the_generic_variant_bitwise(
+        cuda_device, dtype, C):
+    """At k = 1 the width-1 row instance of all three kinds (the reals
+    ring with scalar and with (nnz, 1) multivalues, the apply, the HVP)
+    gives the generic variant's bits: the same slot expression summed in
+    the same order.  The generic launch is counted as such."""
+    coo, shape = _graph(1000)
+    W = convert.sparse_matrix(coo, shape, device=cuda_device, dtype=dtype,
+                              build_sellcs=True, sell_c=C)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    U, E = (torch.randn(W.n_rows, 1, generator=gen, device=cuda_device,
+                        dtype=W.vals.dtype) for _ in range(2))
+    Wh = W.with_vals(torch.rand(W.nnz, 1, generator=gen, device=cuda_device,
+                                dtype=W.vals.dtype))
+    calls = [("sellcs_spmm", W, U, U, 0.0, 0.0),
+             ("sellcs_spmm", Wh, U, U, 0.0, 0.0),
+             ("sellcs_plap_apply", W, U, U, 1.2, 1e-8),
+             ("sellcs_plap_hvp", W, U, E, 1.2, 1e-8)]
+    for name, A, X, Y, p, eps in calls:
+        K.reset_launch_counts()
+        row = K._launch(name, A, X, Y, p, eps)
+        assert K.GENERIC_LAUNCHES[name] == 0
+        generic = K._launch(name, A, X, Y, p, eps, generic=True)
+        torch.cuda.synchronize()
+        assert K.GENERIC_LAUNCHES[name] == 1 and K.LAUNCHES[name] == 2
+        assert torch.equal(row, generic), name
 
 
 @pytest.mark.cuda

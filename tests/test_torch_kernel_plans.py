@@ -2,8 +2,11 @@
 plain versions at the shapes those plans serve, on the CPU.
 
   * flash attention: which kernel serves (dtype, head dim, key length),
-    how the wgmma kernel pairs the q heads of a GQA group in one block,
-    and its grid;
+    which takes v of a narrower value head dim as is, how the wgmma
+    kernel pairs the q heads of a GQA group in one block (or, at group 1,
+    two query tiles of one head), and its grid;
+  * the SELL-C-σ row kernel at k = 1 (the inverse_power solver's one
+    column): the width-1 instance, aligned or not;
   * BSR SpMM: the column windows and register-tile widths of a launch;
   * the BSR phi kernels (plap_apply, plap_hvp): the mode a call is routed
     to (skip zero weights, or evaluate every entry), the premise that
@@ -52,7 +55,7 @@ BSR_TOL = {np.float32: dict(rtol=2e-4, atol=2e-5),
 
 # ------------------------------------------------------- flash: routing
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
 def test_flash_bf16_at_wgmma_head_dims_takes_wgmma(D):
     assert KF.kernel_variant(torch.bfloat16, D) == "wgmma"
     assert KF.kernel_variant(torch.float32, D) == "f32"
@@ -60,10 +63,29 @@ def test_flash_bf16_at_wgmma_head_dims_takes_wgmma(D):
     assert KF.kernel_variant(torch.bfloat16, D, Sk=0) == "mma"
 
 
-@pytest.mark.parametrize("D", [8, 16, 32, 96, 136, 192, 248])
+@pytest.mark.parametrize("D", [8, 16, 32, 96, 136, 248])
 def test_flash_bf16_at_other_head_dims_takes_mma(D):
     assert KF.kernel_variant(torch.bfloat16, D) == "mma"
     assert KF.kernel_variant(torch.float32, D) == "f32"
+
+
+@pytest.mark.parametrize("dtype,D,Dv,Sk,want", [
+    (torch.bfloat16, 192, 128, 2048, True),    # MLA on wgmma: no pad
+    (torch.bfloat16, 192, 192, 1, True),
+    (torch.bfloat16, 128, 64, 200, False),     # wgmma, (128, 64) not compiled
+    (torch.bfloat16, 192, 128, 0, False),      # no keys: the mma kernel
+    (torch.bfloat16, 32, 16, 10, False),       # mma
+    (torch.float32, 192, 128, 10, False),      # f32
+    (torch.float32, 24, 24, 10, True),
+])
+def test_flash_value_dim_taken_as_is_only_where_compiled(dtype, D, Dv, Sk,
+                                                          want):
+    """The op pads v to D exactly where the routed kernel does not take
+    its width."""
+    assert KF.takes_value_dim(dtype, D, Dv, Sk) is want
+    assert {s for s in KF.WGMMA_SHAPES if s[0] != s[1]} == {(192, 128)}
+    assert set(KF.WGMMA_HEAD_DIMS) == {d for d, d2 in KF.WGMMA_SHAPES
+                                       if d == d2}
 
 
 def test_flash_variant_rejects_other_dtypes():
@@ -111,10 +133,45 @@ def test_flash_head_pairs_of_an_odd_group_idle_the_last_slot():
     (4, 8, 2, 2048, (16, 32)),      # group 4
     (1, 14, 2, 1000, (8, 16)),      # InternVL2, ragged
     (2, 32, 8, 1, (32, 1)),         # Granite, one token
-    (1, 2, 2, 129, (2, 3)),         # group 1
+    (1, 2, 2, 129, (2, 2)),         # group 1: 128-row tiles of one head
+    (4, 128, 128, 2048, (512, 16)),  # deepseek-v3's MLA prefill
 ])
 def test_flash_wgmma_grid(B, Hq, Hkv, Sq, grid):
     assert KF.wgmma_grid(B, Hq, Hkv, Sq) == grid
+
+
+@pytest.mark.parametrize("Hq,Sq", [(2, 129), (3, 128), (1, 64), (2, 1),
+                                   (4, 2048), (2, 300), (1, 320)])
+def test_flash_group1_blocks_cover_each_query_tile_once(Hq, Sq):
+    """At group 1 the two consumers of a block take adjacent 64-row tiles
+    of its one head: every (head, 64-row tile) in exactly one slot; the
+    upper slot idle only in the last tile of an odd tile count; the
+    heaviest tiles first."""
+    blocks = KF.wgmma_blocks(Hq, Hq, Sq)
+    x_blocks, y_blocks = KF.wgmma_grid(1, Hq, Hq, Sq)
+    assert (x_blocks, y_blocks) == (Hq, -(-Sq // 128))
+    assert [(x, y) for x, y, _, _ in blocks] == [
+        (x, y) for x in range(x_blocks) for y in range(y_blocks)]
+    slots = [s for _, _, s0, s1 in blocks for s in (s0, s1) if s is not None]
+    tiles = -(-Sq // 64)
+    assert sorted(slots) == [(h, 64 * t) for h in range(Hq)
+                             for t in range(tiles)]
+    for x, y, s0, s1 in blocks:
+        assert s0[0] == x and s0[1] == 128 * (y_blocks - 1 - y)
+        assert s1 == (x, s0[1] + 64) or (
+            s1 is None and tiles % 2 == 1 and y == 0)
+    assert sum(s1 is None for *_, s1 in blocks) == (Hq if tiles % 2 else 0)
+
+
+def test_flash_grouped_blocks_keep_the_head_pairs():
+    """Groups of 2 or more: a block's slots are its pair of q heads at one
+    64-row tile (InternVL2's group 7 leaves the last slot idle)."""
+    blocks = KF.wgmma_blocks(14, 2, 130)
+    assert len(blocks) == 8 * 3
+    for x, y, s0, s1 in blocks:
+        _, h0, h1 = KF.head_pairs(14, 2)[x]
+        assert s0 == (h0, 64 * (2 - y))
+        assert s1 == (None if h1 is None else (h1, 64 * (2 - y)))
 
 
 # --------------------------------------------------- BSR SpMM: windows
@@ -150,6 +207,31 @@ def test_bsr_spmm_main_path_widths_are_one_launch(dtype):
     assert len(KB.spmm_windows(8, dtype)) == 1
     if dtype == torch.float32:
         assert len(KB.spmm_windows(24, dtype)) == 1
+
+
+# ------------------------------------------- SELL-C-σ: the k = 1 instance
+
+KS = importlib.import_module("repro_torch.kernels.sellcs_spmm.sellcs_spmm")
+
+
+@pytest.mark.parametrize("name", ["sellcs_spmm", "sellcs_plap_apply",
+                                  "sellcs_plap_hvp"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_sellcs_k1_takes_the_row_kernel_at_width_1(name, dtype, aligned):
+    """k = 1 runs the width-1 row instance (one value a thread, element
+    alignment only), never the generic variant's chunk of 4."""
+    n = 1 << 20
+    assert 1 in KS.ROW_WIDTHS
+    assert KS.launch_plan(name, n, 1, dtype, aligned) == KS.Plan(
+        "row", 1, 1, (n // 256, 1), 256, name == "sellcs_spmm")
+
+
+def test_sellcs_generic_launches_are_counted_by_wrapper():
+    assert set(KS.GENERIC_LAUNCHES) == set(KS.LAUNCHES)
+    KS.GENERIC_LAUNCHES["sellcs_plap_apply"] = 3
+    KS.reset_launch_counts()
+    assert not any(KS.GENERIC_LAUNCHES.values())
 
 
 def test_import_builds_no_wgmma_library():

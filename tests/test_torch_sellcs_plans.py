@@ -3,9 +3,9 @@ shapes the main path gives them, on the CPU.
 
   * the plan: every wrapper (``sellcs_spmm``, ``sellcs_plap_apply``,
     ``sellcs_plap_hvp``) runs the row kernel at a compiled width (k = 4,
-    8, 16, 24, operands on 16-byte boundaries) or its generic variant on
-    chunks of 4 columns; the threads a row takes; the grid; the block
-    order;
+    8, 16, 24, operands on 16-byte boundaries; k = 1 at any alignment)
+    or its generic variant on chunks of 4 columns; the threads a row
+    takes; the grid; the block order;
   * the plain versions at LOBPCG's widths (k = 8 and 24) and with the
     graphblas HVP's (nnz, 4) multivalues, run by run, against the
     reference's Pallas kernels in interpret mode and its ref.py oracles,
@@ -58,7 +58,7 @@ def test_main_path_widths_take_the_row_kernel(dtype, k, lanes):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("k", [1, 2, 3, 5, 12, 33, 120])
+@pytest.mark.parametrize("k", [2, 3, 5, 7, 12, 33, 120])
 def test_other_widths_take_the_generic_variant(dtype, k):
     plan = K.launch_plan("sellcs_spmm", 1000, k, dtype)
     assert plan == K.Plan("row_generic", 4, 1, (4, -(-k // 4)), 256, True)
@@ -90,7 +90,7 @@ def test_hvp_takes_the_row_kernel_at_compiled_widths(dtype, k, lanes):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("k", [1, 5, 12, 33])
+@pytest.mark.parametrize("k", [5, 7, 12, 33])
 def test_hvp_other_widths_take_the_generic_variant(dtype, k):
     assert K.launch_plan("sellcs_plap_hvp", 1000, k, dtype) == K.Plan(
         "row_generic", 4, 1, (4, -(-k // 4)), 256, False)
