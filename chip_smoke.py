@@ -95,7 +95,12 @@ Phases, none of which catches its own failure:
      at jamba-1.5-large's (B 2, Hq 64, Hkv 8, S 4096, D 128, causal) and
      at deepseek-v3's MLA prefill shape (B 4, Hq = Hkv = 128, S 2048, q/k
      head dim 192, value head dim 128 taken as is, group 1: two query
-     tiles of one head a block; all seven on the wgmma kernel), then the
+     tiles of one head a block), at whisper-small's four (B 8, 12 heads
+     of 64, group 1: the encoder's non-causal 1500 x 1500, the decoder's
+     causal 416 x 416, and the cross-attention's non-causal 416 x 1500
+     in prefill and 1 x 1500 in a decode step) and at internvl2-1b's
+     prefill (B 4, Hq 14, Hkv 2: group 7, S 2048, D 64, causal; all
+     twelve on the wgmma kernel), then the
      mma.sync kernel at D 32 and the fp32 kernel at
      D 128, each against fp32 math on the same inputs (bf16:
      |d| <= 2^-6 (1 + |ref|): bf16 keeps 8 significant bits, and the
@@ -129,11 +134,18 @@ Phases, none of which catches its own failure:
      Jamba-1.5-Large (bf16 parameters, 5 of 72 layers: Mamba2 + MLP,
      Mamba2 + MoE twice, then attention + MLP, printed as a cut with its
      parameter count; 2 requests of 4096 tokens; 16 experts top 2 at
-     capacity factor 1.25).  Each fails unless the prefill launched the
-     flash kernel its head dim routes to once per attention layer and
-     no other (wgmma for Gemma, mixtral, deepseek's D 192 and jamba,
-     none for mamba2, whose kernel-vs-plain check is printed as
-     vacuous), the logits are
+     capacity factor 1.25); whisper-small (fp32 parameters, whole: 12
+     encoder and 12 decoder layers, LayerNorm, learned positions; 8
+     requests of 1500 stub frames and 416-token prompts, 416 + 32 its
+     448-token decoder context); internvl2-1b (fp32 parameters, whole:
+     24 layers; 4 requests of 256 stub patch embeddings and 1792
+     tokens, 2048 positions).  Each fails unless the prefill launched
+     the flash kernel its head dim routes to once per attention layer
+     (whisper: 12 encoder + 12 self + 12 cross = 36) and no other
+     (wgmma for Gemma, mixtral, deepseek's D 192, jamba, whisper and
+     InternVL2, none for mamba2, whose kernel-vs-plain check is
+     printed as vacuous), the served run launched it that many times
+     plus whisper's 12 cross-attentions a decode step, the logits are
      finite, the last-token prefill logits through the kernel are within
      2^-5 relative of the same prefill through the plain attention (the
      router picks that differ between the two printed beside it), and
@@ -142,8 +154,10 @@ Phases, none of which catches its own failure:
      factor of n_experts / top_k, C = T, so no pair drops in either; on
      deepseek's 128-token prompts, where the no-drop buffer fits; on
      255-token prompts for mamba2 and jamba, whose SSD takes one chunk
-     of 256 or a multiple).  Each MoE layer's dropped pairs and largest
-     expert load over C in the prefill are printed, from the port's
+     of 256 or a multiple; InternVL2's decode at position 256 + 1792,
+     the patches counted, and its forward over the same patches).
+     Each MoE layer's dropped pairs and largest expert load over C in
+     the prefill are printed, from the port's
      router on the layer's input, outside the timed run; and a profiler
      window of one decode step and one prefill.  For mamba2 and jamba,
      layer 0's ``mamba_train`` over 1024 tokens (4 chunks: the
@@ -1915,11 +1929,13 @@ def dist_phase(W, counters, torch, args) -> tuple:
     return by_path, rows, summary
 
 
-def _visible_pairs(S: int, window) -> int:
-    """(query, key) pairs the causal and window masks leave, Sq = Sk = S."""
-    i = np.arange(S)
-    lo = np.maximum(i - window + 1, 0) if window else np.zeros(S, int)
-    return int(np.sum(i - lo + 1))
+def _visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks leave: key j < Sk, j <= i where
+    causal, j > i - window where a window is given."""
+    i = np.arange(Sq)
+    hi = np.minimum(i + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(Sq, int)
+    return int(np.sum(np.maximum(hi - lo, 0)))
 
 
 def _compare_bf16(name, got, ref32, torch) -> tuple:
@@ -1936,25 +1952,43 @@ def _compare_bf16(name, got, ref32, torch) -> tuple:
     return max_abs, scaled
 
 
-FLASH_SHAPES = [  # (tag, B, Hq, Hkv, S, D, Dv, window, dtype name)
-    ("serve", 4, 8, 1, 2048, 256, 256, None, "bfloat16"),
-    ("ragged_S1000", 4, 8, 1, 1000, 256, 256, None, "bfloat16"),
-    ("window512", 4, 8, 1, 2048, 256, 256, 512, "bfloat16"),
-    ("D128_group4", 4, 8, 2, 2048, 128, 128, None, "bfloat16"),
+FLASH_SHAPES = [  # (tag, B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, dtype)
+    ("serve", 4, 8, 1, 2048, 2048, 256, 256, True, None, "bfloat16"),
+    ("ragged_S1000", 4, 8, 1, 1000, 1000, 256, 256, True, None, "bfloat16"),
+    ("window512", 4, 8, 1, 2048, 2048, 256, 256, True, 512, "bfloat16"),
+    ("D128_group4", 4, 8, 2, 2048, 2048, 128, 128, True, None, "bfloat16"),
     # mixtral-8x22b's prefill: 48 q heads over 8 kv heads, a window that
     # masks at S 6144
-    ("mixtral_D128_group6_window4096", 2, 48, 8, 6144, 128, 128, 4096,
-     "bfloat16"),
+    ("mixtral_D128_group6_window4096", 2, 48, 8, 6144, 6144, 128, 128, True,
+     4096, "bfloat16"),
     # jamba-1.5-large's prefill (its one attention layer a group): 64 q
     # heads over 8 kv heads, causal, no window
-    ("jamba_D128_group8", 2, 64, 8, 4096, 128, 128, None, "bfloat16"),
+    ("jamba_D128_group8", 2, 64, 8, 4096, 4096, 128, 128, True, None,
+     "bfloat16"),
     # deepseek-v3's MLA prefill: q/k 128 + 64 rotary, v 128 (group 1;
     # the wgmma kernel takes v 128 wide)
-    ("mla_D192_Dv128", 4, 128, 128, 2048, 192, 128, None, "bfloat16"),
+    ("mla_D192_Dv128", 4, 128, 128, 2048, 2048, 192, 128, True, None,
+     "bfloat16"),
+    # whisper-small's served shapes (8 requests, 12 heads of 64, group
+    # 1): the encoder over 1500 frames (non-causal, a ragged last key
+    # tile), the decoder's causal self-attention over its 416-token
+    # prompt, and its cross-attention over the 1500 encoded frames in
+    # prefill (Sq 416) and in each decode step (Sq 1)
+    ("whisper_encoder", 8, 12, 12, 1500, 1500, 64, 64, False, None,
+     "bfloat16"),
+    ("whisper_self", 8, 12, 12, 416, 416, 64, 64, True, None, "bfloat16"),
+    ("whisper_cross_prefill", 8, 12, 12, 416, 1500, 64, 64, False, None,
+     "bfloat16"),
+    ("whisper_cross_decode", 8, 12, 12, 1, 1500, 64, 64, False, None,
+     "bfloat16"),
+    # internvl2-1b's prefill: 256 patches + 1792 tokens, 14 q heads over
+    # 2 kv heads (group 7, odd: each kv head's last pair idles a consumer)
+    ("internvl2_group7", 4, 14, 2, 2048, 2048, 64, 64, True, None,
+     "bfloat16"),
     # the kernels of the other routes: a head dim off wgmma's (the reduced
     # test configs' 16 and 32), and fp32
-    ("mma_D32", 4, 8, 2, 2048, 32, 32, None, "bfloat16"),
-    ("f32_D128", 1, 8, 2, 2048, 128, 128, None, "float32")]
+    ("mma_D32", 4, 8, 2, 2048, 2048, 32, 32, True, None, "bfloat16"),
+    ("f32_D128", 1, 8, 2, 2048, 2048, 128, 128, True, None, "float32")]
 # the shapes the --flash-src timing takes: the wgmma kernel's on the
 # served paths (rows 8, 8a, 8b, 8c)
 FLASH_AB = ("serve", "mixtral_D128_group6_window4096", "jamba_D128_group8",
@@ -1962,21 +1996,25 @@ FLASH_AB = ("serve", "mixtral_D128_group6_window4096", "jamba_D128_group8",
 
 
 def _flash_inputs(shape, gen, torch) -> tuple:
-    _, B, Hq, Hkv, S, D, Dv, _, name = shape
+    _, B, Hq, Hkv, Sq, Sk, D, Dv, _, _, name = shape
     dtype = getattr(torch, name)
     return tuple(torch.randn(s, generator=gen, device="cuda", dtype=dtype)
-                 for s in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, Dv)))
+                 for s in ((B, Hq, Sq, D), (B, Hkv, Sk, D),
+                           (B, Hkv, Sk, Dv)))
 
 
 def flash_kernel_phase(torch) -> list:
     """Flash attention against its plain version at the serve shape and
-    six variants on the wgmma kernel (mixtral's D 128, group 6, window
-    4096, jamba's D 128, group 8 and deepseek's MLA, D 192 with a value
-    head dim of 128 at group 1, among them), then the mma.sync kernel at
-    D 32 and the fp32 kernel; returns the rows of the two kernels the
-    serve paths run, wgmma at Gemma's shape (its launches: Gemma's,
-    mixtral's, deepseek's and jamba's prefill) and at MLA's (deepseek's
-    launches), and the mma.sync kernel's (on no served path)."""
+    eleven variants on the wgmma kernel (mixtral's D 128, group 6,
+    window 4096, jamba's D 128, group 8, deepseek's MLA, D 192 with a
+    value head dim of 128 at group 1, whisper's four at D 64 and group 1
+    (its non-causal encoder, its cross-attention with Sq != Sk in prefill
+    and decode) and InternVL2's D 64, group 7, among them), then the
+    mma.sync kernel at D 32 and the fp32 kernel; returns the rows of the
+    two kernels the serve paths run, wgmma at Gemma's shape (its
+    launches: every served model's but mamba2's) and at MLA's
+    (deepseek's launches), and the mma.sync kernel's (on no served
+    path)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as KF
@@ -1984,54 +2022,58 @@ def flash_kernel_phase(torch) -> list:
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {}
     for shape in FLASH_SHAPES:
-        tag, B, Hq, Hkv, S, D, Dv, window, _ = shape
+        tag, B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, _ = shape
         q, k, v = _flash_inputs(shape, gen, torch)
         dtype = q.dtype
-        variant = KF.kernel_variant(dtype, D, S)
+        variant = KF.kernel_variant(dtype, D, Sk)
         name = f"flash_attention_{variant}"
         before = KF.LAUNCHES[name]
-        got = KF.flash_attention(q, k, v, causal=True, window=window)
+        got = KF.flash_attention(q, k, v, causal=causal, window=window)
         if KF.LAUNCHES[name] != before + 1 or got.shape[-1] != Dv:
             raise AssertionError(f"flash_attention[{tag}]: {name} did not "
                                  "launch once, or the output is not Dv wide")
-        # fp32 math on the same inputs; query-chunked where the (S, S)
+        # fp32 math on the same inputs; query-chunked where the (Sq, Sk)
         # scores of every head would not fit beside the rest
-        ref = (KF.attention_ref if B * Hq * S * S * 4 <= 2 ** 32
+        ref = (KF.attention_ref if B * Hq * Sq * Sk * 4 <= 2 ** 32
                else KF.attention_ref_chunked)
-        ref32 = ref(q.float(), k.float(), v.float(), causal=True,
+        ref32 = ref(q.float(), k.float(), v.float(), causal=causal,
                     window=window)
         if dtype == torch.float32:
             err = _compare(f"flash_attention[{tag}] ({variant})", got, ref32)
         else:
             err = _compare_bf16(f"flash_attention[{tag}] ({variant})", got,
                                 ref32, torch)
-        plain = KF.plain_attention(q, k, v, causal=True, window=window)
+        plain = KF.plain_attention(q, k, v, causal=causal, window=window)
         err_plain = float((got.float() - plain.float()).abs().max())
         del ref32, plain
         if window is None:
+            # SDPA's is_causal aligns the mask at the top left, as the
+            # kernel does (key <= query); the causal shapes have Sq = Sk
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, is_causal=True, enable_gqa=True)
+                q, k, v, is_causal=causal, enable_gqa=True)
         else:
-            i = torch.arange(S, device="cuda")
-            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+            i = torch.arange(Sq, device="cuda")
+            j = torch.arange(Sk, device="cuda")
+            mask = (j[None, :] <= i[:, None]) & (j[None, :] > i[:, None]
                                                  - window)
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, attn_mask=mask, enable_gqa=True)
         item = q.element_size()
         nbytes = item * (q.numel() + k.numel() + v.numel()
-                         + B * Hq * S * Dv)
-        flops = 2 * B * Hq * (D + Dv) * _visible_pairs(S, window)
+                         + B * Hq * Sq * Dv)
+        flops = 2 * B * Hq * (D + Dv) * _visible_pairs(Sq, Sk, causal,
+                                                       window)
         bound = _bound(nbytes, flops, BF16_OPS_PER_S
                        if dtype == torch.bfloat16 else FP32_OPS_PER_S)
-        row = dict(shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, D=D, Dv=Dv,
-                              window=window, causal=True,
+        row = dict(shape=dict(B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D, Dv=Dv,
+                              window=window, causal=causal,
                               dtype=str(dtype).split(".")[-1]),
                    variant=variant, max_abs_err=err[0], max_rel_err=err[1],
                    max_abs_err_vs_plain=err_plain,
                    ms=_time_ms(lambda: KF.flash_attention(
-                       q, k, v, causal=True, window=window)),
+                       q, k, v, causal=causal, window=window)),
                    plain_ms=_time_ms(lambda: KF.plain_attention(
-                       q, k, v, causal=True, window=window), 3, 3),
+                       q, k, v, causal=causal, window=window), 3, 3),
                    bound_ms=bound[0], bound_by=bound[1], gflop=flops / 1e9,
                    library_ms=_time_ms(lib))
         print(f"flash_attention[{tag}]: kernel={variant} "
@@ -2066,7 +2108,9 @@ def flash_kernel_phase(torch) -> list:
                        "flash_attention_wgmma.cu", "serve",
                        ["ragged_S1000", "window512", "D128_group4",
                         "mixtral_D128_group6_window4096",
-                        "jamba_D128_group8"]),
+                        "jamba_D128_group8", "whisper_encoder",
+                        "whisper_self", "whisper_cross_prefill",
+                        "whisper_cross_decode", "internvl2_group7"]),
             kernel_row("flash_attention_mla", "wgmma",
                        "flash_attention_wgmma.cu", "mla_D192_Dv128", [],
                        paths=["lm_serve/deepseek-v3-671b"]),
@@ -2371,6 +2415,11 @@ LM_CELLS = {  # arch: (layers run or None for all, requests, prompt, new,
     # 5 of 72 layers: m+MLP, m+MoE, m+MLP, m+MoE, a+MLP (every kind of
     # layer jamba has; 6 would add a MoE layer, 67 GB of weights)
     "jamba-1.5-large-398b": (5, 2, 4096, 32, 255),
+    # 1500 encoder frames a request; 416 + 32 = 448, whisper's decoder
+    # context
+    "whisper-small": (None, 8, 416, 32, 416),
+    # 256 patch embeddings + 1792 tokens: 2048 positions a request
+    "internvl2-1b": (None, 4, 1792, 32, 1792),
 }
 SCAN_CHECK_TOKENS = 1024       # the SSD scan check: 4 chunks of 256
 
@@ -2387,12 +2436,37 @@ def _cut(full, n_layers):
 
 
 def _attention_layers(cfg) -> int:
+    """Flash launches a prefill: one an attention layer (whisper: its
+    encoder's, and its decoder's self- and cross-attention)."""
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return cfg.hybrid_group.count("a") * (cfg.n_layers
                                               // len(cfg.hybrid_group))
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers
     return cfg.n_layers
+
+
+def _cross_layers(cfg) -> int:
+    """Flash launches a decode step: whisper's cross-attention, one a
+    decoder layer (the reference recomputes the memory's k and v at
+    every step); the self-attention decodes without the kernel."""
+    return cfg.n_layers if cfg.family == "encdec" else 0
+
+
+def _front_end(cfg, B, torch) -> dict:
+    """The stub front end's seeded input on the card: whisper's (B,
+    enc_seq, d) frames, InternVL2's (B, vis_seq, d) patch embeddings."""
+    rng = np.random.default_rng(1)
+    if cfg.family == "encdec":
+        shape, name = (B, cfg.enc_seq, cfg.d_model), "enc_frames"
+    elif cfg.family == "vlm":
+        shape, name = (B, cfg.vis_seq, cfg.d_model), "extra_embeds"
+    else:
+        return {}
+    return {name: torch.as_tensor(rng.standard_normal(shape).astype(
+        np.float32), device="cuda")}
 
 
 def _rel(a, b) -> float:
@@ -2444,10 +2518,14 @@ def ssd_scan_check(tag, cfg, params, tok, torch) -> dict:
 
 def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
     """One model of ``LM_CELLS`` at full width (depth cut where the cell
-    says, printed) through the ServeEngine; returns (launch counts of the
-    served run, summary).  It fails unless the prefill launched the
-    flash kernel its head dim routes to once per attention layer (and
-    no other; none for the attention-free mamba2), the logits are
+    says, printed) through the ServeEngine, with the stub front end's
+    seeded input where the model takes one (``_front_end``); returns
+    (launch counts of the served run, summary).  It fails unless the
+    prefill launched the flash kernel its head dim routes to once per
+    attention layer (``_attention_layers``; and no other; none for the
+    attention-free mamba2), the served run that many plus
+    ``_cross_layers`` a decode step, the next position counts the
+    patches, the logits are
     finite and the tokens in the vocabulary, the last-token prefill
     logits through the kernel are within 2^-5 relative of the same
     prefill through the plain attention (vacuous without attention, and
@@ -2480,13 +2558,18 @@ def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
          else cfg.resolved_head_dim)
     n_attn = _attention_layers(cfg)
     variant = KF.kernel_variant(torch.bfloat16, D) if n_attn else None
-    print(f"{tag}: {cfg.name} n_layers={cfg.n_layers} "
-          f"d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+    front = _front_end(cfg, B, torch)
+    patches = cfg.vis_seq if cfg.family == "vlm" else 0
+    print(f"{tag}: {cfg.name} family={cfg.family} n_layers={cfg.n_layers} "
+          f"enc_layers={cfg.enc_layers} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} "
           f"qk_head_dim={D} d_ff={cfg.d_ff} moe={cfg.moe} mla={cfg.mla} "
           f"ssm={cfg.ssm} layer_pattern={''.join(cfg.hybrid_group)} "
-          f"window={cfg.window} vocab={cfg.padded_vocab} params={n_params} "
-          f"({param_gb!r} GB {cfg.params_dtype}, compute "
-          f"{cfg.compute_dtype}) attention_layers={n_attn} "
+          f"window={cfg.window} norm={cfg.norm} "
+          f"positions={cfg.pos_embedding} vocab={cfg.padded_vocab} "
+          f"params={n_params} ({param_gb!r} GB {cfg.params_dtype}, compute "
+          f"{cfg.compute_dtype}) attention_layers={n_attn} front_end="
+          f"{ {k: tuple(v.shape) for k, v in front.items()} } "
           f"init_s={time.perf_counter() - t0!r}", flush=True)
     if n_layers is not None:
         print(f"{tag}: depth cut to {n_layers} of {full.n_layers} layers "
@@ -2494,11 +2577,14 @@ def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
               flush=True)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab, (B, S)).astype(np.int32)
-    engine = ServeEngine(cfg, params, max_len=S + new)
-    engine.generate(prompts, GenerationConfig(max_new_tokens=2))  # warm-up
+    max_len = patches + S + new
+    engine = ServeEngine(cfg, params, max_len=max_len)
+    engine.generate(prompts, GenerationConfig(max_new_tokens=2),
+                    **front)                                    # warm-up
     _reset(counters)
     t0 = time.perf_counter()
-    out = engine.generate(prompts, GenerationConfig(max_new_tokens=new))
+    out = engine.generate(prompts, GenerationConfig(max_new_tokens=new),
+                          **front)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counts(counters)
@@ -2514,10 +2600,12 @@ def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
         flash_launches=flash, n_layers=cfg.n_layers,
         full_n_layers=full.n_layers, params=n_params, params_gb=param_gb,
-        attention_layers=n_attn)
+        attention_layers=n_attn, patches=patches,
+        decode_flash_launches_per_step=_cross_layers(cfg))
     print(f"{tag}: {summary}", flush=True)
     print(f"{tag}: first request's tokens {out[0].tolist()}", flush=True)
-    want = {k: n_attn if k == f"flash_attention_{variant}" else 0
+    served = n_attn + _cross_layers(cfg) * t["decode_steps"]
+    want = {k: served if k == f"flash_attention_{variant}" else 0
             for k in flash}
     if flash != want:
         raise AssertionError(f"{tag}: flash launches {flash}, expected "
@@ -2538,20 +2626,25 @@ def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
     plain = mock.patch.object(ATT, "flash_attention", KF.plain_attention)
     kc, pc, qc, cc, dc, fc, gc = ([] for _ in range(7))
     with torch.no_grad():
+        before = dict(KF.LAUNCHES)
         with _routing(MOE, kc, torch):
-            lk, cache, pos = M.prefill(cfg, params, tok, S + new)
+            lk, cache, pos = M.prefill(cfg, params, tok, max_len, **front)
+        prefill_flash = {k: c - before[k] for k, c in KF.LAUNCHES.items()}
         with _routing(MOE, pc, torch), plain:
-            lp = lp_own = M.prefill(cfg, params, tok, S + new)[0]
+            lp = lp_own = M.prefill(cfg, params, tok, max_len, **front)[0]
         if cfg.moe is not None:
             # the plain prefill again with the kernel prefill's routing
             with _routing(MOE, qc, torch, force=[c["run"] for c in kc]), \
                     plain:
-                lp = M.prefill(cfg, params, tok, S + new)[0]
+                lp = M.prefill(cfg, params, tok, max_len, **front)[0]
         nxt = torch.argmax(lk[:, -1], dim=-1)[:, None].to(torch.int32)
         # decode against a full forward over the same check_S + 1 tokens
+        # (and, for InternVL2, the same patches: the decode position
+        # counts them)
         ctok = tok[:, :check_S]
         with _routing(MOE, cc, torch):
-            lc, ccache, cpos = M.prefill(no_drop, params, ctok, check_S + 1)
+            lc, ccache, cpos = M.prefill(no_drop, params, ctok,
+                                         patches + check_S + 1, **front)
         cnxt = torch.argmax(lc[:, -1], dim=-1)[:, None].to(torch.int32)
         with _routing(MOE, dc, torch):
             ld, _ = M.decode_step(no_drop, params, ccache, cnxt, torch.full(
@@ -2559,7 +2652,7 @@ def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
         seq = torch.cat([ctok, cnxt], dim=1)
 
         def forward_logits():
-            x, _ = M.forward_train(no_drop, params, seq)
+            x, _ = M.forward_train(no_drop, params, seq, **front)
             return L.unembed_logits(params["embed"], x[:, -1:],
                                     real_vocab=cfg.vocab)
 
@@ -2583,6 +2676,8 @@ def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
                        y["ids"], torch) for x, y in zip(a, b)]
 
     checks = dict(
+        prefill_flash_launches=prefill_flash,
+        decode_position=cpos,
         prefill_rel_err_kernel_vs_plain=rel(lk, lp),
         prefill_rel_err_kernel_vs_plain_own_routing=rel(lk, lp_own),
         prefill_argmax_equal=int((lk.argmax(-1) == lp.argmax(-1)).sum()),
@@ -2615,6 +2710,14 @@ def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
         summary["moe_prefill"] = moe
         print(f"{tag} moe prefill (capacity factor "
               f"{cfg.moe.capacity_factor}): {moe}", flush=True)
+    if prefill_flash != {k: n_attn if k == f"flash_attention_{variant}"
+                         else 0 for k in prefill_flash}:
+        raise AssertionError(f"{tag}: prefill flash launches "
+                             f"{prefill_flash}, expected {n_attn} of "
+                             f"flash_attention_{variant}")
+    if cpos != patches + check_S:
+        raise AssertionError(f"{tag}: prefill's next position {cpos}, "
+                             f"expected {patches} + {check_S}")
     if not (checks["logits_finite"]
             and checks["prefill_rel_err_kernel_vs_plain"] <= LM_TOL
             and checks["decode_rel_err_vs_full_forward"] <= LM_TOL
@@ -2627,7 +2730,7 @@ def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
     _profile(f"{tag} decode step", lambda: M.decode_step(
         cfg, params, cache, nxt, positions), torch, reps=3)
     _profile(f"{tag} prefill", lambda: M.prefill(
-        cfg, params, tok, S + new), torch, reps=1)
+        cfg, params, tok, max_len, **front), torch, reps=1)
     del params, engine, cache
     torch.cuda.empty_cache()
     return launches, summary
@@ -2717,8 +2820,8 @@ def flash_times(src: Path, torch) -> int:
         if shape[0] in FLASH_AB:
             q, k, v = _flash_inputs(shape, gen, torch)
             calls[shape[0]] = (
-                lambda q=q, k=k, v=v, w=shape[7]: KF.flash_attention(
-                    q, k, v, causal=True, window=w))
+                lambda q=q, k=k, v=v, c=shape[8], w=shape[9]:
+                KF.flash_attention(q, k, v, causal=c, window=w))
     _ab_line(src, calls, device=True)
     return 0
 
@@ -2930,7 +3033,7 @@ def main() -> int:
     phase_done("lm_serve")
     lm = {"gemma-2b": lm}
     for arch in ("mixtral-8x22b", "deepseek-v3-671b", "mamba2-780m",
-                 "jamba-1.5-large-398b"):
+                 "jamba-1.5-large-398b", "whisper-small", "internvl2-1b"):
         by_path[f"lm_serve/{arch}"], lm[arch] = lm_serve_phase(
             torch, counters, arch)
         phase_done(f"lm_serve/{arch}")

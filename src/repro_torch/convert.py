@@ -49,7 +49,10 @@ def lm_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     layer scan on a leading axis (``params["blocks"]["attn"]["wq"]`` is
     (L, d, H, hd)); the port holds one block per layer, so layer i's
     leaf becomes ``blocks.i.attn.wq``; deepseek's leading dense layers
-    (``dense_blocks``) split the same way.  Dtypes are kept."""
+    (``dense_blocks``) and whisper's encoder layers (``enc_blocks``)
+    split the same way.  Every other leaf (``pos_embed``, ``enc_pos``,
+    a norm's ``scale`` and ``bias``) carries across as it is.  Dtypes
+    are kept."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping, prefix: str, layer=None):
@@ -62,7 +65,7 @@ def lm_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             out[f"{prefix}{name}"] = torch.from_numpy(a)
 
     for name, sub in params.items():
-        if name in ("blocks", "dense_blocks"):
+        if name in ("blocks", "dense_blocks", "enc_blocks"):
             n = np.shape(next(_leaves(sub)))[0]
             for i in range(n):
                 walk(sub, f"{name}.{i}.", i)

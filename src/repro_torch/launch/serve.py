@@ -8,14 +8,18 @@ flash attention kernel and the chunked SSD, then the decode loop).
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch jamba-1.5-large-398b --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b
 
-It runs on ``cuda`` unless ``--device cpu`` is given.  The dense, moe,
-ssm and hybrid families are ported; mixtral-8x22b, deepseek-v3-671b and
+It runs on ``cuda`` unless ``--device cpu`` is given.  Every family of
+``configs/`` serves; mixtral-8x22b, deepseek-v3-671b and
 jamba-1.5-large-398b do not fit one 80 GB card at full size: serve them
 with ``--reduced``.  A prompt longer than one SSD chunk must be a
 multiple of it (``--prompt-len``; 256 at full size, 32 reduced).  The
-encdec and vlm families raise NotImplementedError naming ROADMAP.md
-queue 1, items 17.4 and 17.5.
+front ends are the reference's stubs, drawn from the seed as it draws
+them: whisper-small takes (batch, enc_seq, d_model) frames, internvl2-1b
+(batch, vis_seq, d_model) patch embeddings, which the cache
+(``max_len``) counts.
 """
 from __future__ import annotations
 
@@ -50,12 +54,20 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab,
                            (args.batch, args.prompt_len)).astype(np.int32)
-    engine = ServeEngine(cfg, params,
-                         max_len=args.prompt_len + args.max_new + 8)
+    kw = {}
+    if cfg.family == "encdec":
+        kw["enc_frames"] = rng.standard_normal(
+            (args.batch, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        kw["extra_embeds"] = rng.standard_normal(
+            (args.batch, cfg.vis_seq, cfg.d_model)).astype(np.float32)
+    patches = cfg.vis_seq if cfg.family == "vlm" else 0
+    engine = ServeEngine(cfg, params, max_len=patches + args.prompt_len
+                         + args.max_new + 8)
     gen = GenerationConfig(max_new_tokens=args.max_new,
                            temperature=args.temperature)
     t0 = time.time()
-    out = engine.generate(prompts, gen)
+    out = engine.generate(prompts, gen, **kw)
     dt = time.time() - t0
     n_tok = out.size
     print(f"[serve] {cfg.name} on {engine.device}: generated {n_tok} tokens "

@@ -28,9 +28,6 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import PAb
 
-NOT_PORTED = ("is not ported yet: ROADMAP.md queue 1, item 17 (the LM "
-              "substrate) lists it")
-
 
 def gqa_ab(cfg: ArchConfig):
     d, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
@@ -46,14 +43,20 @@ def gqa_ab(cfg: ArchConfig):
 
 
 def gqa_train(cfg: ArchConfig, params, x, positions, causal: bool = True,
-              return_kv: bool = False):
-    """Full-sequence self-attention (train / prefill). x: (B,S,D)."""
+              kv_override=None, return_kv: bool = False):
+    """Full-sequence attention (train / prefill). x: (B,S,D).
+
+    kv_override: (B, Sk, D) memory (whisper's encoder output) that k and
+    v are projected from instead of x: cross-attention, neither q nor k
+    rotated; the caller passes ``causal=False``."""
     cd = x.dtype
+    kv_src = x if kv_override is None else kv_override
     q = torch.einsum("bsd,dhk->bhsk", x, params["wq"].to(cd))
-    k = torch.einsum("bsd,dhk->bhsk", x, params["wk"].to(cd))
-    v = torch.einsum("bsd,dhk->bhsk", x, params["wv"].to(cd))
-    q = L.apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-    k = L.apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = torch.einsum("bsd,dhk->bhsk", kv_src, params["wk"].to(cd))
+    v = torch.einsum("bsd,dhk->bhsk", kv_src, params["wv"].to(cd))
+    if kv_override is None:            # self-attention: rotate q and k
+        q = L.apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+        k = L.apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     out = flash_attention(q, k, v, causal=causal, window=cfg.window)
     proj = torch.einsum("bhsk,hkd->bsd", out, params["wo"].to(cd))
     if return_kv:

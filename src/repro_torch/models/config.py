@@ -2,9 +2,8 @@
 dense / moe / ssm / hybrid (mamba+attn) / encdec (audio) / vlm.
 
 A copy of the reference's ``repro.models.config``: the port keeps its
-own config dataclasses and imports nothing of the reference.  Of the
-families, the port runs ``dense``, ``moe``, ``ssm`` and ``hybrid``
-(``models/model.py``)."""
+own config dataclasses and imports nothing of the reference; the port
+runs every family (``models/model.py``)."""
 from __future__ import annotations
 
 import dataclasses

@@ -13,7 +13,8 @@ carry the reference's weights across with ``convert.lm_state_dict``.
 
 Every function keeps the reference's cast points: a weight is cast to
 the activations' dtype at its use (the parameters stay in
-``params_dtype``), and RMSNorm takes its variance in fp32.
+``params_dtype``), and RMSNorm and LayerNorm take their statistics in
+fp32.
 """
 from __future__ import annotations
 
@@ -76,6 +77,22 @@ def rmsnorm(params, x, eps=1e-6):
     var = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps).to(x.dtype)
     return out * params["scale"].to(x.dtype)
+
+
+def layernorm_ab(d):
+    return {"scale": PAb((d,), ("embed",), "ones"),
+            "bias": PAb((d,), ("embed",), "zeros")}
+
+
+def layernorm(params, x, eps=1e-5):
+    """The mean and the population variance (``jnp.var``'s, not torch's
+    unbiased default) in fp32, normalized and cast back to x's dtype,
+    then scale and bias applied in x's dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    return out * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
 
 
 # ------------------------------------------------------------------- RoPE

@@ -2,15 +2,20 @@
 static-shape cache; greedy or temperature sampling; per-request stop.
 Port of the reference's ``repro.serve.engine``.
 
-It serves the families ``models.model`` ports: dense (Gemma-2B and its
-kin), moe (mixtral-8x22b, deepseek-v3-671b with MLA), ssm (mamba2-780m)
-and hybrid (jamba-1.5-large-398b).  The reference ``jit``s its prefill
+It serves every family of ``configs/``: dense (Gemma-2B and its kin),
+moe (mixtral-8x22b, deepseek-v3-671b with MLA), ssm (mamba2-780m),
+hybrid (jamba-1.5-large-398b), encdec (whisper-small: ``generate``
+takes the encoder's stub frames, ``enc_frames``) and vlm (internvl2-1b:
+the stub patch embeddings, ``extra_embeds``, prepended to each prompt).
+The reference ``jit``s its prefill
 and decode step; here both run eagerly (no CUDA graphs yet), on the
 device of the parameters.  Prefill goes through the port's flash
 attention op (the hand-written kernel on the card) and the chunked SSD
 (plain torch products, as the reference's einsums); decode is plain
 torch ops over the cache (KV, MLA's latent, or the Mamba conv window
-and recurrent state), updated in place.
+and recurrent state), updated in place, but for whisper's
+cross-attention, which runs the flash op over the encoder's output at
+every step, as the reference does.
 Temperature sampling draws from a ``torch.Generator`` seeded with
 ``GenerationConfig.seed`` (the reference's ``jax.random`` stream cannot
 be reproduced; greedy decoding is the same in both packages).
@@ -56,21 +61,26 @@ class ServeEngine:
     @torch.no_grad()
     def generate(self, tokens: np.ndarray, gen: GenerationConfig,
                  enc_frames=None, extra_embeds=None) -> np.ndarray:
-        """tokens: (B, S) prompt. Returns (B, max_new_tokens) int32, fewer
-        columns if every request stopped at ``eos_id``."""
-        if enc_frames is not None or extra_embeds is not None:
-            raise NotImplementedError(
-                "encoder frames and vision embeddings (the encdec and vlm "
-                "families) are not ported yet: ROADMAP.md queue 1, items "
-                "17.4 and 17.5")
+        """tokens: (B, S) prompt; enc_frames (B, enc_seq, d_model) for an
+        encdec model, extra_embeds (B, P, d_model) patch embeddings for a
+        vlm model (numpy arrays or tensors).  Returns (B, max_new_tokens)
+        int32, fewer columns if every request stopped at ``eos_id``.  The
+        cache must hold P + S + max_new_tokens positions (P = 0 without
+        extra_embeds), else a ValueError."""
         B, S = tokens.shape
-        if S + gen.max_new_tokens > self.max_len:
-            raise ValueError(f"prompt {S} + {gen.max_new_tokens} new tokens "
-                             f"exceed max_len {self.max_len}")
+        P = 0 if extra_embeds is None else extra_embeds.shape[1]
+        if P + S + gen.max_new_tokens > self.max_len:
+            raise ValueError(f"{P} patches + prompt {S} + "
+                             f"{gen.max_new_tokens} new tokens exceed "
+                             f"max_len {self.max_len}")
         t0 = time.perf_counter()
         prompt = torch.as_tensor(np.asarray(tokens), device=self.device)
+        kw = {name: torch.as_tensor(a, device=self.device)
+              for name, a in (("enc_frames", enc_frames),
+                              ("extra_embeds", extra_embeds))
+              if a is not None}
         logits, cache, pos = M.prefill(self.cfg, self.params, prompt,
-                                       self.max_len)
+                                       self.max_len, **kw)
         rng = torch.Generator(device=self.device).manual_seed(gen.seed)
         cur = self._sample(logits[:, -1], gen, rng)
         _sync(self.device)

@@ -591,6 +591,37 @@ def test_cuda_flash_wgmma_at_mla_head_dims(cuda_device, Dv, Hq, Hkv, S,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("Sq", [1, 63, 64, 65, 416])
+@pytest.mark.parametrize("Sk", [77, 1500])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (14, 2)])
+def test_cuda_flash_wgmma_cross_attention_shapes(cuda_device, D, Sq, Sk, Hq,
+                                                 Hkv):
+    """The wgmma kernel with Sq != Sk and no causal mask (whisper's
+    cross-attention: prefill at Sq 416, decode at Sq 1, over a ragged
+    Sk of 1500 keys), at group 1 (two query tiles of one head a block;
+    at Sq < 128 the upper one idle) and group 7 (InternVL2's odd group):
+    one launch, against fp32 math on the same inputs."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+
+    assert KF.kernel_variant(torch.bfloat16, D, Sk) == "wgmma"
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq + Sk + D + Hq)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               .to(torch.bfloat16)
+               for shape in ((2, Hq, Sq, D), (2, Hkv, Sk, D),
+                             (2, Hkv, Sk, D)))
+    before = dict(KF.LAUNCHES)
+    got = flash_attention(q, k, v, causal=False)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=False)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in KF.LAUNCHES.items()} == {
+        n: int(n == "flash_attention_wgmma") for n in KF.LAUNCHES}
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _bf16_close(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,B,Hq,Hkv,S,D,Dv,window", [
     (torch.bfloat16, 1, 4, 4, 300, 192, 128, None),   # MLA: wgmma, no pad
     (torch.bfloat16, 2, 6, 1, 200, 128, 64, 50),      # wgmma on v padded
@@ -775,6 +806,43 @@ def test_cuda_engine_runs_through_the_flash_kernel(cuda_device,
         got = M.prefill(cfg, P, tok.to(cuda_device), 160)[0].float().cpu()
         want = M.prefill(cfg, Pc, tok, 160)[0].float()
         assert float((got - want).norm() / want.norm()) <= 2 ** -6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
+def test_cuda_encdec_vlm_engine_runs_through_the_flash_kernel(cuda_device,
+                                                              arch):
+    """A reduced whisper (encoder frames) and InternVL2 (patch
+    embeddings) served on the card in fp32: one flash launch per
+    attention layer per prefill (whisper: the encoder's, the decoder's
+    self- and cross-attention), one cross-attention launch per decoder
+    layer per decode step, and the greedy tokens of the CPU engine on the
+    same weights and inputs."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.serve import GenerationConfig, ServeEngine
+
+    cfg = get_reduced_config(arch)
+    P = M.init_params(cfg, seed=1, device=cuda_device)
+    Pc = M.init_params(cfg, seed=1, device="cpu")
+    Pc.load_state_dict({k: v.cpu() for k, v in P.state_dict().items()})
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (3, 100))
+    if cfg.family == "encdec":
+        kw = {"enc_frames": rng.standard_normal(
+            (3, cfg.enc_seq, cfg.d_model)).astype(np.float32)}
+        prefill = cfg.enc_layers + 2 * cfg.n_layers
+        per_step = cfg.n_layers
+    else:
+        kw = {"extra_embeds": rng.standard_normal(
+            (3, cfg.vis_seq, cfg.d_model)).astype(np.float32)}
+        prefill, per_step = cfg.n_layers, 0
+    gen = GenerationConfig(max_new_tokens=5)
+    KF.reset_launch_counts()
+    out = ServeEngine(cfg, P, max_len=120).generate(prompts, gen, **kw)
+    assert sum(KF.LAUNCHES.values()) == prefill + 4 * per_step
+    np.testing.assert_array_equal(
+        out, ServeEngine(cfg, Pc, max_len=120).generate(prompts, gen, **kw))
 
 
 @pytest.mark.cuda
