@@ -164,6 +164,28 @@ Phases, none of which catches its own failure:
      inter-chunk scan) must agree within 2^-5 relative, outputs and
      final state, with ``mamba_decode`` run token by token from a zero
      fp32 cache.
+ 10b. LM training (``lm_train/gemma-2b``, ``lm_train_phase``): Gemma-2B
+     whole (2.51 B seeded fp32 parameters, bf16 compute, remat "full",
+     AdamW: some 40 GB of parameters, grads and moments) on
+     ``SyntheticTokens`` of 4 x 2048 tokens, cycling over 4 batches.  At
+     step 0 the loss and grads through the kernel against the same
+     through the plain attention: the loss and the global grad norm
+     within 2^-5 relative, the grads of ``blocks.0.attn.wq`` and
+     ``embed.table`` within 2^-4 (Frobenius).  Then 12 steps of
+     ``make_train_step`` (lr 1e-3 after 2 warmup steps, a cosine to
+     1e-4): it fails unless every loss is finite, the last is 0.3 or more
+     below step 0's (the reference's criterion) and the wgmma flash
+     kernel launched 36 times a step (18 forward, 18 in the remat
+     recompute).  Printed: the median step time from step 2 on, tokens/s,
+     6 N tokens a step over it against 989 TFLOP/s, the peak memory, the
+     CUDA-event times of the attention backward (through
+     ``attention_ref``) and the optimizer update in the steps, one more
+     step under the profiler (busy share, top kernels), and each of the
+     two spans alone by the profiler's device time.  No checkpoint at this size
+     (40 GB of .npy).  Then ``launch/train.py`` at ``--reduced`` on the
+     card in a temporary directory: 6 steps, ``--resume`` to 9 from step
+     6; and a bf16 tree through ``CheckpointManager``, restored bit for
+     bit.
  11. resilience and telemetry, on the SELL-C-σ graph of phases 2-4
      (C = 32, k = 4, fp32): (a) ``solver="guarded", validate=True,
      trace=True`` with matrix_free HVPs: it fails unless the recovery
@@ -2736,6 +2758,265 @@ def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
     return launches, summary
 
 
+TRAIN_ARCH = "gemma-2b"         # trained whole: 18 layers at full width
+TRAIN_B, TRAIN_S = 4, 2048     # the serve cell's 4 x 2048 tokens a step
+TRAIN_STEPS = 12
+TRAIN_BATCHES = 4              # cycled, as test_train_substrate.py does
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2   # lr 0 at step 0, 5e-4 at 1, then a
+                                   # cosine from 1e-3 to 1e-4 at step 12
+TRAIN_FALL = 0.3               # the reference's criterion (its line 38)
+GRAD_TOL = 2.0 ** -4           # relative (Frobenius) grad error, kernel
+                               # vs plain
+
+
+def _frob_rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _train_launcher_check(tag, torch) -> dict:
+    """``launch/train.py`` main at ``--reduced`` on the card, in a
+    temporary working directory: 6 steps saving at 3 and 6, then
+    ``--resume`` to 9 from step 6; and a bf16 parameter tree through
+    ``CheckpointManager``, restored bit for bit on the card."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.train import CheckpointManager
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            args = ["--arch", TRAIN_ARCH, "--reduced", "--batch", "4",
+                    "--seq", "64", "--save-every", "3", "--log-every", "1",
+                    "--ckpt-dir", "ck"]
+            first = launch_train.main(args + ["--steps", "6"])
+            again = launch_train.main(args + ["--steps", "9", "--resume"])
+            saved = sorted(p.name for p in (Path(tmp) / "ck" / TRAIN_ARCH)
+                           .iterdir())
+            logged = (Path(tmp) / "experiments"
+                      / f"train_{TRAIN_ARCH}.json").is_file()
+        finally:
+            os.chdir(cwd)
+        cfg = get_reduced_config(TRAIN_ARCH)
+        mgr = CheckpointManager(Path(tmp) / "bf16")
+        P = M.init_params(cfg, seed=0, device="cuda", dtype="bfloat16")
+        mgr.save(1, P)
+        Q = M.init_params(cfg, seed=1, device="cuda", dtype="bfloat16")
+        mgr.restore(1, Q)
+        bit_equal = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                        for a, b in zip(P.state_dict().values(),
+                                        Q.state_dict().values()))
+    losses = [e["loss"] for e in first["log"] + again["log"]]
+    out = dict(resumed_from=again["start_step"],
+               steps_after_resume=[e["step"] for e in again["log"]],
+               checkpoints=saved, log_written=logged,
+               losses=losses, bf16_leaves_bit_equal=bit_equal)
+    print(f"{tag} launcher (reduced, on the card): {out}", flush=True)
+    if not (out["resumed_from"] == 6 and out["steps_after_resume"] == [6, 7, 8]
+            and saved == ["step_3", "step_6", "step_9"] and logged
+            and bit_equal and np.isfinite(losses).all()):
+        raise AssertionError(f"{tag}: the launcher did not save, resume "
+                             "and restore as it should")
+    return out
+
+
+def lm_train_phase(torch, counters) -> tuple:
+    """Gemma-2B trained whole at full width on the card: seeded fp32
+    parameters, bf16 compute, ``remat="full"``, AdamW, ``SyntheticTokens``
+    of TRAIN_B x TRAIN_S cycling over TRAIN_BATCHES batches.  At step 0
+    the loss and grads through the kernel against the same through the
+    plain attention (loss and global grad norm within LM_TOL relative,
+    the grads of ``blocks.0.attn.wq`` and ``embed.table`` within
+    GRAD_TOL); then TRAIN_STEPS steps of ``make_train_step`` from zeroed
+    counts: every loss finite, the last TRAIN_FALL or more below step
+    0's, the wgmma flash kernel launched twice an attention layer a step
+    (the forward and the remat recompute) and no other flash kernel;
+    then one profiled step and the attention backward and the AdamW
+    update alone under the profiler; then the launcher at ``--reduced``
+    (``_train_launcher_check``).  Returns (launch counts of the steps,
+    summary)."""
+    import statistics
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels.flash_attention import ops as KFO
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import model as M
+    from repro_torch.train import (TrainConfig, make_optimizer,
+                                   make_train_step)
+    from repro_torch.train import optimizer as OPT
+
+    tag = f"lm_train/{TRAIN_ARCH}"
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda").requires_grad_(True)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    data = SyntheticTokens(cfg, TRAIN_B, TRAIN_S, seed=0, device="cuda")
+    batches = [data.batch_at(i) for i in range(TRAIN_BATCHES)]
+    n_attn = _attention_layers(cfg)
+    print(f"{tag}: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model}"
+          f" heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim="
+          f"{cfg.resolved_head_dim} d_ff={cfg.d_ff} vocab={cfg.padded_vocab}"
+          f" params={n_params} ({cfg.params_dtype}, compute "
+          f"{cfg.compute_dtype}, remat {cfg.remat}) batch={TRAIN_B}x"
+          f"{TRAIN_S} init_s={time.perf_counter() - t0!r}", flush=True)
+
+    # ---- kernel against plain at step 0, before any update
+    names, leaves = zip(*params.named_parameters())
+    b0 = batches[0]
+
+    def loss_and_grads():
+        loss, _ = M.loss_fn(cfg, params, b0["tokens"], b0["labels"])
+        grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+        kept = {k: grads[k] for k in ("blocks.0.attn.wq", "embed.table")}
+        return float(loss.detach()), float(OPT.global_norm(grads)), kept
+
+    before = KF.LAUNCHES["flash_attention_wgmma"]
+    lk, nk, gk = loss_and_grads()
+    step0_launches = KF.LAUNCHES["flash_attention_wgmma"] - before
+    with mock.patch.object(ATT, "flash_attention", KF.plain_attention):
+        lp, np_, gp = loss_and_grads()
+    checks = dict(loss_kernel=lk, loss_plain=lp, loss_rel_err=abs(lk - lp)
+                  / abs(lp), grad_norm_kernel=nk, grad_norm_plain=np_,
+                  grad_norm_rel_err=abs(nk - np_) / abs(np_),
+                  grad_rel_err={k: _frob_rel(gk[k], gp[k]) for k in gk},
+                  step0_flash_launches=step0_launches, tolerance=LM_TOL,
+                  grad_tolerance=GRAD_TOL)
+    del gk, gp
+    print(f"{tag} kernel vs plain at step 0: {checks}", flush=True)
+    if not (checks["loss_rel_err"] <= LM_TOL
+            and checks["grad_norm_rel_err"] <= LM_TOL
+            and all(e <= GRAD_TOL for e in checks["grad_rel_err"].values())
+            and step0_launches == 2 * n_attn):
+        raise AssertionError(f"{tag}: the kernel's loss or grads are off "
+                             "the plain attention's")
+
+    # ---- TRAIN_STEPS AdamW steps, the attention backward (the recompute
+    # through attention_ref) and the optimizer update timed by CUDA events
+    tc = TrainConfig(optimizer="adamw", learning_rate=TRAIN_LR,
+                     warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    adamw = opt = make_optimizer(tc)
+    state = opt.init(params)
+    spans = {"attention_backward": [], "optimizer_update": []}
+
+    def timed(key, fn):
+        def run(*args):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args)
+            b.record()
+            spans[key].append((a, b))
+            return out
+        return run
+
+    opt = dataclasses.replace(opt, update=timed("optimizer_update",
+                                                opt.update))
+    step = make_train_step(cfg, tc, opt=opt)
+    backward = mock.patch.object(
+        KFO._FlashAttention, "backward", staticmethod(timed(
+            "attention_backward", KFO._FlashAttention.backward)))
+    losses, step_s, span_ms = [], [], []
+    torch.cuda.synchronize()
+    _reset(counters)
+    with backward:
+        for i in range(TRAIN_STEPS):
+            for v in spans.values():
+                v.clear()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state,
+                                    batches[i % TRAIN_BATCHES])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            span_ms.append({k: sum(a.elapsed_time(b) for a, b in v)
+                            for k, v in spans.items()})
+    launches = _counts(counters)
+    median_s = statistics.median(step_s[2:])
+    tokens = TRAIN_B * TRAIN_S
+    summary = dict(
+        arch=TRAIN_ARCH, params=n_params, batch=TRAIN_B, seq=TRAIN_S,
+        steps=TRAIN_STEPS, lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+        losses=losses, step_s=step_s, median_step_s=median_s,
+        tokens_per_s=tokens / median_s,
+        model_tflops_per_s=6 * n_params * tokens / median_s / 1e12,
+        mfu_6N_vs_989=6 * n_params * tokens / median_s / BF16_OPS_PER_S,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        attention_backward_ms=statistics.median(
+            s["attention_backward"] for s in span_ms[2:]),
+        attention_backward_launches_per_step=n_attn,
+        optimizer_update_ms=statistics.median(
+            s["optimizer_update"] for s in span_ms[2:]),
+        flash_launches={k: v for k, v in launches.items()
+                        if k.startswith("flash_attention_")},
+        **checks)
+    print(f"{tag}: {summary}", flush=True)
+    _require(tag, launches, ["flash_attention_wgmma"])
+    want = {k: 2 * n_attn * TRAIN_STEPS if k == "flash_attention_wgmma"
+            else 0 for k in summary["flash_launches"]}
+    if summary["flash_launches"] != want:
+        raise AssertionError(f"{tag}: flash launches "
+                             f"{summary['flash_launches']}, expected {want}"
+                             f" ({2 * n_attn} a step)")
+    if not (np.isfinite(losses).all()
+            and losses[-1] < losses[0] - TRAIN_FALL):
+        raise AssertionError(f"{tag}: losses {losses} not finite or not "
+                             f"{TRAIN_FALL} below step 0's")
+
+    # ---- one more step under the profiler: busy share, top kernels
+    _, wall_ms, device_ms, busy, top = _busy(lambda: step(
+        params, state, batches[TRAIN_STEPS % TRAIN_BATCHES]), torch)
+    summary.update(profiled_step_wall_ms=wall_ms,
+                   profiled_step_device_ms=device_ms, busy_share=busy,
+                   top_kernels=top)
+    print(f"{tag} profiled step: wall_ms={wall_ms!r} device_ms="
+          f"{device_ms!r} busy_share={busy!r}", flush=True)
+    for name, ms, count in top:
+        print(f"{tag}:   {ms!r} ms x{count} {name}", flush=True)
+
+    # ---- the two spans alone, by the profiler's device time: one
+    # layer's attention backward (the recompute through attention_ref
+    # and its grads, at the layer's shape) and one AdamW update (zero
+    # grads: the same passes over the same bytes)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(heads):
+        return torch.randn((TRAIN_B, heads, TRAIN_S, cfg.resolved_head_dim),
+                           generator=gen, device="cuda",
+                           dtype=torch.bfloat16).requires_grad_()
+
+    q, k, v = randn(cfg.n_heads), randn(cfg.n_kv_heads), randn(
+        cfg.n_kv_heads)
+    g = torch.randn_like(q)
+    att = _device_ms(lambda: torch.autograd.grad(
+        KF.attention_ref(q, k, v, causal=True), (q, k, v), g), calls=5)
+    del q, k, v, g
+    zeros = {n: torch.zeros_like(p) for n, p in params.named_parameters()}
+    upd = _device_ms(lambda: adamw.update(zeros, state, params, TRAIN_LR),
+                     calls=3)
+    del zeros
+    summary.update(
+        attention_backward_device_ms_per_layer=att["per_call_ms"],
+        attention_backward_device_ms_per_step=att["per_call_ms"] * n_attn,
+        optimizer_update_device_ms=upd["per_call_ms"])
+    print(f"{tag} alone, device time (profiler): attention backward "
+          f"{att['per_call_ms']!r} ms a layer, x{n_attn} = "
+          f"{att['per_call_ms'] * n_attn!r} ms a step; AdamW update "
+          f"{upd['per_call_ms']!r} ms", flush=True)
+    del params, state, batches, data, leaves, b0, m
+    torch.cuda.empty_cache()
+    summary["launcher"] = _train_launcher_check(tag, torch)
+    return launches, summary
+
+
 def _card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3037,6 +3318,9 @@ def main() -> int:
         by_path[f"lm_serve/{arch}"], lm[arch] = lm_serve_phase(
             torch, counters, arch)
         phase_done(f"lm_serve/{arch}")
+    by_path[f"lm_train/{TRAIN_ARCH}"], lm_train = lm_train_phase(
+        torch, counters)
+    phase_done(f"lm_train/{TRAIN_ARCH}")
 
     # ---- resilience and telemetry, on the SELL-C-σ graph again
     paths, resilience = resilience_phase(W, counters, torch, psc,
@@ -3085,6 +3369,7 @@ def main() -> int:
           flush=True)
     print(smi, flush=True)           # again, near the end of the output
     print(json.dumps({"lm_serve": lm}), flush=True)
+    print(json.dumps({"lm_train": lm_train}, default=str), flush=True)
     print(json.dumps({"coo_sum": coo_sum, "bsr_block_256": bsr256,
                       "hvp_counts": hvps}), flush=True)
     print(json.dumps({"resilience": resilience}, default=str), flush=True)

@@ -11,6 +11,11 @@ and does not read it).  ``ParamTree`` materializes such a tree as an
 ``jax.random``, so the two packages' initial weights differ: the tests
 carry the reference's weights across with ``convert.lm_state_dict``.
 
+``chunked_xent`` is the training loss: the mean next-token NLL over
+sequence chunks, each chunk's logits recomputed in the backward
+(``torch.utils.checkpoint``, as the reference wraps its scan body in
+``jax.checkpoint``), so only one chunk's (B, chunk, V) logits exist.
+
 Every function keeps the reference's cast points: a weight is cast to
 the activations' dtype at its use (the parameters stay in
 ``params_dtype``), and RMSNorm and LayerNorm take their statistics in
@@ -23,6 +28,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class PAb(NamedTuple):
@@ -44,8 +50,10 @@ def init_leaf(ab: PAb, gen: torch.Generator, device: torch.device,
 
 class ParamTree(nn.Module):
     """A nested dict of ``PAb`` leaves (lists become ``nn.ModuleList``s)
-    materialized as an ``nn.Module``.  The parameters need no gradient:
-    this slice of the port serves, it does not train."""
+    materialized as an ``nn.Module``.  The parameters are made frozen
+    (``requires_grad=False``), so serving records no autograd graph; the
+    train step turns the tree it trains trainable
+    (``train.loop.make_train_step``: ``requires_grad_(True)``)."""
 
     def __init__(self, tree: dict, gen: torch.Generator,
                  device: torch.device, dtype: torch.dtype):
@@ -177,3 +185,49 @@ def unembed_logits(params, x, real_vocab: Optional[int] = None):
         logits = logits + pad.to(logits.dtype) * torch.tensor(
             -1e30, dtype=logits.dtype, device=x.device)
     return logits
+
+
+def _xent_chunk(tab, x, labels, pad):
+    """(summed NLL, count) of one chunk: fp32 logits over the padded
+    vocabulary (pad rows at -1e30), logsumexp minus the gold logit, over
+    the labels >= 0."""
+    logits = (x @ tab.T.to(x.dtype)).to(torch.float32)
+    if pad is not None:
+        logits = logits + pad
+    logz = torch.logsumexp(logits, dim=-1)
+    lab = labels.long()
+    gold = logits.gather(-1, lab.clamp(min=0)[..., None])[..., 0]
+    mask = (lab >= 0).to(torch.float32)
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def chunked_xent(params, x, labels, chunk: int = 512,
+                 real_vocab: Optional[int] = None):
+    """Cross-entropy without materializing the full (B,S,V) logits: the
+    mean NLL over the labels >= 0 (-100 is masked), padded vocabulary
+    rows (>= real_vocab) excluded from the softmax.  The sequence splits
+    as the reference splits it, into ``max(S // chunk, 1)`` chunks of
+    ``S // n_chunks``; the reference's reshape fails where those do not
+    cover S (S = 1101, for one), and here that raises a ValueError.
+    Each chunk's logits are recomputed in the backward."""
+    tab = params["table"]
+    B, S, _ = x.shape
+    V = tab.shape[0]
+    n_chunks = max(S // chunk, 1)
+    chunk = S // n_chunks
+    if n_chunks * chunk != S:
+        raise ValueError(f"{S} positions do not split into {n_chunks} "
+                         f"chunks of {chunk} (the reference's reshape fails "
+                         "there too)")
+    pad = None
+    if real_vocab is not None and real_vocab < V:
+        pad = (torch.arange(V, device=x.device) >= real_vocab).to(
+            torch.float32) * -1e30
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        t, n = checkpoint(_xent_chunk, tab, x[:, sl], labels[:, sl], pad,
+                          use_reentrant=False)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)

@@ -145,11 +145,16 @@ def ssd_chunked(xh, dtA, Bh, Ch, chunk, init_state=None):
 
     # intra-chunk (diagonal blocks): the decay-masked quadratic term.
     # scores a group: (B,nc,Gb,cs,cs), broadcast over its heads
+    # in place where no gradient is recorded (serving: the fp32 Lmat is
+    # the SSD's largest transient), out of place under autograd, whose
+    # backward reads exp's output and both factors of the product
+    inplace = not torch.is_grad_enabled()
     scores = torch.einsum("bclgn,bcsgn->bcgls", Cc, Bc)
-    Lmat = _segsum(Ac.permute(0, 1, 3, 2)).exp_()         # (B,nc,nh,cs,cs)
-    M = Lmat.to(cd)
+    Lmat = _segsum(Ac.permute(0, 1, 3, 2))                # (B,nc,nh,cs,cs)
+    Lmat = Lmat.exp_() if inplace else Lmat.exp()
+    M = Lmat.to(cd).view(Bsz, nc, Gb, hpg, chunk, chunk)
     del Lmat
-    M = M.view(Bsz, nc, Gb, hpg, chunk, chunk).mul_(scores[:, :, :, None])
+    M = M.mul_(scores[:, :, :, None]) if inplace else M * scores[:, :, :, None]
     del scores
     y = torch.matmul(M.view(Bsz, nc, nh, chunk, chunk),
                      xc.permute(0, 1, 3, 2, 4))           # (B,nc,nh,cs,hp)

@@ -33,7 +33,10 @@ groups.  An encdec cache also holds the encoder's output,
 cross-attention reads.  ``decode_step`` writes into it in place.
 
 Every forward returns (hidden_states, aux), aux the sum of the MoE
-layers' load-balancing losses (0 for the other families).
+layers' load-balancing losses (0 for the other families).  ``loss_fn``
+is the training loss over it; under ``cfg.remat == "full"`` (the full
+configs) each block, hybrid group and encoder block is recomputed in
+the backward (``_maybe_remat``).
 
 ``prefill`` returns the next position P + S for a vlm model, the patches
 counted; the reference returns S there, a position its own forward
@@ -44,6 +47,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.models import attention as ATT
@@ -256,13 +260,34 @@ def _block(cfg, blk, x, positions, collect, causal, enc_out):
                        enc_out=enc_out, collect=collect)
 
 
+def _maybe_remat(cfg, fn):
+    """``fn`` recomputed in the backward when ``cfg.remat == "full"``
+    (``torch.utils.checkpoint``, non-reentrant: only its inputs are kept
+    for the backward), as the reference wraps each scanned block in
+    ``jax.checkpoint``.  Without a gradient to record (serving) it runs
+    ``fn`` as it is.  The model draws no random numbers, so the RNG
+    state is not stashed."""
+    if cfg.remat != "full":
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return run
+
+
 def _run_blocks(cfg, blocks, x, positions, collect, causal=True,
                 enc_out=None):
-    """(x, aux summed over the blocks, stacked pieces or None)."""
+    """(x, aux summed over the blocks, stacked pieces or None); each
+    block (a hybrid model's: each group) under ``_maybe_remat``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     pieces = []
+    block = _maybe_remat(cfg, _block)
     for blk in blocks:
-        out = _block(cfg, blk, x, positions, collect, causal, enc_out)
+        out = block(cfg, blk, x, positions, collect, causal, enc_out)
         x, aux = out[0], aux + out[1]
         if collect:
             pieces.append(out[2])
@@ -324,6 +349,20 @@ def forward_train(cfg: ArchConfig, params, tokens, extra_embeds=None,
     if collect_cache:
         return x, aux, (pieces, dense_pieces, enc_out)
     return x, aux
+
+
+def loss_fn(cfg: ArchConfig, params, tokens, labels, extra_embeds=None,
+            enc_frames=None, aux_weight=0.01):
+    """The training loss: (nll + aux_weight * aux, (nll, aux)), nll the
+    mean next-token NLL (``chunked_xent``, labels of -100 masked), aux
+    the MoE layers' load-balancing loss.  A vlm model takes the loss on
+    its text positions only, after the P patches."""
+    x, aux = forward_train(cfg, params, tokens, extra_embeds=extra_embeds,
+                           enc_frames=enc_frames)
+    if extra_embeds is not None:
+        x = x[:, extra_embeds.shape[1]:]
+    nll = L.chunked_xent(params["embed"], x, labels, real_vocab=cfg.vocab)
+    return nll + aux_weight * aux, (nll, aux)
 
 
 # ================================================================ decode

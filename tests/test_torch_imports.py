@@ -66,6 +66,10 @@ def test_import_repro_torch_loads_no_jax_or_reference():
             "from repro_torch.testing import halo_corruption\n"
             "import repro_torch.analysis, repro_torch.analysis.rules\n"
             "from repro_torch.analysis import __main__, profile, scopes\n"
+            "from repro_torch.train import checkpoint, fault_tolerance, "
+            "loop, optimizer, CheckpointManager\n"
+            "from repro_torch.data import SyntheticTokens, tokens\n"
+            "from repro_torch.launch import train\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
