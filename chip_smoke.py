@@ -186,6 +186,33 @@ Phases, none of which catches its own failure:
      card in a temporary directory: 6 steps, ``--resume`` to 9 from step
      6; and a bf16 tree through ``CheckpointManager``, restored bit for
      bit.
+ 10c. LM serving over a mesh (``lm_mesh/mixtral-8x22b``,
+     ``lm_mesh_phase``): the one-process meshless run of Mixtral-8x22B at
+     full width cut to MESH_LAYERS (2) of 56 layers (seeded bf16
+     weights; the last-token prefill logits and one decode step's at
+     capacity factor 1.25 and at MESH_NO_DROP_CF, 2.0), then four ranks
+     spawned on the one card over gloo as a (data 1, model 4) mesh
+     (``make_host_mesh``), each drawing its quarter of the same global
+     weights (``init_params(..., mesh=)``): the ServeEngine under the
+     mesh serves 2 x 6144 prompts and 32 greedy tokens from zeroed
+     counts (the all-to-all MoE in prefill, the EP psum MoE and
+     flash-decoding over the sequence-sharded cache in decode); it fails
+     unless each rank launched the wgmma flash kernel once a layer, the
+     ranks served the same tokens, the prefill and decode logits at 2.0
+     are within 2^-5 relative of the meshless run's with no pair dropped
+     anywhere, and the kernel on a rank's heads of layer 0 (q (2, 12,
+     6144, 128), k/v (2, 2, 6144, 128), window 4096: row 8i, timed
+     ranks in turn beside the plain attention, its bound and SDPA) is
+     within 2^-5 of the plain attention.  Printed: each rank's mesh
+     coordinates and shard bytes, prefill s, decode ms a token, peak
+     memory, the drops by layer at 1.25, the error against the meshless
+     run at 1.25, and one prefill's collectives (calls, bytes, seconds by
+     kind, each synced).  Then, the serving weights freed, the int8
+     compressed DP train step on ranks 0-1 (MESH_TRAIN_DATA, a cut of
+     four: a replica peaks at some 23 GB): Gemma-2B at full width cut to
+     1 layer, DP_RULES, one 2048-token sequence a replica, 3 steps; it
+     fails unless every loss is finite and the replicas' parameters and
+     residuals are equal bit for bit after each step.
  11. resilience and telemetry, on the SELL-C-σ graph of phases 2-4
      (C = 32, k = 4, fp32): (a) ``solver="guarded", validate=True,
      trace=True`` with matrix_free HVPs: it fails unless the recovery
@@ -196,7 +223,7 @@ Phases, none of which catches its own failure:
      init, continuation, solver.level, grblas.mxm and kmeans; its wall
      time is printed beside phase 3's, with ``phase_breakdown()`` and
      ``coverage()``.  (b) ``solver="scf"`` with ``--scf-sweeps`` sweeps
-     a level (default 2, printed as a cut of PSCConfig's 12, which
+     a level (default 1, printed as a cut of PSCConfig's 12, which
      ``--scf-sweeps 12`` restores): phase 3's checks but the RCut bound (printed beside
      newton's), ``sellcs_spmm`` at scalar k = 8 and 24 beyond stage 1's
      launches, every level's sweeps and subspace drift printed.  (c)
@@ -303,7 +330,7 @@ SPMM_WIDTHS = (4, 8, 24)       # bsr_spmm's widths: the k = 4 multivectors,
 P, EPS = 1.2, 1e-8             # PSCConfig's p_target and eps
 GRAPH_R = 20                   # delaunay_graph(20): n = 1,048,576
 SCF_SWEEPS = 12                # PSCConfig's scf_sweeps
-SMOKE_SCF_SWEEPS = 2           # the smoke's default, a cut of SCF_SWEEPS
+SMOKE_SCF_SWEEPS = 1           # the smoke's default, a cut of SCF_SWEEPS
 RUNG_RCUT = 1.10               # a recovered solve's RCut over the clean one
 BLOCK = 128                    # the reference's default BSR tile
 # operations per term (one stored value, one column); a pow counts as
@@ -1183,12 +1210,13 @@ def _require(tag, launches, used) -> None:
 
 def _busy(fn, torch) -> tuple:
     """(fn's output, wall ms, device ms, busy share, top kernels) of one
-    call under the profiler."""
+    call under the profiler, which records the device's kernels only (a
+    batched solve's millions of host-op events took minutes to
+    aggregate)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -3017,6 +3045,441 @@ def lm_train_phase(torch, counters) -> tuple:
     return launches, summary
 
 
+# ---------------------------------------------------------- the mesh phase
+
+MESH_ARCH = "mixtral-8x22b"
+MESH_RANKS = 4                 # ranks on the one card: a (data 1, model 4)
+                               # mesh, gloo staged through pinned memory
+MESH_LAYERS = 2                # a depth cut (56 layers): the fewest that run
+                               # the seq_sp hand-off between two blocks
+MESH_B, MESH_S, MESH_NEW = 2, 6144, 32
+MESH_SEED = 0
+MESH_NO_DROP_CF = 2.0          # the no-drop check's capacity factor (the
+                               # phase fails if a pair drops): at n_experts /
+                               # top_k = 4 the all-to-all's C2 buffers take
+                               # ~20 GB a rank, more than four fit on the card
+MESH_TRAIN_ARCH = "gemma-2b"
+MESH_TRAIN_LAYERS = 1          # a depth cut (18 layers) of the DP train step
+MESH_TRAIN_DATA = 2            # replicas, on ranks 0 and 1: four of some 18
+                               # GB each (0.63 B fp32 parameters, grads, two
+                               # moments, the residual, the loss's chunks)
+                               # did not fit the card beside one another
+MESH_TRAIN_SEQ = 2048          # one sequence a replica
+MESH_TRAIN_STEPS = 3
+
+
+def _mesh_cfgs():
+    """(the served config cut to MESH_LAYERS, the same at the no-drop
+    check's capacity factor MESH_NO_DROP_CF)."""
+    from repro_torch.configs import get_config
+
+    cfg = _cut(get_config(MESH_ARCH), MESH_LAYERS)
+    no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MESH_NO_DROP_CF))
+    return cfg, no_drop
+
+
+def _mesh_prompts(cfg):
+    return np.random.default_rng(MESH_SEED).integers(
+        0, cfg.vocab, (MESH_B, MESH_S)).astype(np.int32)
+
+
+def _mesh_reference(torch, tmp: Path) -> dict:
+    """The one-process meshless run on the same seeded weights (the
+    global tree the ranks take their blocks of): the last-token prefill
+    logits and one decode step's, at the config's capacity factor and at
+    the no-drop one, saved for the ranks."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+
+    cfg, no_drop = _mesh_cfgs()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=MESH_SEED, device="cuda")
+    tok = torch.as_tensor(_mesh_prompts(cfg), device="cuda")
+    max_len = MESH_S + MESH_NEW
+    ref = {}
+    # the no-drop run first: its greedy pick is the token both runs decode
+    with torch.no_grad():
+        for tag, c in (("no_drop", no_drop), ("cf", cfg)):
+            with MOE.record_drops() as drops:
+                lk, cache, pos = M.prefill(c, params, tok, max_len)
+                if "next" not in ref:
+                    ref["next"] = torch.argmax(lk[:, -1], -1)[:, None].to(
+                        torch.int32)
+                ld, _ = M.decode_step(c, params, cache, ref["next"],
+                                      torch.full((MESH_B, 1), pos,
+                                                 dtype=torch.int32,
+                                                 device="cuda"))
+            ref[f"prefill_{tag}"] = lk.float().cpu()
+            ref[f"decode_{tag}"] = ld.float().cpu()
+            ref[f"drops_{tag}"] = [int(d) for d in drops]
+            del cache, lk, ld
+    ref["next"] = ref["next"].cpu()
+    ref["seconds"] = time.perf_counter() - t0
+    torch.save(ref, tmp / "ref.pt")
+    del params, tok
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _mesh_rank(rank: int, tmp: str, port: int) -> None:
+    """One rank of the mesh phase (a spawned process): joins the gloo
+    group, runs ``_mesh_rank_body`` and writes ``tmp/rank<r>.json``."""
+    import os
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(MESH_RANKS), RANK=str(rank),
+                      LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(MESH_RANKS))
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(MESH_RANKS, device="cuda")
+    try:
+        out = _mesh_rank_body(rank, Path(tmp), mesh, torch, tdist)
+        with open(Path(tmp) / f"rank{rank}.json", "w") as f:
+            json.dump(out, f, default=str)
+    finally:
+        tdist.destroy_process_group()
+
+
+def _mesh_rank_body(rank, tmp, mesh, torch, tdist) -> dict:
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from repro_torch.dist.sharding import NamedSharding
+    from repro_torch.kernels import bsr_spmm as KB
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import kmeans_assign as KK
+    from repro_torch.kernels import plap_edge as KP
+    from repro_torch.kernels import segment_sum as KS
+    from repro_torch.kernels import sellcs_spmm as K
+    from repro_torch.launch.mesh import record_collectives
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.serve import GenerationConfig, ServeEngine
+
+    counters = (K, KB, KP, KK, KF, KS)
+    dev = mesh.device
+    cfg, no_drop = _mesh_cfgs()
+    ref = torch.load(tmp / "ref.pt")
+    out = {"rank": rank, "coords": mesh.coords, "device": str(dev),
+           "backend": mesh.backend, "staged": mesh.staged}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=MESH_SEED, device=dev, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    out["init_s"] = time.perf_counter() - t0
+    out["shard_bytes"] = sum(p.numel() * p.element_size()
+                             for p in params.parameters())
+    out["full_bytes"] = sum(int(np.prod(ab.shape)) * 2 for _, ab in
+                            L.named_leaves(M.abstract_params(cfg)))
+    prompts = _mesh_prompts(cfg)
+    tok = torch.as_tensor(prompts, device=dev)
+    max_len = MESH_S + MESH_NEW
+    engine = ServeEngine(cfg, params, max_len=max_len, mesh=mesh)
+    engine.generate(prompts[:, :256], GenerationConfig(max_new_tokens=2))
+    tdist.barrier()
+
+    # ---- the main path: 2 x 6144 prompts, 32 greedy tokens, from zeroed
+    # counts
+    _reset(counters)
+    with MOE.record_drops() as drops:
+        served = engine.generate(prompts, GenerationConfig(
+            max_new_tokens=MESH_NEW))
+    torch.cuda.synchronize(dev)
+    out["launches"] = _counts(counters)
+    out["timing"] = dict(engine.timing)
+    out["decode_ms_per_token"] = (engine.timing["decode_s"]
+                                  / engine.timing["decode_steps"] * 1e3)
+    out["prefill_drops_by_layer"] = [int(d) for d in drops[:cfg.n_layers]]
+    out["tokens"] = served.tolist()
+    out["peak_memory_gb_served"] = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    # ---- one prefill with its collectives counted (each synced), and
+    # layer 0's attention inputs kept for the kernel check
+    kept = {}
+    flash = ATT.flash_attention
+
+    def keep(q, k, v, **kw):
+        kept.setdefault("qkv", (q, k, v, kw))
+        return flash(q, k, v, **kw)
+
+    tdist.barrier()
+    with torch.no_grad(), record_collectives() as stats, \
+            mock.patch.object(ATT, "flash_attention", keep):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        lk, cache, pos = M.prefill(cfg, params, tok, max_len, mesh)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    out["collectives_prefill"] = dict(
+        wall_s=wall, calls=stats.calls, bytes=stats.bytes,
+        seconds=stats.seconds, share=sum(stats.seconds.values()) / wall)
+    table = M._table_sharding(cfg, mesh)
+    whole = NamedSharding(mesh, (None, None, table.spec[0]))
+
+    def rel(a, b):
+        a, b = a[..., :cfg.vocab].float().cpu(), b[..., :cfg.vocab]
+        return float((a - b).norm() / b.norm())
+
+    with torch.no_grad():
+        nxt = ref["next"].to(dev)
+        positions = torch.full((MESH_B, 1), pos, dtype=torch.int32,
+                               device=dev)
+        ld, _ = M.decode_step(cfg, params, cache, nxt, positions, mesh)
+        out["rel_err_vs_meshless_cf"] = dict(
+            prefill=rel(whole.gather(lk), ref["prefill_cf"]),
+            decode=rel(whole.gather(ld), ref["decode_cf"]),
+            capacity_factor=cfg.moe.capacity_factor)
+        del cache
+        with MOE.record_drops() as nd:
+            lk, cache, _ = M.prefill(no_drop, params, tok, max_len, mesh)
+            ld, _ = M.decode_step(no_drop, params, cache, nxt, positions,
+                                  mesh)
+        del cache
+        out["no_drop"] = dict(
+            capacity_factor=no_drop.moe.capacity_factor,
+            prefill_rel_err=rel(whole.gather(lk), ref["prefill_no_drop"]),
+            decode_rel_err=rel(whole.gather(ld), ref["decode_no_drop"]),
+            dropped=int(sum(int(d) for d in nd)), tolerance=LM_TOL)
+    if not (out["no_drop"]["prefill_rel_err"] <= LM_TOL
+            and out["no_drop"]["decode_rel_err"] <= LM_TOL
+            and out["no_drop"]["dropped"] == 0):
+        raise AssertionError(f"mesh rank {rank}: logits off the meshless "
+                             f"run at no-drop capacity: {out['no_drop']}")
+
+    # ---- row 8i: the kernel on this rank's heads of layer 0, against the
+    # plain attention, timed (ranks in turn)
+    q, k, v, kw = kept["qkv"]
+    B, Hq, Sq, D = q.shape
+    Sk, Dv = k.shape[2], v.shape[3]
+    i = torch.arange(Sq, device=dev)
+    j = torch.arange(Sk, device=dev)
+    mask = (j[None, :] <= i[:, None]) & (j[None, :] > i[:, None]
+                                         - cfg.window)
+    for turn in range(MESH_RANKS):
+        if turn == rank:
+            with torch.no_grad():
+                got = KF.flash_attention(q, k, v, **kw)
+                plain = KF.plain_attention(q, k, v, **kw)
+                err = (got.float() - plain.float())
+                flops = 2 * B * Hq * (D + Dv) * _visible_pairs(
+                    Sq, Sk, kw.get("causal", True), kw.get("window"))
+                nbytes = q.element_size() * (q.numel() + k.numel()
+                                             + v.numel() + got.numel())
+                bound = _bound(nbytes, flops, BF16_OPS_PER_S)
+                out["kernel"] = dict(
+                    shape=dict(B=B, Hq=Hq, Hkv=k.shape[1], Sq=Sq, Sk=Sk, D=D,
+                               Dv=Dv, window=kw.get("window"),
+                               causal=kw.get("causal", True),
+                               dtype=str(q.dtype).split(".")[-1]),
+                    variant=KF.kernel_variant(q.dtype, D, Sk),
+                    rel_err=float(err.norm() / plain.float().norm()),
+                    max_abs_err=float(err.abs().max()),
+                    max_rel_err=float((err.abs() / plain.float().abs()
+                                       .clamp(min=1e-30)).max()),
+                    ms=_time_ms(lambda: KF.flash_attention(q, k, v, **kw)),
+                    plain_ms=_time_ms(lambda: KF.plain_attention(
+                        q, k, v, **kw), 3, 3),
+                    library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, enable_gqa=True)),
+                    bound_ms=bound[0], bound_by=bound[1], gflop=flops / 1e9)
+        tdist.barrier()
+    if not out["kernel"]["rel_err"] <= LM_TOL:
+        raise AssertionError(f"mesh rank {rank}: the flash kernel on its "
+                             f"heads is off the plain attention: "
+                             f"{out['kernel']}")
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, engine, kept, q, k, v, lk, ld
+    torch.cuda.empty_cache()
+    tdist.barrier()
+    free, total = torch.cuda.mem_get_info(dev)
+    out["before_train"] = dict(card_free_gb=free / 1e9,
+                               reserved_gb=torch.cuda.memory_reserved(dev)
+                               / 1e9)
+    out["train"] = _mesh_train(rank, torch, tdist)
+    tdist.barrier()
+    return out
+
+
+def _fingerprint(tree, torch):
+    """Two int64 sums a leaf of its bit patterns (equal trees give equal
+    fingerprints; a change of one bit changes one)."""
+    out = []
+    for t in tree.values():
+        w = t.detach().contiguous().view(torch.int32).to(torch.int64)
+        out.append(torch.stack([w.sum(), (w * (w >> 11)).sum()]))
+    return torch.stack(out)
+
+
+def _mesh_train(rank, torch, tdist) -> dict:
+    """The int8 compressed DP step: Gemma-2B at full width cut to
+    MESH_TRAIN_LAYERS, a (data MESH_TRAIN_DATA, model 1) mesh over the
+    first ranks under DP_RULES, one sequence of MESH_TRAIN_SEQ a
+    replica, MESH_TRAIN_STEPS steps; every loss finite and the replicas'
+    parameters and residuals equal bit for bit after each step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.dist.sharding import DP_RULES, use_rules
+    from repro_torch.launch.mesh import all_gather, make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train import (TrainConfig, init_compression_state,
+                                   make_optimizer, make_train_step)
+    from repro_torch.train import optimizer as OPT
+
+    dp = make_host_mesh(1, device="cuda", ranks=range(MESH_TRAIN_DATA))
+    if dp is None:                      # a rank outside the replicas
+        return dict(mesh=None, replica=False)
+    dev = dp.device
+    cfg = _cut(get_config(MESH_TRAIN_ARCH), MESH_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = dict(mesh=dp.shape, steps=[], identical=[])
+    with use_rules(DP_RULES):
+        params = M.init_params(cfg, seed=0, device=dev, mesh=dp)
+        out["params"] = sum(p.numel() for p in params.parameters())
+        tc = TrainConfig(optimizer="adamw", learning_rate=TRAIN_LR,
+                         warmup_steps=1, total_steps=MESH_TRAIN_STEPS,
+                         grad_compression="int8", compression_axis="data")
+        opt = make_optimizer(tc)
+        state = opt.init(params)
+        err = init_compression_state(params)
+        step = make_train_step(cfg, tc, opt=opt, mesh=dp)
+        data = SyntheticTokens(cfg, dp.shape["data"], MESH_TRAIN_SEQ,
+                               seed=0, device=dev)
+        for i in range(MESH_TRAIN_STEPS):
+            batch = data.batch_at(i)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            params, state, err, m = step(params, state, err, batch)
+            torch.cuda.synchronize(dev)
+            out["steps"].append(dict(
+                s=time.perf_counter() - t0, loss=float(m["loss"]),
+                grad_norm=float(m["grad_norm"])))
+            fp = torch.cat([_fingerprint(OPT.named_leaves(params), torch),
+                            _fingerprint(err, torch)])
+            every = all_gather(dp, fp[None], "data", 0)
+            out["identical"].append(bool((every == every[:1]).all()))
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not (all(out["identical"]) and all(
+            math.isfinite(s["loss"]) for s in out["steps"])):
+        raise AssertionError(f"mesh rank {rank}: the compressed DP replicas "
+                             f"differ or a loss is not finite: {out}")
+    return out
+
+
+def lm_mesh_phase(torch) -> tuple:
+    """Mixtral-8x22B served at full width (depth cut to MESH_LAYERS) over
+    a (data 1, model 4) mesh of four ranks on the one card; then the int8
+    compressed DP train step.  Returns (the kernel row 8i, summary)."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tag = f"lm_mesh/{MESH_ARCH}"
+    cfg, no_drop = _mesh_cfgs()
+    full = _cut(cfg, None)
+    print(f"{tag}: {cfg.name} at full width (d {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, {cfg.moe.n_experts} experts of "
+          f"{cfg.moe.d_expert}, vocab {cfg.padded_vocab}, window "
+          f"{cfg.window}); depth cut to {cfg.n_layers} of 56 layers; "
+          f"{MESH_RANKS} ranks as a (data 1, model {MESH_RANKS}) mesh; "
+          f"{MESH_B} x {MESH_S} prompts, {MESH_NEW} greedy tokens; capacity "
+          f"factor {cfg.moe.capacity_factor} served, "
+          f"{no_drop.moe.capacity_factor} for the no-drop check; then "
+          f"{MESH_TRAIN_ARCH} at full width cut to {MESH_TRAIN_LAYERS} "
+          f"layer over (data {MESH_TRAIN_DATA}, model 1) on ranks 0-"
+          f"{MESH_TRAIN_DATA - 1} (data cut from {MESH_RANKS}), int8 "
+          f"compression, "
+          f"{MESH_TRAIN_STEPS} steps", flush=True)
+    del full
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = _mesh_reference(torch, Path(tmp))
+        summary["meshless"] = dict(seconds=ref["seconds"],
+                                   drops_cf=ref["drops_cf"],
+                                   drops_no_drop=ref["drops_no_drop"])
+        print(f"{tag} meshless reference: {summary['meshless']}",
+              flush=True)
+        if any(ref["drops_no_drop"]):
+            raise AssertionError(f"{tag}: the meshless run dropped pairs at "
+                                 "the no-drop capacity factor")
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        mp.spawn(_mesh_rank, args=(tmp, port), nprocs=MESH_RANKS, join=True)
+        summary["ranks_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(Path(tmp) / f"rank{r}.json") as f:
+                ranks.append(json.load(f))
+    for res in ranks:
+        r = res["rank"]
+        kern = res["kernel"]
+        print(f"{tag} rank {r}: coords={res['coords']} {res['device']} "
+              f"backend={res['backend']} staged={res['staged']} "
+              f"shard_bytes={res['shard_bytes']} of {res['full_bytes']} "
+              f"({res['shard_bytes'] / res['full_bytes']!r}) init_s="
+              f"{res['init_s']!r}", flush=True)
+        print(f"{tag} rank {r}: prefill_s={res['timing']['prefill_s']!r} "
+              f"decode_ms_per_token={res['decode_ms_per_token']!r} "
+              f"peak_memory_gb={res['peak_memory_gb']!r} (served "
+              f"{res['peak_memory_gb_served']!r}) launches="
+              f"{ {k: v for k, v in res['launches'].items() if v} } "
+              f"prefill_drops_by_layer={res['prefill_drops_by_layer']} "
+              f"(capacity factor {cfg.moe.capacity_factor})", flush=True)
+        print(f"{tag} rank {r}: collectives of one prefill "
+              f"{res['collectives_prefill']}", flush=True)
+        print(f"{tag} rank {r}: vs the meshless run at capacity factor "
+              f"{cfg.moe.capacity_factor} (printed, not held): "
+              f"{res['rel_err_vs_meshless_cf']}; at the no-drop "
+              f"{res['no_drop']}", flush=True)
+        print(f"{tag} rank {r}: flash on its heads of layer 0 "
+              f"{kern['shape']} ({kern['variant']}): rel_err="
+              f"{kern['rel_err']!r} max_abs_err={kern['max_abs_err']!r} "
+              f"kernel_ms={kern['ms']!r} plain_ms={kern['plain_ms']!r} "
+              f"sdpa_ms={kern['library_ms']!r} bound_ms={kern['bound_ms']!r}"
+              f" ({kern['bound_by']}, {kern['gflop']!r} GFLOP)", flush=True)
+        print(f"{tag} rank {r}: before the train step "
+              f"{res['before_train']}; train {res['train']}", flush=True)
+    name = "flash_attention_" + ranks[0]["kernel"]["variant"]
+    by_rank = {f"rank {res['rank']}": res["launches"].get(name, 0)
+               for res in ranks}
+    if set(by_rank.values()) != {cfg.n_layers}:
+        raise AssertionError(f"{tag}: flash launches by rank {by_rank}, "
+                             f"expected {cfg.n_layers} each (one a layer)")
+    if len({json.dumps(res["tokens"]) for res in ranks}) != 1:
+        raise AssertionError(f"{tag}: the ranks served different tokens")
+    k0 = ranks[0]["kernel"]
+    row = _row("flash_attention_mesh",
+               "src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention_wgmma.cu",
+               "src/repro/kernels/flash_attention/flash_attention.py:74",
+               (k0["max_abs_err"], k0["max_rel_err"]), k0["ms"],
+               k0["plain_ms"], (k0["bound_ms"], k0["bound_by"]),
+               k0["library_ms"])
+    row["counter"] = name
+    row["launches"] = sum(by_rank.values())
+    row["launches_by_path"] = {tag: by_rank}
+    row["shape"] = k0["shape"]
+    row["by_rank"] = {f"rank {res['rank']}": res["kernel"] for res in ranks}
+    summary.update(
+        n_layers=cfg.n_layers, ranks=[{k: v for k, v in res.items()
+                                       if k not in ("kernel", "tokens")}
+                                      for res in ranks],
+        first_request_tokens=ranks[0]["tokens"][0])
+    return [row], summary
+
+
 def _card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3321,6 +3784,8 @@ def main() -> int:
     by_path[f"lm_train/{TRAIN_ARCH}"], lm_train = lm_train_phase(
         torch, counters)
     phase_done(f"lm_train/{TRAIN_ARCH}")
+    mesh_rows, lm_mesh = lm_mesh_phase(torch)
+    phase_done(f"lm_mesh/{MESH_ARCH}")
 
     # ---- resilience and telemetry, on the SELL-C-σ graph again
     paths, resilience = resilience_phase(W, counters, torch, psc,
@@ -3358,6 +3823,7 @@ def main() -> int:
                                     for p, c in by_path.items()
                                     if c.get("sellcs_plap_apply_by_k")}
     rows += dist_rows        # their launches are the ranks' own counts
+    rows += mesh_rows
     print(f"kmeans_assign launches per solve: "
           f"{ {p: c['kmeans_assign'] for p, c in by_path.items()} }",
           flush=True)
@@ -3370,6 +3836,7 @@ def main() -> int:
     print(smi, flush=True)           # again, near the end of the output
     print(json.dumps({"lm_serve": lm}), flush=True)
     print(json.dumps({"lm_train": lm_train}, default=str), flush=True)
+    print(json.dumps({"lm_mesh": lm_mesh}, default=str), flush=True)
     print(json.dumps({"coo_sum": coo_sum, "bsr_block_256": bsr256,
                       "hvp_counts": hvps}), flush=True)
     print(json.dumps({"resilience": resilience}, default=str), flush=True)

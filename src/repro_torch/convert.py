@@ -5,8 +5,10 @@ triple (what ``repro``'s ``SparseMatrix.host_coo()`` returns) with its
 shape and layout keyword arguments becomes a port ``SparseMatrix``, and
 start blocks, eigenvector guesses and centroids (``U0``, ``X0``, ``C0``)
 become tensors, and the reference's LM parameter tree becomes the
-port's ``state_dict`` (``lm_state_dict``).  Nothing here imports
-``repro``: the inputs are numpy arrays, whichever package made them.
+port's ``state_dict`` (``lm_state_dict``), or under a mesh this rank's
+blocks of it (``shard_state_dict``; ``gather_state_dict`` puts the
+blocks of every rank back together).  Nothing here imports ``repro``:
+the inputs are numpy arrays, whichever package made them.
 """
 from __future__ import annotations
 
@@ -74,6 +76,35 @@ def lm_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         else:
             out[name] = torch.from_numpy(np.array(sub))
     return out
+
+
+def shard_state_dict(params: Mapping, cfg, mesh) -> Dict[str, torch.Tensor]:
+    """This rank's block of every parameter, by ``state_dict`` name, as
+    ``model.param_shardings`` lays them on ``mesh``.  ``params`` is the
+    reference's parameter tree (nested dicts of arrays) or the port's
+    full ``state_dict``; a leaf whose dims do not divide stays whole on
+    every rank (the divisibility fallback), never padded."""
+    from repro_torch.models import model as M
+
+    full = params
+    if any(isinstance(v, Mapping) for v in params.values()):
+        full = lm_state_dict(params)
+    specs = M.param_specs(cfg, mesh)
+    if set(full) != set(specs):
+        raise ValueError(f"parameter names differ from {cfg.name}'s: "
+                         f"{sorted(set(full) ^ set(specs))[:8]}")
+    return {k: specs[k].shard(torch.as_tensor(np.asarray(v))
+                              if not isinstance(v, torch.Tensor) else v)
+            for k, v in full.items()}
+
+
+def gather_state_dict(local: Mapping, cfg, mesh) -> Dict[str, torch.Tensor]:
+    """The full ``state_dict`` from this rank's blocks (every rank calls
+    it and gets the whole)."""
+    from repro_torch.models import model as M
+
+    specs = M.param_specs(cfg, mesh)
+    return {k: specs[k].gather(v) for k, v in local.items()}
 
 
 def _leaves(tree: Mapping):

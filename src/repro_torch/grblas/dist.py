@@ -27,24 +27,25 @@ and returning the same global Y.  A rank takes only its own row block
 of X, reads every remote row through the planned exchange, computes its
 (R, k) block and all-gathers the blocks.  ``init_distributed`` /
 ``device_mesh`` are the launch path: a guarded ``init_process_group``
-and a ``Mesh`` naming this rank, its device and the collective backend
-(nccl when each rank has a card of its own, gloo otherwise; gloo on
-CUDA ranks stages each collective's buffers through pinned host
-memory).
+and a 1-D ``launch.mesh.Mesh`` naming this rank, its device and the
+collective backend (nccl when each rank has a card of its own, gloo
+otherwise; gloo on CUDA ranks stages each collective's buffers through
+pinned host memory).
 """
 from __future__ import annotations
 
 import dataclasses
-import datetime
-import os
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as tdist
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike
 from repro_torch.grblas.containers import SparseMatrix
+from repro_torch.launch import mesh as _mesh
+from repro_torch.launch.mesh import (Mesh, init_distributed,
+                                     is_distributed_initialized)
 from repro_torch.grblas.semiring import (EdgeSemiring, Semiring, fast_paths,
                                          reals_ring)
 from repro_torch.obs import metrics as _obs_metrics
@@ -55,9 +56,6 @@ from repro_torch.obs import trace as _obs_trace
 # row count R.  Per shard the halo moves (S-1)·H rows vs the gather's
 # (S-1)·R, so the fraction is exactly the wire-byte ratio of the two.
 HALO_FALLBACK_FRAC = 0.5
-
-# a collective that waits longer than this raises instead of hanging
-COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=300)
 
 
 @dataclasses.dataclass
@@ -353,144 +351,37 @@ def make_row_partition(A: SparseMatrix, n_shards: int,
 
 # ---------------------------------------------------------------- the mesh
 
-@dataclasses.dataclass(frozen=True)
-class Mesh:
-    """A 1-D mesh of ``torch.distributed`` ranks (or one process).
-
-    ``shape[axis]`` is the number of ranks, ``rank`` this process's
-    position and ``device`` its device; ``backend`` is the collective
-    backend (None in one process).  ``staged``: gloo on a CUDA rank, so
-    each collective's buffers go through pinned host memory.
-    """
-
-    axis: str
-    size: int
-    rank: int
-    device: torch.device
-    backend: Optional[str]
-    group: Any = None           # process group; None = the default group
-
-    @property
-    def shape(self) -> dict:
-        return {self.axis: self.size}
-
-    @property
-    def staged(self) -> bool:
-        return self.backend == "gloo" and self.device.type == "cuda"
-
-
-def rank_device(device: DeviceLike = None, rank: int = 0,
-                world_size: int = 1) -> Tuple[torch.device, str]:
-    """This rank's device and the collective backend that goes with it.
-
-    ``device`` names the type ("cuda", the default, or "cpu").  A CUDA
-    rank computes on card ``LOCAL_RANK mod device_count``; when every
-    rank of the host has a card of its own the backend is nccl, else
-    (ranks sharing a card, or CPU ranks) gloo."""
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        return dev, "gloo"
-    n_cards = torch.cuda.device_count()
-    local_size = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
-    local_rank = int(os.environ.get("LOCAL_RANK", rank))
-    card = torch.device("cuda", local_rank % n_cards)
-    return card, ("nccl" if n_cards >= local_size else "gloo")
-
-
-def is_distributed_initialized() -> bool:
-    """Whether torch.distributed is available and its default process
-    group is initialized in this process."""
-    return tdist.is_available() and tdist.is_initialized()
-
-
-def init_distributed(init_method: Optional[str] = None,
-                     world_size: Optional[int] = None,
-                     rank: Optional[int] = None,
-                     device: DeviceLike = None) -> bool:
-    """Guarded ``torch.distributed.init_process_group``.
-
-    Resolves (init_method, world_size, rank) from the arguments or the
-    standard ``env://`` variables (MASTER_ADDR / MASTER_PORT,
-    WORLD_SIZE, RANK) and initializes once, with the backend
-    ``rank_device`` names for ``device``.  One process (no rendezvous
-    configured, or world_size <= 1) and an already-initialized process
-    are no-ops.  Returns True iff this call initialized."""
-    if is_distributed_initialized():
-        return False
-    if world_size is None and "WORLD_SIZE" in os.environ:
-        world_size = int(os.environ["WORLD_SIZE"])
-    if rank is None and "RANK" in os.environ:
-        rank = int(os.environ["RANK"])
-    if init_method is None and "MASTER_ADDR" in os.environ:
-        init_method = "env://"
-    if init_method is None or not world_size or world_size <= 1:
-        return False
-    rank = 0 if rank is None else rank
-    _, backend = rank_device(device, rank, world_size)
-    tdist.init_process_group(backend, init_method=init_method,
-                             world_size=world_size, rank=rank,
-                             timeout=COLLECTIVE_TIMEOUT)
-    return True
-
-
 def device_mesh(axis: str = "data", n_shards: Optional[int] = None,
                 device: DeviceLike = None) -> Mesh:
-    """1-D mesh over every rank for the dist backends.
+    """1-D mesh over every rank for the dist backends: ``launch.mesh``'s
+    ``Mesh`` with the one axis ``axis``.
 
     Calls ``init_distributed`` first; in one process the mesh has one
     rank.  ``n_shards``, if given, must equal the number of ranks.  A
     CUDA rank's card becomes the current device.  Prints the mesh: its
     size, this rank's device and the collective backend."""
     init_distributed(device=device)
-    if is_distributed_initialized():
-        size, rank = tdist.get_world_size(), tdist.get_rank()
-        dev, _ = rank_device(device, rank, size)
-        backend = str(tdist.get_backend())
-    else:
-        size, rank, dev, backend = 1, 0, resolve_device(device), None
+    size = tdist.get_world_size() if is_distributed_initialized() else 1
     if n_shards is not None and int(n_shards) != size:
         raise ValueError(f"device_mesh(n_shards={n_shards}) in a run of "
                          f"{size} rank(s): one shard a rank")
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    mesh = Mesh(axis=axis, size=size, rank=rank, device=dev,
-                backend=backend)
-    print(f"device_mesh: rank {rank} of {size} on {dev}, collectives "
-          f"over {backend or 'none (one process)'}"
+    mesh = _mesh.build_mesh((axis,), (size,), device)
+    print(f"device_mesh: rank {mesh.rank} of {size} on {mesh.device}, "
+          f"collectives over {mesh.backend or 'none (one process)'}"
           + (", buffers staged through pinned host memory"
              if mesh.staged else ""), flush=True)
     return mesh
 
 
-def _pinned(t: torch.Tensor) -> torch.Tensor:
-    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
-
-
 def _all_to_all(mesh: Mesh, send: torch.Tensor) -> torch.Tensor:
-    """Equal-split all_to_all_single along dim 0 (block s of the result
-    is what rank s sent this rank)."""
-    if mesh.size == 1:
-        return send
-    if mesh.staged:
-        host = _pinned(send)
-        recv = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-        tdist.all_to_all_single(recv, host, group=mesh.group)
-        return recv.to(mesh.device, non_blocking=True)
-    recv = torch.empty_like(send)
-    tdist.all_to_all_single(recv, send, group=mesh.group)
-    return recv
+    """Equal-split all_to_all_single along dim 0 over the mesh's axis
+    (block s of the result is what rank s sent this rank)."""
+    return _mesh.all_to_all(mesh, send, mesh.axis)
 
 
 def _all_gather(mesh: Mesh, block: torch.Tensor) -> torch.Tensor:
     """(m, k) blocks of every rank, stacked in rank order: (S*m, k)."""
-    if mesh.size == 1:
-        return block
-    src = _pinned(block) if mesh.staged else block.contiguous()
-    out = torch.empty((mesh.size * src.shape[0],) + tuple(src.shape[1:]),
-                      dtype=src.dtype, device=src.device,
-                      pin_memory=mesh.staged)
-    tdist.all_gather(list(out.chunk(mesh.size)), src, group=mesh.group)
-    return out.to(mesh.device, non_blocking=True) if mesh.staged else out
+    return _mesh.all_gather(mesh, block, mesh.axis, 0)
 
 
 # ----------------------------------------------------------------- execution

@@ -25,10 +25,12 @@ The reference has no Pallas kernel for the SSD: its einsums stay plain
 torch products here, as the reference computes them outside any
 kernel.  ``mamba_decode`` writes the new conv window and state into
 the cache in place (the reference returns an updated copy), as
-``attention.gqa_decode`` does.  There is no ``mesh`` argument: the
-mesh is ROADMAP.md queue 1, item 17.7; ``mamba_cache_abstract`` and
-``mamba_cache_logical`` serve the reference's dry run and sharding
-(items 17.9 and 17.7) and are not ported yet.
+``attention.gqa_decode`` does.  ``mamba_train`` and ``mamba_decode``
+take a ``mesh`` argument and leave it unused, as the reference's do;
+``mamba_cache_logical`` gives the cache's logical axes.  The ssm and
+hybrid families' forward under a mesh is ROADMAP.md queue 1, item
+17.10; ``mamba_cache_abstract`` serves the reference's dry run (item
+17.9) and is not ported yet.
 
 The reference reshapes a prompt into ``S // chunk`` chunks of
 ``min(ssm.chunk, S)`` tokens, so a prompt longer than one chunk whose
@@ -190,7 +192,8 @@ def ssd_chunked(xh, dtA, Bh, Ch, chunk, init_state=None):
     return y.reshape(Bsz, S, nh, hp), carry
 
 
-def mamba_train(cfg: ArchConfig, params, x, return_state: bool = False):
+def mamba_train(cfg: ArchConfig, params, x, mesh=None,
+                return_state: bool = False):
     """Full-sequence Mamba2. x: (B,S,D) -> (B,S,D); with return_state
     also the ``MambaCache`` the prompt leaves (the last d_conv - 1 raw
     conv inputs, the final state in the compute dtype)."""
@@ -239,7 +242,12 @@ def mamba_init_cache(cfg, batch, dtype, device=None) -> MambaCache:
                           device=device))
 
 
-def mamba_decode(cfg: ArchConfig, params, x, cache: MambaCache):
+def mamba_cache_logical(cfg: ArchConfig) -> MambaCache:
+    return MambaCache(conv=("cache_batch", None, "mlp"),
+                      state=("cache_batch", "heads", None, None))
+
+
+def mamba_decode(cfg: ArchConfig, params, x, cache: MambaCache, mesh=None):
     """One-token recurrent step. x: (B,1,D).  Writes the new conv window
     and state into ``cache`` in place (in the cache's dtypes) and
     returns (out (B,1,D), cache)."""

@@ -41,6 +41,25 @@ the backward (``_maybe_remat``).
 ``prefill`` returns the next position P + S for a vlm model, the patches
 counted; the reference returns S there, a position its own forward
 does not continue from (ROADMAP.md queue 3 lists the fault).
+
+Under a mesh (``launch.mesh``; the dense and moe families) the forward
+is explicit SPMD, each rank holding its block of every parameter
+(``param_shardings``; ``init_params(..., mesh=)`` draws them) and of
+the decode cache (``cache_logical``).  The entry points take the global
+tokens and positions and compute on this rank's batch block; the
+embedding is vocabulary-sharded, the attention and MLP projections
+column- / row-parallel, the MoE one of its three schedules
+(``moe.moe_block``), and between blocks the residual stream is split
+over the sequence where ``("batch", "seq_sp", None)`` resolves so
+(``layers.Placement``): each block all-gathers it before its
+projections and reduce-scatters its row-parallel sums back.  They
+return this rank's blocks: ``forward_train`` the hidden states in that
+layout, ``prefill`` / ``decode_step`` this rank's vocabulary block of
+the logits (``layers.vocab_argmax`` is the greedy pick across ranks)
+and the cache in ``cache_logical``'s layout (``DecodeCache.max_len``
+keeps its global length), ``loss_fn`` the global batch's loss.  The
+ssm, hybrid, encdec and vlm families under a mesh raise (ROADMAP.md
+queue 1, item 17.10).
 """
 from __future__ import annotations
 
@@ -50,6 +69,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.dist.sharding import named_sharding, relayout, resolve_spec
+from repro_torch.launch import mesh as _mesh
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as SSM
@@ -71,6 +92,16 @@ def _check_family(cfg: ArchConfig) -> None:
                          f"{cfg.moe}, mla={cfg.mla}, ssm={cfg.ssm}, "
                          f"enc_layers={cfg.enc_layers} is not a model "
                          "this module assembles")
+
+
+MESH_FAMILIES = ("dense", "moe")
+
+
+def _check_mesh(cfg: ArchConfig, mesh) -> None:
+    if mesh is not None and cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family under a mesh is not ported "
+            "yet: ROADMAP.md queue 1, item 17.10")
 
 
 def _n_dense(cfg: ArchConfig) -> int:
@@ -157,50 +188,90 @@ def abstract_params(cfg: ArchConfig) -> dict:
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None,
-                dtype=None) -> L.ParamTree:
+                dtype=None, mesh=None) -> L.ParamTree:
     """The parameter tree in ``dtype`` (default ``cfg.params_dtype``),
-    drawn on the device from a ``torch.Generator`` seeded with ``seed``."""
+    drawn on the device from a ``torch.Generator`` seeded with ``seed``;
+    under a mesh each leaf is this rank's block of the same global
+    tree (``param_shardings``)."""
+    _check_mesh(cfg, mesh)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return L.ParamTree(abstract_params(cfg), gen, dev,
-                       torch_dtype(dtype or cfg.params_dtype))
+                       torch_dtype(dtype or cfg.params_dtype), mesh)
+
+
+def param_shardings(cfg: ArchConfig, mesh):
+    """The ``NamedSharding`` of every parameter, in the structure of
+    ``abstract_params``."""
+    return L.spec_tree(abstract_params(cfg), mesh)
+
+
+def param_specs(cfg: ArchConfig, mesh) -> dict:
+    """The ``NamedSharding`` of every parameter by its ``state_dict``
+    name."""
+    return dict(L.named_leaves(param_shardings(cfg, mesh)))
+
+
+def _table_sharding(cfg: ArchConfig, mesh):
+    if mesh is None:
+        return None
+    return named_sharding((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"),
+                          mesh)
 
 
 # ================================================================ blocks
 
-def _ffn(cfg, blk, h):
-    """The block's FFN: (out, aux); aux is 0.0 for a dense MLP."""
+def _ffn(cfg, blk, h, mesh=None, place=None):
+    """The block's FFN: (out, aux); aux is 0.0 for a dense MLP.  Under a
+    mesh ``h`` is this rank's block as ``place`` lays it, and so is the
+    output."""
     if "router" in blk["ffn"]:
-        return MOE.moe_block(cfg, blk["ffn"], h)
-    return L.mlp(blk["ffn"], h, cfg.act, cfg.gated), 0.0
+        return MOE.moe_block(cfg, blk["ffn"], h, mesh, place=place)
+    if mesh is None:
+        return L.mlp(blk["ffn"], h, cfg.act, cfg.gated), 0.0
+    # column-parallel up / gate over the whole sequence, row-parallel down
+    p = blk["ffn"]
+    f_ent = L.spec_entry((cfg.d_model, cfg.d_ff), ("embed", "mlp"), mesh, 1)
+    b_ent = L.entry_of(place.batch)
+    h = relayout(h, mesh, place.spec(), (b_ent, None))
+    y = L.mlp(p, h, cfg.act, cfg.gated)
+    return L.finish_row_parallel(y, mesh, place, b_ent, L.axes_of(f_ent),
+                                 bool(place.seq)), 0.0
 
 
 def _attn_block(cfg, blk, x, positions, causal=True, enc_out=None,
-                collect=False):
+                collect=False, mesh=None, place_in=None, place=None):
     """Pre-norm attention block (train / prefill path), with a
     cross-attention over ``enc_out`` after the self-attention where given
-    (whisper's decoder): (out, aux[, cache piece])."""
+    (whisper's decoder): (out, aux[, cache piece]).  Under a mesh ``x``
+    is this rank's block as ``place_in`` lays it, the output as
+    ``place`` (the layout between blocks)."""
     h = _apply_norm(cfg, blk["ln1"], x)
+    kw = {}
+    if mesh is not None:
+        h = relayout(h, mesh, place_in.spec(), place.spec(seq=False))
+        x = relayout(x, mesh, place_in.spec(), place.spec())
+        kw = dict(mesh=mesh, place=place, seq_out=bool(place.seq))
     piece = None
     if cfg.mla:
         if collect:
             h, lat = ATT.mla_train(cfg, blk["attn"], h, positions,
-                                   return_latent=True)
+                                   return_latent=True, **kw)
             piece = ATT.MLACache(c_kv=lat[0], k_rope=lat[1])
         else:
-            h = ATT.mla_train(cfg, blk["attn"], h, positions)
+            h = ATT.mla_train(cfg, blk["attn"], h, positions, **kw)
     elif collect:
         h, kv = ATT.gqa_train(cfg, blk["attn"], h, positions, causal=causal,
-                              return_kv=True)
+                              return_kv=True, **kw)
         piece = ATT.KVCache(k=kv[0], v=kv[1])
     else:
-        h = ATT.gqa_train(cfg, blk["attn"], h, positions, causal=causal)
+        h = ATT.gqa_train(cfg, blk["attn"], h, positions, causal=causal, **kw)
     x = x + h
     if enc_out is not None:
         h = _apply_norm(cfg, blk["ln_x"], x)
         x = x + ATT.gqa_train(cfg, blk["xattn"], h, positions, causal=False,
                               kv_override=enc_out)
-    h, aux = _ffn(cfg, blk, _apply_norm(cfg, blk["ln2"], x))
+    h, aux = _ffn(cfg, blk, _apply_norm(cfg, blk["ln2"], x), mesh, place)
     out = x + h
     if collect:
         return out, aux, piece
@@ -251,13 +322,15 @@ def _group_block(cfg, group, x, positions, collect=False):
     return x, aux
 
 
-def _block(cfg, blk, x, positions, collect, causal, enc_out):
+def _block(cfg, blk, x, positions, collect, causal, enc_out, mesh=None,
+           place_in=None, place=None):
     if cfg.family == "ssm":
         return _mamba_block(cfg, blk, x, collect=collect)
     if cfg.family == "hybrid":
         return _group_block(cfg, blk, x, positions, collect=collect)
     return _attn_block(cfg, blk, x, positions, causal=causal,
-                       enc_out=enc_out, collect=collect)
+                       enc_out=enc_out, collect=collect, mesh=mesh,
+                       place_in=place_in, place=place)
 
 
 def _maybe_remat(cfg, fn):
@@ -280,15 +353,19 @@ def _maybe_remat(cfg, fn):
 
 
 def _run_blocks(cfg, blocks, x, positions, collect, causal=True,
-                enc_out=None):
+                enc_out=None, mesh=None, place_in=None, place=None):
     """(x, aux summed over the blocks, stacked pieces or None); each
-    block (a hybrid model's: each group) under ``_maybe_remat``."""
+    block (a hybrid model's: each group) under ``_maybe_remat``.  Under
+    a mesh ``x`` comes in as ``place_in`` lays it and leaves as
+    ``place``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     pieces = []
     block = _maybe_remat(cfg, _block)
     for blk in blocks:
-        out = block(cfg, blk, x, positions, collect, causal, enc_out)
+        out = block(cfg, blk, x, positions, collect, causal, enc_out, mesh,
+                    place_in, place)
         x, aux = out[0], aux + out[1]
+        place_in = place
         if collect:
             pieces.append(out[2])
     return x, aux, (_stack(pieces) if collect else None)
@@ -310,8 +387,8 @@ def _encode(cfg, params, enc_frames, cd):
     return _apply_norm(cfg, params["enc_norm"], e)
 
 
-def forward_train(cfg: ArchConfig, params, tokens, extra_embeds=None,
-                  enc_frames=None, collect_cache=False):
+def forward_train(cfg: ArchConfig, params, tokens, mesh=None,
+                  extra_embeds=None, enc_frames=None, collect_cache=False):
     """Train / prefill forward -> (hidden (B,S,D), aux[, cache pieces]).
 
     extra_embeds: (B, P, D) patch embeddings prepended (the vlm stub);
@@ -324,10 +401,23 @@ def forward_train(cfg: ArchConfig, params, tokens, extra_embeds=None,
     hybrid model's: a dict ``sub{i}`` of pieces stacked over the groups),
     as ``(pieces, dense_pieces, enc_out)``; dense_pieces are those of
     deepseek's leading dense blocks, enc_out the encoder's output, else
-    None."""
+    None.
+
+    Under a mesh ``tokens`` is the global (B, S) batch; the hidden
+    states returned are this rank's block as ``Placement.between_blocks``
+    lays them, the pieces this rank's blocks (``gqa_kv_spec``'s layout,
+    or the MLA latent's batch block)."""
     _check_family(cfg)
+    _check_mesh(cfg, mesh)
     cd = torch_dtype(cfg.compute_dtype)
-    x = L.embed(params["embed"], tokens, cfg.embed_scale).to(cd)
+    place = place_in = None
+    if mesh is not None:
+        B, S = tokens.shape
+        place = L.Placement.between_blocks(mesh, B, S, cfg.d_model)
+        place_in = place.whole_seq()
+        tokens = relayout(tokens, mesh, (), (L.entry_of(place.batch),))
+    x = L.embed(params["embed"], tokens, cfg.embed_scale,
+                _table_sharding(cfg, mesh)).to(cd)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(cd), x], dim=1)
     B, S, _ = x.shape
@@ -340,10 +430,13 @@ def forward_train(cfg: ArchConfig, params, tokens, extra_embeds=None,
     dense_pieces = None
     if "dense_blocks" in params:
         x, a, dense_pieces = _run_blocks(cfg, params["dense_blocks"], x,
-                                         positions, collect_cache)
+                                         positions, collect_cache, mesh=mesh,
+                                         place_in=place_in, place=place)
         aux = aux + a
+        place_in = place
     x, a, pieces = _run_blocks(cfg, params["blocks"], x, positions,
-                               collect_cache, enc_out=enc_out)
+                               collect_cache, enc_out=enc_out, mesh=mesh,
+                               place_in=place_in, place=place)
     aux = aux + a
     x = _apply_norm(cfg, params["final_norm"], x)
     if collect_cache:
@@ -351,17 +444,30 @@ def forward_train(cfg: ArchConfig, params, tokens, extra_embeds=None,
     return x, aux
 
 
-def loss_fn(cfg: ArchConfig, params, tokens, labels, extra_embeds=None,
-            enc_frames=None, aux_weight=0.01):
+def loss_fn(cfg: ArchConfig, params, tokens, labels, mesh=None,
+            extra_embeds=None, enc_frames=None, aux_weight=0.01):
     """The training loss: (nll + aux_weight * aux, (nll, aux)), nll the
     mean next-token NLL (``chunked_xent``, labels of -100 masked), aux
     the MoE layers' load-balancing loss.  A vlm model takes the loss on
-    its text positions only, after the P patches."""
-    x, aux = forward_train(cfg, params, tokens, extra_embeds=extra_embeds,
-                           enc_frames=enc_frames)
+    its text positions only, after the P patches.
+
+    Under a mesh ``tokens`` and ``labels`` are the global batch and the
+    loss is the global batch's on every rank; its gradient on a rank is
+    that rank's share (the train step sums them over the batch axes)."""
+    x, aux = forward_train(cfg, params, tokens, mesh,
+                           extra_embeds=extra_embeds, enc_frames=enc_frames)
     if extra_embeds is not None:
         x = x[:, extra_embeds.shape[1]:]
-    nll = L.chunked_xent(params["embed"], x, labels, real_vocab=cfg.vocab)
+    if mesh is None:
+        nll = L.chunked_xent(params["embed"], x, labels, real_vocab=cfg.vocab)
+        return nll + aux_weight * aux, (nll, aux)
+    B, S = labels.shape
+    place = L.Placement.between_blocks(mesh, B, S, cfg.d_model)
+    x = relayout(x, mesh, place.spec(), place.spec(seq=False))
+    labels = relayout(labels, mesh, (), (L.entry_of(place.batch),))
+    nll = L.chunked_xent(params["embed"], x, labels, real_vocab=cfg.vocab,
+                         sharding=_table_sharding(cfg, mesh), mesh=mesh,
+                         token_axes=place.batch)
     return nll + aux_weight * aux, (nll, aux)
 
 
@@ -373,6 +479,48 @@ class DecodeCache(NamedTuple):
                            # over groups
     dense_layers: Any      # the same for deepseek's leading dense blocks
     enc_out: Any           # encdec: {"mem": (B, enc_seq, d)}, else None
+    max_len: Any = None    # under a mesh: the global positions held (the
+                           # blocks are as cache_logical lays them)
+
+
+def _cache_logical_one(cfg, kind="a"):
+    if kind == "m":
+        return SSM.mamba_cache_logical(cfg)
+    if cfg.mla:
+        return ATT.mla_cache_logical(cfg)
+    return ATT.gqa_cache_logical(cfg)
+
+
+def cache_logical(cfg: ArchConfig) -> DecodeCache:
+    """The logical axes of every leaf of the decode cache, in its
+    structure (a leading ``layers`` axis on each stacked leaf)."""
+    def stack(one):
+        return type(one)(*(("layers",) + tuple(f) for f in one))
+
+    dense_layers, enc_out = None, None
+    if cfg.family == "hybrid":
+        layers = {f"sub{i}": stack(_cache_logical_one(cfg, kind))
+                  for i, kind in enumerate(cfg.hybrid_group)}
+    elif cfg.family == "ssm":
+        layers = stack(_cache_logical_one(cfg, "m"))
+    else:
+        layers = stack(_cache_logical_one(cfg))
+        if _n_dense(cfg):
+            dense_layers = stack(_cache_logical_one(cfg))
+    if cfg.family == "encdec":
+        enc_out = {"mem": ("cache_batch", None, None)}
+    return DecodeCache(layers=layers, dense_layers=dense_layers,
+                       enc_out=enc_out)
+
+
+def _layer_cache_spec(cfg, mesh, B: int, max_len: int):
+    """The PartitionSpec of one layer's cache leaf (k, or MLA's c_kv)."""
+    one = _cache_logical_one(cfg)
+    if cfg.mla:
+        shape = (B, max_len, cfg.mla.kv_lora_rank)
+    else:
+        shape = (B, cfg.n_kv_heads, max_len, cfg.resolved_head_dim)
+    return resolve_spec(shape, one[0], mesh)
 
 
 def _layer_cache(cfg, batch, max_len, dtype, device, n, kind="a"):
@@ -407,19 +555,24 @@ def cache_zeros(cfg: ArchConfig, batch, max_len, dtype=torch.bfloat16,
     return DecodeCache(layers=layers, dense_layers=dense, enc_out=enc)
 
 
-def _attn_block_decode(cfg, blk, x, cache, positions, enc_mem=None):
+def _attn_block_decode(cfg, blk, x, cache, positions, enc_mem=None,
+                       mesh=None, place=None, cache_spec=None):
     """One decode step of an attention block; with ``enc_mem`` its
     cross-attention recomputes the memory's k and v through ``gqa_train``
     at Sq = 1, as the reference does (one flash launch a layer)."""
     h = _apply_norm(cfg, blk["ln1"], x)
     decode = ATT.mla_decode if cfg.mla else ATT.gqa_decode
-    h, cache = decode(cfg, blk["attn"], h, cache, positions)
+    if mesh is None:
+        h, cache = decode(cfg, blk["attn"], h, cache, positions)
+    else:
+        h, cache = decode(cfg, blk["attn"], h, cache, positions, mesh,
+                          place=place, cache_spec=cache_spec)
     x = x + h
     if enc_mem is not None:
         h = _apply_norm(cfg, blk["ln_x"], x)
         x = x + ATT.gqa_train(cfg, blk["xattn"], h, positions, causal=False,
                               kv_override=enc_mem)
-    h, _ = _ffn(cfg, blk, _apply_norm(cfg, blk["ln2"], x))
+    h, _ = _ffn(cfg, blk, _apply_norm(cfg, blk["ln2"], x), mesh, place)
     return x + h, cache
 
 
@@ -438,7 +591,8 @@ def _layer(stacked, i):
     return type(stacked)(*(f[i] for f in stacked))
 
 
-def _decode_blocks(cfg, blocks, x, stacked, positions, enc_mem=None):
+def _decode_blocks(cfg, blocks, x, stacked, positions, enc_mem=None,
+                   **mesh_kw):
     for g, blk in enumerate(blocks):
         if cfg.family == "ssm":
             x, _ = _mamba_block_decode(cfg, blk, x, _layer(stacked, g))
@@ -449,29 +603,48 @@ def _decode_blocks(cfg, blocks, x, stacked, positions, enc_mem=None):
                         else _attn_block_decode(cfg, sub, x, c, positions))
         else:
             x, _ = _attn_block_decode(cfg, blk, x, _layer(stacked, g),
-                                      positions, enc_mem)
+                                      positions, enc_mem, **mesh_kw)
     return x
 
 
 def decode_step(cfg: ArchConfig, params, cache: DecodeCache, tokens,
-                positions):
+                positions, mesh=None):
     """One decode step. tokens (B,1) int, positions (B,1) int, the same
     position for every row (for a vlm model it counts the patches).
-    Returns (logits (B,1,V), cache), the cache updated in place."""
+    Returns (logits (B,1,V), cache), the cache updated in place.
+
+    Under a mesh ``tokens`` and ``positions`` are global, ``cache`` is
+    this rank's (``prefill``'s under the same mesh) and the logits are
+    this rank's vocabulary block of its batch block."""
     _check_family(cfg)
+    _check_mesh(cfg, mesh)
     cd = torch_dtype(cfg.compute_dtype)
-    x = L.embed(params["embed"], tokens, cfg.embed_scale).to(cd)
+    mesh_kw = {}
+    if mesh is not None:
+        if cache.max_len is None:
+            raise ValueError("a decode step under a mesh takes the cache "
+                             "prefill made under it (DecodeCache.max_len)")
+        B = tokens.shape[0]
+        place = L.Placement.between_blocks(mesh, B, 1, cfg.d_model)
+        b_ent = (L.entry_of(place.batch),)
+        tokens = relayout(tokens, mesh, (), b_ent)
+        positions = relayout(positions, mesh, (), b_ent)
+        mesh_kw = dict(mesh=mesh, place=place, cache_spec=_layer_cache_spec(
+            cfg, mesh, B, cache.max_len))
+    x = L.embed(params["embed"], tokens, cfg.embed_scale,
+                _table_sharding(cfg, mesh)).to(cd)
     if cfg.pos_embedding == "learned":
         pos = positions[0, :1].long()          # (1,), stays on the device
         x = x + params["pos_embed"]["table"][pos][None].to(cd)
     enc_mem = cache.enc_out["mem"].to(cd) if cache.enc_out else None
     if "dense_blocks" in params:
         x = _decode_blocks(cfg, params["dense_blocks"], x,
-                           cache.dense_layers, positions)
+                           cache.dense_layers, positions, **mesh_kw)
     x = _decode_blocks(cfg, params["blocks"], x, cache.layers, positions,
-                       enc_mem)
+                       enc_mem, **mesh_kw)
     x = _apply_norm(cfg, params["final_norm"], x)
-    logits = L.unembed_logits(params["embed"], x, real_vocab=cfg.vocab)
+    logits = L.unembed_logits(params["embed"], x, real_vocab=cfg.vocab,
+                              sharding=_table_sharding(cfg, mesh))
     return logits, cache
 
 
@@ -497,8 +670,20 @@ def _pad_piece(piece, max_len, dtype):
     return type(piece)(*(pad(f) for f in piece))
 
 
-def prefill(cfg: ArchConfig, params, tokens, max_len, enc_frames=None,
-            extra_embeds=None):
+def _place_piece(cfg, piece, mesh, B: int, S: int, max_len: int):
+    """A stacked prefill piece (this rank's block, the whole sequence,
+    padded to max_len) moved to the cache's layout."""
+    if cfg.mla:
+        src = (None, L.entry_of(L.Placement.between_blocks(
+            mesh, B, S, cfg.d_model).batch))
+    else:
+        src = (None,) + tuple(ATT.gqa_kv_spec(cfg, mesh, B, S))
+    dst = (None,) + tuple(_layer_cache_spec(cfg, mesh, B, max_len))
+    return type(piece)(*(relayout(f, mesh, src, dst) for f in piece))
+
+
+def prefill(cfg: ArchConfig, params, tokens, max_len, mesh=None,
+            enc_frames=None, extra_embeds=None):
     """Run the full prompt once, returning (last-token logits, a decode
     cache valid for positions < N, the next position N).  N is S, or
     P + S with P patch embeddings (``extra_embeds``) prepended: the
@@ -506,17 +691,34 @@ def prefill(cfg: ArchConfig, params, tokens, max_len, enc_frames=None,
     from it overwrites a cached prompt entry.)  The KV / latent / Mamba
     pieces are captured in the same pass as the forward, the KV and
     latent ones left-aligned into max_len buffers, all in the compute
-    dtype; an encdec model's encoder output goes into the cache."""
-    S = tokens.shape[1]
+    dtype; an encdec model's encoder output goes into the cache.
+
+    Under a mesh ``tokens`` is the global batch; the logits are this
+    rank's vocabulary block of its batch block, and the cache its
+    blocks as ``cache_logical`` lays them (the KV pieces gathered over
+    the kv heads and split over the positions where the cache is
+    sequence-sharded)."""
+    B, S = tokens.shape[0], tokens.shape[1]
     x, _, (pieces, dense_pieces, enc_out) = forward_train(
-        cfg, params, tokens, extra_embeds=extra_embeds,
+        cfg, params, tokens, mesh, extra_embeds=extra_embeds,
         enc_frames=enc_frames, collect_cache=True)
-    logits = L.unembed_logits(params["embed"], x[:, -1:],
-                              real_vocab=cfg.vocab)
+    last = x[:, -1:]
+    if mesh is not None:
+        place = L.Placement.between_blocks(mesh, B, S, cfg.d_model)
+        if place.seq:    # the last position is the last sequence block's
+            last = _mesh.all_gather(mesh, last, place.seq, 1)[:, -1:]
+    logits = L.unembed_logits(params["embed"], last, real_vocab=cfg.vocab,
+                              sharding=_table_sharding(cfg, mesh))
     cd = torch_dtype(cfg.compute_dtype)
+    layers = _pad_piece(pieces, max_len, cd)
     dense = (_pad_piece(dense_pieces, max_len, cd)
              if dense_pieces is not None else None)
+    if mesh is not None:
+        layers = _place_piece(cfg, layers, mesh, B, S, max_len)
+        if dense is not None:
+            dense = _place_piece(cfg, dense, mesh, B, S, max_len)
     enc = {"mem": enc_out.to(cd)} if enc_out is not None else None
     nxt = S + (extra_embeds.shape[1] if extra_embeds is not None else 0)
-    return logits, DecodeCache(layers=_pad_piece(pieces, max_len, cd),
-                               dense_layers=dense, enc_out=enc), nxt
+    return logits, DecodeCache(layers=layers, dense_layers=dense,
+                               enc_out=enc,
+                               max_len=None if mesh is None else max_len), nxt

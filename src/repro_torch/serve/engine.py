@@ -20,6 +20,13 @@ Temperature sampling draws from a ``torch.Generator`` seeded with
 ``GenerationConfig.seed`` (the reference's ``jax.random`` stream cannot
 be reproduced; greedy decoding is the same in both packages).
 
+Under a mesh (``ServeEngine(..., mesh=)``, the dense and moe families)
+every rank runs the same ``generate`` on the global prompts: the
+sharded ``prefill`` / ``decode_step``, the greedy pick across the
+vocabulary blocks (``layers.vocab_argmax``; a temperature samples from
+the logits gathered over them), and the picks of each rank's batch
+block gathered, so every rank returns every request's tokens.
+
 ``ServeEngine.timing`` holds the host seconds of the last ``generate``:
 ``prefill_s`` (up to the first sampled token, the device synchronized)
 and ``decode_s`` over ``decode_steps`` steps.
@@ -33,6 +40,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import NamedSharding
+from repro_torch.launch import mesh as _mesh
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
 
@@ -51,10 +61,12 @@ def _sync(device: torch.device) -> None:
 
 
 class ServeEngine:
-    def __init__(self, cfg: ArchConfig, params, max_len: int = 256):
+    def __init__(self, cfg: ArchConfig, params, max_len: int = 256,
+                 mesh=None):
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
+        self.mesh = mesh
         self.device = params["embed"]["table"].device
         self.timing: dict = {}
 
@@ -80,9 +92,9 @@ class ServeEngine:
                               ("extra_embeds", extra_embeds))
               if a is not None}
         logits, cache, pos = M.prefill(self.cfg, self.params, prompt,
-                                       self.max_len, **kw)
+                                       self.max_len, mesh=self.mesh, **kw)
         rng = torch.Generator(device=self.device).manual_seed(gen.seed)
-        cur = self._sample(logits[:, -1], gen, rng)
+        cur = self._pick(logits[:, -1], gen, rng, B)
         _sync(self.device)
         t1 = time.perf_counter()
         out = []
@@ -99,14 +111,30 @@ class ServeEngine:
             positions = torch.full((B, 1), pos + i, dtype=torch.int32,
                                    device=self.device)
             logits, cache = M.decode_step(self.cfg, self.params, cache, cur,
-                                          positions)
-            cur = self._sample(logits[:, -1], gen, rng)
+                                          positions, self.mesh)
+            cur = self._pick(logits[:, -1], gen, rng, B)
             steps += 1
         result = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
         self.timing = {"prefill_s": t1 - t0,
                        "decode_s": time.perf_counter() - t1,
                        "decode_steps": steps}
         return result
+
+    def _pick(self, logits, gen: GenerationConfig, rng: torch.Generator,
+              B: int):
+        """The next token of each request, (B, 1) int32: under a mesh
+        from this rank's blocks of the logits, gathered to every rank."""
+        if self.mesh is None:
+            return self._sample(logits, gen, rng)
+        table = M._table_sharding(self.cfg, self.mesh)
+        if gen.temperature <= 0:
+            cur = L.vocab_argmax(logits, table)[:, None].to(torch.int32)
+        else:
+            whole = NamedSharding(self.mesh, (None, table.spec[0] if
+                                              table.spec else None))
+            cur = self._sample(whole.gather(logits), gen, rng)
+        return _mesh.all_gather(self.mesh, cur, L.Placement.between_blocks(
+            self.mesh, B, 1, self.cfg.d_model).batch, 0)
 
     @staticmethod
     def _sample(logits, gen: GenerationConfig, rng: torch.Generator):

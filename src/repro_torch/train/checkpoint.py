@@ -21,9 +21,14 @@ and restored bit for bit.  ``restore(step, like)`` returns a tree
 shaped like ``like``: its tensors new, in ``like``'s dtypes and on its
 devices; a module of ``like`` is loaded in place and returned.
 
-The reference gathers sharded leaves to full arrays on save and
-re-shards on restore; the port has no mesh yet (ROADMAP.md queue 1,
-item 17.7), so every leaf is one device's tensor.
+Elasticity, as the reference's: leaves are stored as full logical
+arrays.  Under a mesh every rank calls ``save(..., shardings=)`` (a tree
+shaped like ``tree`` whose leaves are ``NamedSharding``s; a module's
+entry a dict of them by ``state_dict`` name, ``model.param_specs``):
+each leaf is gathered from the ranks' blocks, rank 0 writes, the
+manifest records the mesh's shape, and the ranks wait for the write.
+``restore(..., shardings=)`` slices each rank's block out of the full
+arrays, so a run resumes on a mesh of another shape (or on none).
 """
 from __future__ import annotations
 
@@ -36,7 +41,10 @@ from typing import Any, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 from torch import nn
+
+from repro_torch.launch.mesh import is_distributed_initialized
 
 
 def _is_namedtuple(x) -> bool:
@@ -89,6 +97,26 @@ def _rebuild(tree, load, path: str = ""):
     return load(path, tree)
 
 
+def _shardings(tree, path: str = ""):
+    """{leaf path: NamedSharding} of a tree of NamedShardings (a dict, a
+    list, a tuple or a NamedTuple of them)."""
+    def join(k):
+        return f"{path}/{k}" if path else str(k)
+
+    if tree is None:
+        return {}
+    if isinstance(tree, dict):
+        return {p: s for k, sub in tree.items()
+                for p, s in _shardings(sub, join(k)).items()}
+    if _is_namedtuple(tree):
+        return {p: s for k in tree._fields
+                for p, s in _shardings(getattr(tree, k), join(k)).items()}
+    if isinstance(tree, (list, tuple)):
+        return {p: s for i, sub in enumerate(tree)
+                for p, s in _shardings(sub, join(i)).items()}
+    return {path: tree}
+
+
 def _to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
@@ -110,27 +138,43 @@ class CheckpointManager:
         self.keep = keep
 
     # ------------------------------------------------------------- save
-    def save(self, step: int, tree: Any, extra: Optional[dict] = None):
+    def save(self, step: int, tree: Any, extra: Optional[dict] = None,
+             shardings: Any = None):
+        """Write ``tree`` as step ``step``.  Under a mesh (``shardings``)
+        every rank calls it: the leaves are gathered, rank 0 writes."""
+        specs = _shardings(shardings)
+        mesh = next(iter(specs.values())).mesh if specs else None
+        writer = mesh is None or mesh.rank == 0
         tmp = self.dir / f"step_{step}.tmp"
         final = self.dir / f"step_{step}"
-        if tmp.exists():
-            shutil.rmtree(tmp)
-        tmp.mkdir(parents=True)
+        if writer:
+            if tmp.exists():
+                shutil.rmtree(tmp)
+            tmp.mkdir(parents=True)
 
         manifest = {"step": step, "time": time.time(),
                     "extra": extra or {}, "leaves": {}}
+        if mesh is not None:
+            manifest["mesh"] = dict(mesh.shape)
         for name, leaf in _leaves(tree):
+            if name in specs:
+                leaf = specs[name].gather(leaf)
+            if not writer:
+                continue
             arr, dtype = _to_host(leaf)
             fn = name.replace("/", "__") + ".npy"
             np.save(tmp / fn, arr)
             manifest["leaves"][name] = {
                 "file": fn, "shape": list(arr.shape), "dtype": dtype}
-        with open(tmp / "manifest.json", "w") as f:
-            json.dump(manifest, f, indent=1)
-        if final.exists():
-            shutil.rmtree(final)
-        os.rename(tmp, final)                       # atomic publish
-        self._gc()
+        if writer:
+            with open(tmp / "manifest.json", "w") as f:
+                json.dump(manifest, f, indent=1)
+            if final.exists():
+                shutil.rmtree(final)
+            os.rename(tmp, final)                   # atomic publish
+            self._gc()
+        if mesh is not None and is_distributed_initialized():
+            tdist.barrier()
         return final
 
     def _gc(self):
@@ -154,23 +198,30 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, step: int, like: Any) -> Tuple[Any, dict]:
+    def restore(self, step: int, like: Any, shardings: Any = None
+                ) -> Tuple[Any, dict]:
         """(a tree shaped like ``like`` holding step ``step``'s leaves,
-        the saved ``extra``)."""
+        the saved ``extra``).  With ``shardings`` (as ``save`` takes
+        them, for the mesh of this run) each leaf is this rank's block
+        of the saved full array: the elastic re-shard."""
         d = self.dir / f"step_{step}"
         with open(d / "manifest.json") as f:
             manifest = json.load(f)
+        specs = _shardings(shardings)
 
         def load(name, leaf):
             info = manifest["leaves"][name]
             t = _from_host(np.load(d / info["file"]), info["dtype"])
+            if name in specs:
+                t = specs[name].shard(t)
             return t.to(device=leaf.device, dtype=leaf.dtype)
 
         return _rebuild(like, load), manifest["extra"]
 
-    def restore_latest(self, like: Any) -> Tuple[Optional[int], Any, dict]:
+    def restore_latest(self, like: Any, shardings: Any = None
+                       ) -> Tuple[Optional[int], Any, dict]:
         s = self.latest()
         if s is None:
             return None, like, {}
-        tree, extra = self.restore(s, like)
+        tree, extra = self.restore(s, like, shardings)
         return s, tree, extra

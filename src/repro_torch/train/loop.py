@@ -10,9 +10,28 @@ updates the parameters and the optimizer state in place.  Under
 ``cfg.remat == "full"`` each block is recomputed in the backward, so the
 flash kernel launches twice an attention layer a step.
 
-The reference's int8 error-feedback gradient compression is a psum
-over a mesh axis; the port has no mesh yet, so
-``grad_compression="int8"`` raises (ROADMAP.md queue 1, item 17.7).
+Under a mesh (``launch.mesh``; ``make_train_step(..., mesh=)``, the
+mesh after ``opt`` to keep the port's positional order) each rank
+holds its block of the global batch and the loss is the global
+batch's (``model.loss_fn``); each rank's gradient is its share, and
+the step sums the shares over the batch axes, so every rank holds the
+gradient of the global batch, as GSPMD gives it in the reference.  A
+model axis of more than one rank is refused: gradients through its
+collectives are ROADMAP.md queue 1, item 17.10.
+
+``grad_compression="int8"`` is the reference's error-feedback step:
+``(params, opt_state, err, batch) -> (params, opt_state, err,
+metrics)``, the global gradient plus the residual ``err`` quantized to
+int8, its dequantized value mean-reduced over ``compression_axis``
+(``dist.compression.compressed_psum_tree``) and the new residual
+threaded to the next step (seed it with ``init_compression_state``).
+As in the reference, the operands of that mean are equal on every rank
+(the global gradient), and the wire carries fp32.  The reference
+quantizes each leaf of its layer-stacked tree, one scale over all the
+layers of a leaf; the port quantizes the same stacks
+(``optimizer.layer_groups``), so its int8 values and scales are the
+reference's.  Without a mesh the
+int8 step raises the reference's ValueError.
 """
 from __future__ import annotations
 
@@ -22,14 +41,13 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.dist.compression import (compressed_psum_tree,
+                                          init_error_feedback)
+from repro_torch.launch import mesh as _mesh
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
 from repro_torch.train import optimizer as OPT
-
-COMPRESSION_NOT_PORTED = (
-    "grad_compression='int8' is an error-feedback psum over a mesh axis, "
-    "and the mesh is not ported yet: ROADMAP.md queue 1, item 17.7 "
-    "(dist/compression.py)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +60,7 @@ class TrainConfig:
     microbatch: int = 1          # grad-accumulation factor
     aux_weight: float = 0.01     # MoE load-balance loss weight
     weight_decay: float = 0.1
-    grad_compression: str = "none"   # none | int8 (needs a mesh)
+    grad_compression: str = "none"   # none | int8 (error-feedback psum)
     compression_axis: str = "data"   # mesh axis the compressed psum crosses
 
 
@@ -64,22 +82,43 @@ def make_optimizer(tc: TrainConfig) -> OPT.Optimizer:
 
 
 def make_train_step(cfg: ArchConfig, tc: TrainConfig,
-                    opt: Optional[OPT.Optimizer] = None) -> Callable:
+                    opt: Optional[OPT.Optimizer] = None,
+                    mesh=None) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics).  batch: {tokens, labels[, enc_frames, extra_embeds]};
-    metrics: loss, nll, aux, grad_norm (before the clip) and lr."""
-    if tc.grad_compression == "int8":
-        raise ValueError(COMPRESSION_NOT_PORTED)
-    if tc.grad_compression != "none":
+    metrics), or under ``grad_compression="int8"`` train_step(params,
+    opt_state, err, batch) -> (params, opt_state, err, metrics).  batch:
+    {tokens, labels[, enc_frames, extra_embeds]}, the global batch under
+    a mesh; metrics: loss, nll, aux, grad_norm (before the clip) and
+    lr."""
+    if tc.grad_compression not in ("none", "int8"):
         raise ValueError(f"unknown grad_compression "
                          f"{tc.grad_compression!r}; use 'none' or 'int8'")
+    if tc.grad_compression == "int8" and mesh is None:
+        raise ValueError("grad_compression='int8' needs a mesh "
+                         "(the psum axis lives on it)")
+    if mesh is not None and mesh.count("model") > 1:
+        raise NotImplementedError(
+            "a train step over a model axis of more than one rank: "
+            "gradients through its collectives are ROADMAP.md queue 1, "
+            "item 17.10")
     opt = opt or make_optimizer(tc)
 
     def loss_of(params, batch):
         return M.loss_fn(cfg, params, batch["tokens"], batch["labels"],
+                         mesh=mesh,
                          extra_embeds=batch.get("extra_embeds"),
                          enc_frames=batch.get("enc_frames"),
                          aux_weight=tc.aux_weight)
+
+    def reduce_shares(grads, batch):
+        """The sum of every rank's share over the batch axes."""
+        if mesh is None:
+            return grads
+        B, S = batch["tokens"].shape
+        axes = L.Placement.between_blocks(mesh, B, S, cfg.d_model).batch
+        for k in list(grads):      # leaf by leaf: one transient copy
+            grads[k] = _mesh.all_reduce(mesh, grads[k], axes)
+        return grads
 
     def grads_of(params, batch):
         names, leaves = zip(*params.named_parameters())
@@ -115,9 +154,7 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig,
         loss, nll, aux = sums * inv
         return loss, nll, aux, {k: a.mul_(inv) for k, a in zip(names, acc)}
 
-    def train_step(params, opt_state, batch):
-        params.requires_grad_(True)
-        loss, nll, aux, grads = grads_of(params, batch)
+    def finish_step(grads, opt_state, params, loss, nll, aux):
         grads, gnorm = OPT.clip_by_global_norm(grads, tc.clip_norm)
         lr = lr_schedule(tc, int(opt_state.count))
         params, opt_state = opt.update(grads, opt_state, params, lr)
@@ -125,12 +162,48 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig,
                    "grad_norm": gnorm, "lr": torch.tensor(lr)}
         return params, opt_state, metrics
 
+    if tc.grad_compression == "int8":
+        def train_step(params, opt_state, err, batch):
+            params.requires_grad_(True)
+            loss, nll, aux, grads = grads_of(params, batch)
+            grads, err = _stacked_psum(reduce_shares(grads, batch),
+                                       dict(err), mesh, tc.compression_axis)
+            params, opt_state, metrics = finish_step(
+                grads, opt_state, params, loss, nll, aux)
+            return params, opt_state, err, metrics
+
+        return train_step
+
+    def train_step(params, opt_state, batch):
+        params.requires_grad_(True)
+        loss, nll, aux, grads = grads_of(params, batch)
+        return finish_step(reduce_shares(grads, batch), opt_state, params,
+                           loss, nll, aux)
+
     return train_step
+
+
+def _stacked_psum(grads, err, mesh, axis):
+    """``compressed_psum_tree`` over the reference's layer stacks: the
+    leaves of each ``layer_groups`` group stacked, compressed as one
+    leaf, and split back by name.  Group by group, each group's grads
+    and residuals taken out of ``grads`` and ``err`` as it goes, so the
+    transients are one group's."""
+    out, new_err = {}, {}
+    for members, stacked in OPT.layer_groups(grads).values():
+        def take(tree):
+            if stacked:
+                return torch.stack([tree.pop(n) for n in members])
+            return tree.pop(members[0])
+
+        g, e = compressed_psum_tree(take(grads), take(err), mesh, axis)
+        for i, n in enumerate(members):
+            out[n], new_err[n] = (g[i], e[i]) if stacked else (g, e)
+    return out, new_err
 
 
 def init_compression_state(params) -> Dict[str, torch.Tensor]:
     """Zero error-feedback residuals for a grad_compression='int8' step
-    (fp32, one a parameter), as the reference's
-    ``dist.compression.init_error_feedback`` gives them."""
-    return {n: torch.zeros_like(p, dtype=torch.float32)
-            for n, p in OPT.named_leaves(params).items()}
+    (fp32, one a parameter): ``dist.compression.init_error_feedback``
+    over the parameters by name."""
+    return init_error_feedback(dict(OPT.named_leaves(params)))

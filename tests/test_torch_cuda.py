@@ -1724,3 +1724,45 @@ def test_cuda_shard_launch_rejects_bad_operands(cuda_device):
     for bad in (short, xs.double(), xs.T.contiguous().T, xs.cpu()):
         with pytest.raises((TypeError, ValueError)):
             K.sellcs_shard_spmm(sh, bad)
+
+
+@pytest.mark.cuda
+def test_cuda_meshed_prefill_two_ranks_kernel_against_plain(cuda_device,
+                                                            tmp_path):
+    """The reduced mixtral's prefill over a (1, 2) mesh of two ranks on
+    the one card (gloo, staged through pinned host memory): one flash
+    launch a layer a rank, the logits through the kernel within the fp32
+    tolerance of the same through the plain attention, and of the
+    meshless prefill on the card."""
+    import dataclasses
+    import pickle
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import model as M
+
+    from torch_dist_ranks import mesh_cuda_rank
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.spawn(mesh_cuda_rank, args=(2, str(tmp_path), port), nprocs=2,
+             join=True)
+    cfg = get_reduced_config("mixtral-8x22b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    P = M.init_params(cfg, seed=4, device=cuda_device)
+    tok = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)), device=cuda_device)
+    with torch.no_grad():
+        want = M.prefill(cfg, P, tok, 80)[0].cpu().numpy()
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            res = pickle.load(f)
+        assert res["staged"]
+        assert sum(res["launches"].values()) == res["n_layers"]
+        np.testing.assert_allclose(res["kernel"], res["plain"],
+                                   **TOL[np.float32])
+        np.testing.assert_allclose(res["kernel"], want, **TOL[np.float32])

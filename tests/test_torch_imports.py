@@ -70,6 +70,11 @@ def test_import_repro_torch_loads_no_jax_or_reference():
             "loop, optimizer, CheckpointManager\n"
             "from repro_torch.data import SyntheticTokens, tokens\n"
             "from repro_torch.launch import train\n"
+            "import repro_torch.dist, repro_torch.launch.mesh\n"
+            "from repro_torch.dist import sharding, compression, "
+            "resolve_spec, compressed_psum_tree\n"
+            "from repro_torch.launch.mesh import Mesh, make_host_mesh, "
+            "make_production_mesh\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

@@ -165,10 +165,22 @@ def test_expert_ffn_matches_reference(act, gated):
 
 
 def test_moe_block_with_a_mesh_raises_naming_item_17_7():
-    cfg, _ = _cfgs("mixtral-8x22b")
-    with pytest.raises(NotImplementedError, match=r"item 17\.7"):
-        MOE.moe_block(cfg, {}, torch.zeros((1, 2, cfg.d_model)),
-                      mesh=object())
+    """Item 17.7 ported the mesh schedules; a mesh without a ``model``
+    axis takes the meshless path, as the reference's ``moe_block`` does
+    (``mesh is None or "model" not in mesh.axis_names``), equal to the
+    reference's meshless output."""
+    from repro_torch.launch.mesh import build_mesh
+
+    cfg, rcfg = _cfgs("mixtral-8x22b")
+    p_np, rp = _init(RMOE.moe_ab(rcfg), 3)
+    x = _x((2, 5, cfg.d_model), 4)
+    mesh = build_mesh(("data",), (1,), device="cpu")
+    with torch.no_grad():
+        y, aux = MOE.moe_block(cfg, _torch_tree(p_np), torch.from_numpy(x),
+                               mesh=mesh)
+    ry, raux = RMOE.moe_block(rcfg, rp, jnp.asarray(x))
+    np.testing.assert_allclose(y.numpy(), np.asarray(ry), **ACT)
+    assert float(aux) == pytest.approx(float(raux), rel=1e-5)
 
 
 def _mla_inputs(S, seed):

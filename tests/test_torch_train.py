@@ -277,8 +277,10 @@ def test_adafactor_memory_is_factored():
 
 
 def test_int8_compression_names_the_sharding_item():
+    """Item 17.7 ported the compressed step; without a mesh it raises
+    the reference's ValueError (its psum axis lives on the mesh)."""
     cfg = get_reduced_config("gemma-2b")
-    with pytest.raises(ValueError, match="17.7"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         make_train_step(cfg, TrainConfig(grad_compression="int8"))
     with pytest.raises(ValueError, match="unknown grad_compression"):
         make_train_step(cfg, TrainConfig(grad_compression="fp8"))

@@ -8,6 +8,12 @@ the host COO triples in ``spec["graphs"]``, runs every job of
 ``tmp/rank<r>.pkl``; ``spawn_ranks`` returns them, one dict a rank.  A
 rank that raises fails the spawn with its traceback.  Imports neither
 JAX nor the reference package.
+
+The sharding tests (``tests/test_torch_mesh.py``) run the ``mesh_*``
+jobs: each builds a ``(world // model, model)`` host mesh
+(``launch.mesh.make_host_mesh``; every rank makes the meshes in one
+order, as ``new_group`` requires) and returns whole numpy arrays,
+gathered from the ranks' blocks.
 """
 from __future__ import annotations
 
@@ -54,6 +60,15 @@ class _Context:
 
     def __init__(self, spec, mesh):
         self.spec, self.mesh, self._mats = spec, mesh, {}
+        self._host_meshes = {}
+
+    def host_mesh(self, model):
+        """The (world // model, model) mesh, made once."""
+        if model not in self._host_meshes:
+            from repro_torch.launch.mesh import make_host_mesh
+
+            self._host_meshes[model] = make_host_mesh(model, device="cpu")
+        return self._host_meshes[model]
 
     def matrix(self, key):
         """A port SparseMatrix of ``spec["graphs"][key]``, or the
@@ -183,9 +198,158 @@ def job_initialized(ctx):
     return dist.is_distributed_initialized()
 
 
+def _lm_cfg(arch, override):
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+
+    cfg = get_reduced_config(arch)
+    moe = override.pop("moe", None)
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
+    return dataclasses.replace(cfg, **override)
+
+
+def _whole(mesh, t, spec):
+    from repro_torch.dist.sharding import NamedSharding
+
+    return _np(NamedSharding(mesh, spec).gather(t))
+
+
+def job_mesh_moe(ctx, arch, override, params, x, model):
+    """``moe_block`` under the mesh on the whole x: (y, aux), whole."""
+    from repro_torch.dist.sharding import NamedSharding, resolve_spec
+    from repro_torch.models import moe as MOE
+
+    cfg = _lm_cfg(arch, dict(override))
+    mesh = ctx.host_mesh(model)
+    ab = MOE.moe_ab(cfg)
+
+    def local(tree, abt):
+        if isinstance(tree, dict):
+            return {k: local(v, abt[k]) for k, v in tree.items()}
+        return NamedSharding(mesh, resolve_spec(
+            abt.shape, abt.logical, mesh)).shard(torch.from_numpy(tree))
+
+    with torch.no_grad():
+        y, aux = MOE.moe_block(cfg, local(params, ab), torch.from_numpy(x),
+                               mesh)
+    return dict(y=_np(y), aux=float(aux))
+
+
+def job_mesh_lm(ctx, arch, override, state, tokens, steps, max_len, model):
+    """The reduced model under the mesh on the full ``state``: the
+    hidden states, the prefill logits, a decode step's logits for each
+    token column of ``steps`` and the loss, all whole; and the greedy
+    picks across the vocabulary blocks against the whole logits'."""
+    from repro_torch import convert
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    cfg = _lm_cfg(arch, dict(override))
+    mesh = ctx.host_mesh(model)
+    P = M.init_params(cfg, device="cpu", mesh=mesh)
+    P.load_state_dict(convert.shard_state_dict(
+        {k: torch.from_numpy(v) for k, v in state.items()}, cfg, mesh))
+    tok = torch.from_numpy(tokens)
+    B, S = tok.shape
+    place = L.Placement.between_blocks(mesh, B, S, cfg.d_model)
+    vocab = M._table_sharding(cfg, mesh).spec[0]
+    b_ent = L.entry_of(place.batch)
+    out = {}
+    with torch.no_grad():
+        x, aux = M.forward_train(cfg, P, tok, mesh)
+        out["hidden"] = _whole(mesh, x, place.spec())
+        out["aux"] = float(aux)
+        logits, cache, pos = M.prefill(cfg, P, tok, max_len, mesh)
+        dplace = L.Placement.between_blocks(mesh, B, 1, cfg.d_model)
+        lspec = (L.entry_of(dplace.batch), None, vocab)
+        out["prefill"] = _whole(mesh, logits, lspec)
+        pick = L.vocab_argmax(logits, M._table_sharding(cfg, mesh))
+        out["pick_equal"] = bool(np.array_equal(
+            _whole(mesh, pick, (L.entry_of(dplace.batch),)),
+            out["prefill"].argmax(-1)))
+        out["decode"] = []
+        for i in range(steps.shape[1]):
+            d, cache = M.decode_step(
+                cfg, P, cache, torch.from_numpy(steps[:, i:i + 1]),
+                torch.full((B, 1), pos + i, dtype=torch.int32), mesh)
+            out["decode"].append(_whole(mesh, d, lspec))
+        lab = np.roll(tokens, -1, 1)
+        lab[:, -1] = -100
+        loss, (nll, _) = M.loss_fn(cfg, P, tok, torch.from_numpy(lab), mesh)
+        out["loss"], out["nll"] = float(loss), float(nll)
+    from repro_torch.serve import GenerationConfig, ServeEngine
+
+    out["engine"] = ServeEngine(cfg, P, max_len=max_len, mesh=mesh).generate(
+        tokens, GenerationConfig(max_new_tokens=steps.shape[1]))
+    out["cache_block"] = tuple(cache.layers[0].shape)
+    out["place"] = (place.batch, place.seq, b_ent)
+    return out
+
+
+def job_mesh_int8(ctx, arch, state, tc, batches):
+    """The int8 compressed train step on a (world, 1) mesh under
+    DP_RULES, each rank its block of every global batch: per step the
+    loss, the grad norm and the residuals, then the parameters."""
+    from repro_torch import convert
+    from repro_torch.dist.sharding import DP_RULES, use_rules
+    from repro_torch.models import model as M
+    from repro_torch.train import (TrainConfig, init_compression_state,
+                                   make_optimizer, make_train_step)
+
+    cfg = _lm_cfg(arch, {})
+    mesh = ctx.host_mesh(1)
+    out = dict(loss=[], grad_norm=[], err=[])
+    with use_rules(DP_RULES):
+        P = M.init_params(cfg, device="cpu", mesh=mesh)
+        P.load_state_dict(convert.shard_state_dict(
+            {k: torch.from_numpy(v) for k, v in state.items()}, cfg, mesh))
+        tc = TrainConfig(**tc)
+        opt = make_optimizer(tc)
+        st = opt.init(P)
+        err = init_compression_state(P)
+        step = make_train_step(cfg, tc, opt=opt, mesh=mesh)
+        for b in batches:
+            P, st, err, m = step(P, st, err, {k: torch.from_numpy(v)
+                                              for k, v in b.items()})
+            out["loss"].append(float(m["loss"]))
+            out["grad_norm"].append(float(m["grad_norm"]))
+            out["err"].append({k: _np(v) for k, v in err.items()})
+    out["params"] = {k: _np(v) for k, v in P.state_dict().items()}
+    return out
+
+
+def job_mesh_ckpt(ctx, arch, directory):
+    """Parameters drawn on (1, world) with seed 5, saved there, restored
+    onto (world // 2, 2) and onto no mesh: both whole."""
+    from repro_torch.models import model as M
+    from repro_torch.train import CheckpointManager
+
+    cfg = _lm_cfg(arch, {})
+    wide, square = ctx.host_mesh(ctx.mesh.size), ctx.host_mesh(2)
+    mgr = CheckpointManager(directory)
+    P = M.init_params(cfg, seed=5, device="cpu", mesh=wide)
+    mgr.save(1, P, extra={"step": 1}, shardings=M.param_specs(cfg, wide))
+    Q = M.init_params(cfg, seed=0, device="cpu", mesh=square)
+    Q, extra = mgr.restore(1, Q, shardings=M.param_specs(cfg, square))
+    from repro_torch import convert
+
+    onto_square = {k: _np(v) for k, v in convert.gather_state_dict(
+        Q.state_dict(), cfg, square).items()}
+    R, _ = mgr.restore(1, M.init_params(cfg, seed=0, device="cpu"))
+    return dict(onto_square=onto_square, extra=extra,
+                onto_none={k: _np(v) for k, v in R.state_dict().items()},
+                block_shapes={k: tuple(v.shape)
+                              for k, v in Q.state_dict().items()})
+
+
 JOBS = {"product": job_product, "memo": job_memo, "backends": job_backends,
         "traced": job_traced, "halo": job_halo, "lobpcg": job_lobpcg,
-        "mesh": job_mesh, "initialized": job_initialized}
+        "mesh": job_mesh, "initialized": job_initialized,
+        "mesh_moe": job_mesh_moe, "mesh_lm": job_mesh_lm,
+        "mesh_int8": job_mesh_int8, "mesh_ckpt": job_mesh_ckpt}
 
 
 def halo_rows(Ap, shard: int) -> np.ndarray:
@@ -202,3 +366,49 @@ def halo_rows(Ap, shard: int) -> np.ndarray:
         pos = pos[pos < Ap.n_rows]
         hit.append(pos if Ap.perm is None else Ap.perm[pos])
     return np.sort(np.concatenate(hit)) if hit else np.empty(0, np.int64)
+
+
+def mesh_cuda_rank(rank: int, world: int, tmp: str, port: int) -> None:
+    """One rank of ``test_torch_cuda.py``'s meshed prefill on the card:
+    gloo on CUDA (staged through pinned host memory), a (1, world) mesh,
+    the reduced mixtral's prefill through the flash kernel and through
+    the plain attention, the whole logits and the launches to
+    ``tmp/rank<r>.pkl``."""
+    import dataclasses
+    import os
+    from unittest import mock
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    mesh = make_host_mesh(world, device="cuda")
+    try:
+        cfg = get_reduced_config("mixtral-8x22b")
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+        P = M.init_params(cfg, seed=4, device=mesh.device, mesh=mesh)
+        tok = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, (2, 64)), device=mesh.device)
+        spec = (None, None, M._table_sharding(cfg, mesh).spec[0])
+        with torch.no_grad():
+            KF.reset_launch_counts()
+            got = M.prefill(cfg, P, tok, 80, mesh)[0]
+            launches = dict(KF.LAUNCHES)
+            with mock.patch.object(ATT, "flash_attention",
+                                   KF.plain_attention):
+                plain = M.prefill(cfg, P, tok, 80, mesh)[0]
+        out = dict(kernel=_whole(mesh, got, spec),
+                   plain=_whole(mesh, plain, spec), launches=launches,
+                   staged=mesh.staged, n_layers=cfg.n_layers)
+        with open(Path(tmp) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
