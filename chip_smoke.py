@@ -213,6 +213,25 @@ Phases, none of which catches its own failure:
      1 layer, DP_RULES, one 2048-token sequence a replica, 3 steps; it
      fails unless every loss is finite and the replicas' parameters and
      residuals are equal bit for bit after each step.
+ 10d. the dry-run accounting (``repro_torch.launch.dryrun``), on the meta
+     device: (a) the grid, every (arch x shape x mesh) run of the
+     reference's, rank 0 of the production meshes (16, 16) and (2, 16,
+     16), one line each (status, bytes a device, bottleneck) and the
+     grid's seconds; it fails on a FAIL or on counts other than 26
+     ``ok``, 40 ``partial`` (the families and train steps that wait for
+     ROADMAP item 17.10) and 14 ``skip``.  Checked against the card in
+     the phases before it: (b) in ``lm_serve/gemma-2b``, the dry account
+     of its prefill on one device: parameter and decode-cache bytes, and
+     the dot and flash counts of one prefill counted on the card
+     (``dryrun.count_step``), all exactly; the predicted peak over the
+     card's (parameters and tokens plus the prefill's rise of
+     ``max_memory_allocated``) within 0.75-1.33; (c) in
+     ``lm_mesh/mixtral-8x22b``, the dry rank of each real rank: shard
+     bytes and one prefill's collective calls and payload bytes by kind
+     exactly, its predicted peak over the rank's served peak printed;
+     (d) in ``lm_train/gemma-2b``, one dry train step: parameter plus
+     AdamW bytes exactly, its predicted peak over the last step's
+     (arguments plus the step's rise) within 0.75-1.33.
  11. resilience and telemetry, on the SELL-C-σ graph of phases 2-4
      (C = 32, k = 4, fp32): (a) ``solver="guarded", validate=True,
      trace=True`` with matrix_free HVPs: it fails unless the recovery
@@ -333,6 +352,8 @@ SCF_SWEEPS = 12                # PSCConfig's scf_sweeps
 SMOKE_SCF_SWEEPS = 1           # the smoke's default, a cut of SCF_SWEEPS
 RUNG_RCUT = 1.10               # a recovered solve's RCut over the clean one
 BLOCK = 128                    # the reference's default BSR tile
+PEAK_BAND = (0.75, 1.33)       # the dry run's predicted peak over the card's
+DRYRUN_GRID = {"ok": 26, "partial": 40, "skip": 14}   # runs of the grid
 # operations per term (one stored value, one column); a pow counts as
 # one operation, so the operation bound is a lower bound
 OPS = {"reals": 2, "apply": 7, "hvp": 13}
@@ -1979,15 +2000,6 @@ def dist_phase(W, counters, torch, args) -> tuple:
     return by_path, rows, summary
 
 
-def _visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
-    """(query, key) pairs the masks leave: key j < Sk, j <= i where
-    causal, j > i - window where a window is given."""
-    i = np.arange(Sq)
-    hi = np.minimum(i + 1, Sk) if causal else np.full(Sq, Sk)
-    lo = np.maximum(i - window + 1, 0) if window else np.zeros(Sq, int)
-    return int(np.sum(np.maximum(hi - lo, 0)))
-
-
 def _compare_bf16(name, got, ref32, torch) -> tuple:
     """The bf16 kernel against fp32 math on the same bf16 inputs:
     |d| <= 2^-6 (1 + |ref|) at every element."""
@@ -2068,6 +2080,7 @@ def flash_kernel_phase(torch) -> list:
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as KF
+    from repro_torch.launch.op_count import flash_counts
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {}
@@ -2108,11 +2121,7 @@ def flash_kernel_phase(torch) -> list:
                                                  - window)
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, attn_mask=mask, enable_gqa=True)
-        item = q.element_size()
-        nbytes = item * (q.numel() + k.numel() + v.numel()
-                         + B * Hq * Sq * Dv)
-        flops = 2 * B * Hq * (D + Dv) * _visible_pairs(Sq, Sk, causal,
-                                                       window)
+        flops, nbytes = flash_counts(q, k, v, causal, window)
         bound = _bound(nbytes, flops, BF16_OPS_PER_S
                        if dtype == torch.bfloat16 else FP32_OPS_PER_S)
         row = dict(shape=dict(B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D, Dv=Dv,
@@ -2776,6 +2785,9 @@ def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
     if cfg.ssm is not None:
         summary["ssd_scan_check"] = ssd_scan_check(tag, cfg, params, tok,
                                                    torch)
+    if arch == "gemma-2b":
+        summary["dryrun"] = dryrun_serve_check(tag, torch, cfg, params, tok,
+                                               max_len)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device="cuda")
     _profile(f"{tag} decode step", lambda: M.decode_step(
         cfg, params, cache, nxt, positions), torch, reps=3)
@@ -2784,6 +2796,166 @@ def lm_serve_phase(torch, counters, arch: str = "gemma-2b") -> tuple:
     del params, engine, cache
     torch.cuda.empty_cache()
     return launches, summary
+
+
+# ------------------------------------------------------ the dry run
+
+def _exact(tag, what, dry, card) -> None:
+    print(f"{tag} dry run vs card: {what} dry={dry!r} card={card!r} "
+          f"equal={dry == card}", flush=True)
+    if dry != card:
+        raise AssertionError(f"{tag}: the dry run's {what} {dry!r} differ "
+                             f"from the card's {card!r}")
+
+
+def _peak_ratio(tag, predicted: int, measured: int, held: bool) -> float:
+    ratio = predicted / measured
+    lo, hi = PEAK_BAND
+    print(f"{tag} dry run vs card: predicted peak {predicted} B over the "
+          f"card's {measured} B = {ratio!r} (band {lo}-{hi}, "
+          f"{'held' if held else 'printed'})", flush=True)
+    if held and not lo <= ratio <= hi:
+        raise AssertionError(f"{tag}: the dry run's peak is {ratio!r} of "
+                             f"the card's, outside {PEAK_BAND}")
+    return ratio
+
+
+def dryrun_grid_phase() -> dict:
+    """(a) the dry run's whole grid, in-process on the meta device: every
+    (arch, shape, mesh) run of ``launch.dryrun.grid()``, one line each
+    (``run_cell``: status, bytes a device, bottleneck); it fails on a
+    FAIL or on counts of ok / partial / skip other than
+    ``DRYRUN_GRID``."""
+    from repro_torch.launch import dryrun as D
+
+    t0 = time.perf_counter()
+    counts, cells = {}, {}
+    for arch, shape, multi in D.grid():
+        r = D.run_cell(arch, shape, multi)
+        head = str(r["status"]).split(":")[0]
+        counts[head] = counts.get(head, 0) + 1
+        cells[f"{arch}__{shape}__{'multi' if multi else 'single'}"] = dict(
+            status=r["status"], bytes_per_device=r.get("bytes_per_device"),
+            argument_bytes=r.get("memory", {}).get("argument_size_in_bytes"),
+            bottleneck=r.get("roofline", {}).get("bottleneck"),
+            trace_s=r.get("trace_s"))
+    grid_s = time.perf_counter() - t0
+    print(f"dryrun grid: {counts} in {grid_s!r} s", flush=True)
+    if counts != DRYRUN_GRID:
+        raise AssertionError(f"dryrun grid: {counts}, expected "
+                             f"{DRYRUN_GRID}")
+    return dict(counts=counts, grid_s=grid_s, cells=cells)
+
+
+def dryrun_serve_check(tag, torch, cfg, params, tok, max_len) -> dict:
+    """(b) the dry account of the served prefill (one device) against the
+    card: the parameter bytes and the decode cache's bytes exactly, the
+    dot and flash counts of one prefill counted on the card
+    (``dryrun.count_step``) exactly, and the predicted peak (arguments
+    plus temporaries) over the card's (the parameters and tokens plus
+    the prefill's rise of ``max_memory_allocated``) within PEAK_BAND."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import model as M
+
+    B, S = tok.shape
+    t0 = time.perf_counter()
+    dry = D.trace_cell(cfg, ShapeSpec(tag, S, B, "prefill"), None,
+                       max_len=max_len)
+    cache_dry = D.argument_bytes(cfg, ShapeSpec(tag, max_len, B, "decode"),
+                                 None)["cache_bytes"]
+    trace_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        (_, cache, _), card = D.count_step(
+            lambda: M.prefill(cfg, params, tok, max_len), "cuda")
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+    mem = dry["memory"]
+    _exact(tag, "parameter bytes", mem["params_bytes"],
+           D.tree_bytes(params))
+    _exact(tag, "cache bytes", cache_dry, D.tree_bytes(
+        (cache.layers, cache.dense_layers, cache.enc_out)))
+    for k in ("dot_flops", "dot_bytes", "flash_flops", "flash_bytes",
+              "flash_calls", "dots"):
+        _exact(tag, k, dry["op_counts"][k], card[k])
+    measured = D.tree_bytes(params) + D.tree_bytes(tok) + rise
+    out = dict(trace_s=trace_s, predicted_peak=dry["bytes_per_device"],
+               measured_peak=measured, rise=rise,
+               temp_dry=mem["temp_size_in_bytes"],
+               temp_card_counted=card["peak_bytes"],
+               op_counts=dry["op_counts"], roofline=dry["roofline"],
+               peak_ratio=_peak_ratio(tag, dry["bytes_per_device"],
+                                      measured, True))
+    print(f"{tag} dry run: {out}", flush=True)
+    del cache
+    return out
+
+
+def dryrun_train_check(tag, cfg, measured_args: int, rise: int) -> dict:
+    """(d) the dry account of one train step (one device, the config's
+    remat, the reference's optimizer pick) against the card's step:
+    parameter plus optimizer-state bytes exactly, and the predicted peak
+    over the card's (its arguments plus the step's rise) within
+    PEAK_BAND."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.shapes import ShapeSpec
+
+    t0 = time.perf_counter()
+    dry = D.trace_cell(cfg, ShapeSpec(tag, TRAIN_S, TRAIN_B, "train"), None)
+    mem = dry["memory"]
+    out = dict(trace_s=time.perf_counter() - t0, optimizer=dry["optimizer"],
+               memory=mem, predicted_peak=dry["bytes_per_device"],
+               op_counts=dry["op_counts"], roofline=dry["roofline"])
+    _exact(tag, "parameter + optimizer-state bytes",
+           mem["params_bytes"] + mem["opt_state_bytes"],
+           measured_args["params"] + measured_args["opt_state"])
+    measured = sum(measured_args.values()) + rise
+    out.update(measured_peak=measured, rise=rise,
+               peak_ratio=_peak_ratio(tag, dry["bytes_per_device"],
+                                      measured, True))
+    print(f"{tag} dry run: {out}", flush=True)
+    return out
+
+
+def dryrun_mesh_check(tag, cfg, ranks) -> dict:
+    """(c) the dry rank of each real rank of the mesh phase (a dry (data
+    1, model MESH_RANKS) mesh, DEFAULT_RULES as the ranks run): its shard
+    bytes and one prefill's collective calls and payload bytes by kind
+    exactly; its predicted peak over the rank's served peak printed."""
+    from repro_torch.dist.sharding import DEFAULT_RULES
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_dry_mesh
+    from repro_torch.launch.shapes import ShapeSpec
+
+    out = {}
+    for res in ranks:
+        r = res["rank"]
+        t0 = time.perf_counter()
+        dry = D.trace_cell(cfg, ShapeSpec(tag, MESH_S, MESH_B, "prefill"),
+                           make_dry_mesh(("data", "model"), (1, MESH_RANKS),
+                                         r),
+                           rules=DEFAULT_RULES, max_len=MESH_S + MESH_NEW)
+        rt = f"{tag} rank {r}"
+        _exact(rt, "shard bytes", dry["memory"]["params_bytes"],
+               res["shard_bytes"])
+        coll = res["collectives_prefill"]
+        _exact(rt, "collective calls", dry["collectives"]["calls"],
+               coll["calls"])
+        _exact(rt, "collective payload bytes",
+               dry["collectives"]["payload_bytes"], coll["bytes"])
+        served = int(res["peak_memory_gb_served"] * 1e9)
+        out[f"rank {r}"] = dict(
+            trace_s=time.perf_counter() - t0,
+            predicted_peak=dry["bytes_per_device"], served_peak=served,
+            peak_ratio=_peak_ratio(rt, dry["bytes_per_device"], served,
+                                   False),
+            wire_bytes=dry["collectives"]["by_kind"],
+            roofline=dry["roofline"])
+    print(f"{tag} dry run: {out}", flush=True)
+    return out
 
 
 TRAIN_ARCH = "gemma-2b"         # trained whole: 18 layers at full width
@@ -2874,6 +3046,7 @@ def lm_train_phase(torch, counters) -> tuple:
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels import flash_attention as KF
     from repro_torch.kernels.flash_attention import ops as KFO
+    from repro_torch.launch import dryrun as D
     from repro_torch.models import attention as ATT
     from repro_torch.models import model as M
     from repro_torch.train import (TrainConfig, make_optimizer,
@@ -2959,6 +3132,10 @@ def lm_train_phase(torch, counters) -> tuple:
         for i in range(TRAIN_STEPS):
             for v in spans.values():
                 v.clear()
+            if i == TRAIN_STEPS - 1:    # the dry run's check: one step's
+                phase_peak = torch.cuda.max_memory_allocated()   # rise
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
             t0 = time.perf_counter()
             params, state, m = step(params, state,
                                     batches[i % TRAIN_BATCHES])
@@ -2968,6 +3145,11 @@ def lm_train_phase(torch, counters) -> tuple:
             span_ms.append({k: sum(a.elapsed_time(b) for a, b in v)
                             for k, v in spans.items()})
     launches = _counts(counters)
+    step_rise = torch.cuda.max_memory_allocated() - before
+    step_args = dict(params=D.tree_bytes(params),
+                     opt_state=D.tree_bytes(tuple(state)),
+                     batch=D.tree_bytes(batches[(TRAIN_STEPS - 1)
+                                                % TRAIN_BATCHES]))
     median_s = statistics.median(step_s[2:])
     tokens = TRAIN_B * TRAIN_S
     summary = dict(
@@ -2977,7 +3159,8 @@ def lm_train_phase(torch, counters) -> tuple:
         tokens_per_s=tokens / median_s,
         model_tflops_per_s=6 * n_params * tokens / median_s / 1e12,
         mfu_6N_vs_989=6 * n_params * tokens / median_s / BF16_OPS_PER_S,
-        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        peak_memory_gb=max(phase_peak, torch.cuda.max_memory_allocated())
+        / 1e9,
         attention_backward_ms=statistics.median(
             s["attention_backward"] for s in span_ms[2:]),
         attention_backward_launches_per_step=n_attn,
@@ -2998,6 +3181,7 @@ def lm_train_phase(torch, counters) -> tuple:
             and losses[-1] < losses[0] - TRAIN_FALL):
         raise AssertionError(f"{tag}: losses {losses} not finite or not "
                              f"{TRAIN_FALL} below step 0's")
+    summary["dryrun"] = dryrun_train_check(tag, cfg, step_args, step_rise)
 
     # ---- one more step under the profiler: busy share, top kernels
     _, wall_ms, device_ms, busy, top = _busy(lambda: step(
@@ -3160,6 +3344,7 @@ def _mesh_rank_body(rank, tmp, mesh, torch, tdist) -> dict:
     from repro_torch.kernels import segment_sum as KS
     from repro_torch.kernels import sellcs_spmm as K
     from repro_torch.launch.mesh import record_collectives
+    from repro_torch.launch.op_count import flash_counts
     from repro_torch.models import attention as ATT
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
@@ -3271,10 +3456,8 @@ def _mesh_rank_body(rank, tmp, mesh, torch, tdist) -> dict:
                 got = KF.flash_attention(q, k, v, **kw)
                 plain = KF.plain_attention(q, k, v, **kw)
                 err = (got.float() - plain.float())
-                flops = 2 * B * Hq * (D + Dv) * _visible_pairs(
-                    Sq, Sk, kw.get("causal", True), kw.get("window"))
-                nbytes = q.element_size() * (q.numel() + k.numel()
-                                             + v.numel() + got.numel())
+                flops, nbytes = flash_counts(q, k, v, kw.get("causal", True),
+                                             kw.get("window"))
                 bound = _bound(nbytes, flops, BF16_OPS_PER_S)
                 out["kernel"] = dict(
                     shape=dict(B=B, Hq=Hq, Hkv=k.shape[1], Sq=Sq, Sk=Sk, D=D,
@@ -3451,6 +3634,7 @@ def lm_mesh_phase(torch) -> tuple:
               f" ({kern['bound_by']}, {kern['gflop']!r} GFLOP)", flush=True)
         print(f"{tag} rank {r}: before the train step "
               f"{res['before_train']}; train {res['train']}", flush=True)
+    summary["dryrun"] = dryrun_mesh_check(tag, cfg, ranks)
     name = "flash_attention_" + ranks[0]["kernel"]["variant"]
     by_rank = {f"rank {res['rank']}": res["launches"].get(name, 0)
                for res in ranks}
@@ -3786,6 +3970,10 @@ def main() -> int:
     phase_done(f"lm_train/{TRAIN_ARCH}")
     mesh_rows, lm_mesh = lm_mesh_phase(torch)
     phase_done(f"lm_mesh/{MESH_ARCH}")
+    dryrun = dryrun_grid_phase()
+    dryrun.update(lm_serve=lm["gemma-2b"]["dryrun"],
+                  lm_train=lm_train["dryrun"], lm_mesh=lm_mesh["dryrun"])
+    phase_done("dryrun_grid")
 
     # ---- resilience and telemetry, on the SELL-C-σ graph again
     paths, resilience = resilience_phase(W, counters, torch, psc,
@@ -3837,6 +4025,7 @@ def main() -> int:
     print(json.dumps({"lm_serve": lm}), flush=True)
     print(json.dumps({"lm_train": lm_train}, default=str), flush=True)
     print(json.dumps({"lm_mesh": lm_mesh}, default=str), flush=True)
+    print(json.dumps({"dryrun": dryrun}, default=str), flush=True)
     print(json.dumps({"coo_sum": coo_sum, "bsr_block_256": bsr256,
                       "hvp_counts": hvps}), flush=True)
     print(json.dumps({"resilience": resilience}, default=str), flush=True)

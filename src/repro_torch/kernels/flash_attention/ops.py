@@ -7,7 +7,12 @@
 tensor goes to the hand-written kernel (``flash_attention_cuda``); a CPU
 tensor to the plain version, ``attention_ref`` up to S = 1024 and the
 query-chunked ``attention_ref_chunked`` above, as the reference's jnp
-path does; any other device raises.  On the card the wgmma kernel takes
+path does; a meta tensor (the dry run, ``launch/dryrun.py``) to a
+shape-only route that makes the CUDA route's buffers and returns an
+empty (B, Hq, S, Dv) meta tensor; any other device raises.  Every route
+reports the call to the active ``launch.op_count.OpCounter``
+(``flash_op``): its FLOPs on the visible (query, key) pairs, apart from
+the dots.  On the card the wgmma kernel takes
 v of width Dv as is at its compiled (D, Dv) (MLA's (192, 128) among
 them: no pad, Dv-wide tiles and products); on the other routes (the
 mma and fp32 kernels, wgmma at a (D, Dv) not compiled, such as D 128 /
@@ -27,6 +32,7 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     check_operands, flash_attention_cuda, takes_value_dim)
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      attention_ref_chunked)
+from repro_torch.launch.op_count import flash_op
 
 CHUNKED_ABOVE = 1024     # the plain version chunks queries above this S
 
@@ -39,10 +45,25 @@ def plain_attention(q, k, v, causal: bool = True,
     return attention_ref(q, k, v, causal=causal, window=window)
 
 
+def _shape_only(q, k, v, causal, window) -> torch.Tensor:
+    """The meta route's stand-in for one kernel launch: the output the
+    kernel would write, no work."""
+    return q.new_empty(q.shape[:3] + v.shape[3:])
+
+
 def _forward(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
     check_operands(q, k, v, window)
-    if q.device.type == "cpu":
-        return plain_attention(q, k, v, causal, window)
+    with flash_op(q, k, v, causal, window):
+        if q.device.type == "cpu":
+            return plain_attention(q, k, v, causal, window)
+        launch = (_shape_only if q.device.type == "meta"
+                  else flash_attention_cuda)    # which raises off CUDA
+        return _kernel_route(q, k, v, causal, window, launch)
+
+
+def _kernel_route(q, k, v, causal, window, launch) -> torch.Tensor:
+    """The card's route: v padded to D where the kernel does not take
+    its width, contiguous operands, one ``launch``."""
     D, Dv = k.shape[3], v.shape[3]
     if Dv > D:
         raise ValueError(f"value head dim {Dv} above the q/k head dim {D}: "
@@ -50,8 +71,8 @@ def _forward(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
     pad = not takes_value_dim(q.dtype, D, Dv, k.shape[2])
     if pad:
         v = torch.nn.functional.pad(v, (0, D - Dv))
-    out = flash_attention_cuda(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal, window)
+    out = launch(q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                 window)
     return out[..., :Dv] if pad else out
 
 

@@ -16,6 +16,9 @@ collective backend and one process group a line along each axis.
                                  ("data", "model")
   make_production_mesh(...)      a shape-only (16, 16) or (2, 16, 16)
                                  mesh for spec resolution (no ranks)
+  make_dry_mesh(names, sizes, r) rank r of a mesh with no processes
+                                 behind it, on the meta device (the dry
+                                 run, ``launch/dryrun.py``)
 
 The collectives (``all_reduce``, ``all_gather``, ``reduce_scatter``,
 ``all_to_all``) take one axis name or a tuple of them; over several
@@ -24,8 +27,11 @@ CUDA rank (several ranks sharing one card: nccl refuses that) each
 collective stages its buffers through pinned host memory
 (``Mesh.staged``).  Data movement runs on the raw bits, so bf16
 travels as bytes; a bf16 or fp16 sum is taken in fp32 and cast back.
-``record_collectives()`` counts the calls, bytes and seconds of each
-kind (a device sync before each timed call).
+``record_collectives()`` counts the calls, bytes, seconds and ring-model
+wire bytes (``roofline.wire_bytes``) of each kind (a device sync before
+each timed call).  On a dry mesh a collective moves nothing: it returns
+an empty meta tensor of the shape and dtype the real one returns, and
+is counted as a real rank counts it, with 0 seconds.
 
 ``init_distributed`` / ``rank_device`` are the launch path the
 distributed SpMM (``grblas.dist``) already used; its 1-D
@@ -45,6 +51,7 @@ import torch
 import torch.distributed as tdist
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import roofline as R
 
 # a collective that waits longer than this raises instead of hanging
 COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=300)
@@ -59,7 +66,9 @@ class Mesh:
     ``groups`` maps each axis of more than one rank to the process group
     of this rank's line along it (None: the default group, when the axis
     spans every rank).  A mesh without ranks (``abstract``) serves spec
-    resolution only; its collectives raise."""
+    resolution only; its collectives raise.  A ``dry`` mesh is one rank
+    of a mesh without processes, on the meta device: its collectives
+    return meta tensors and are counted (``make_dry_mesh``)."""
 
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
@@ -69,6 +78,7 @@ class Mesh:
     groups: Mapping[str, Any] = dataclasses.field(default_factory=dict,
                                                   compare=False)
     abstract: bool = False
+    dry: bool = False
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -251,20 +261,38 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh(("data", "model"), (16, 16), abstract=True)
 
 
+def make_dry_mesh(axis_names: Sequence[str], sizes: Sequence[int],
+                  rank: int = 0) -> Mesh:
+    """Rank ``rank`` of a mesh of ``sizes`` with no processes behind it,
+    on the meta device: the dry run traces one rank's step on it.  Its
+    collectives move nothing and return meta tensors of the shapes and
+    dtypes the real ones return, each counted under
+    ``record_collectives``."""
+    axis_names, sizes = tuple(axis_names), tuple(int(s) for s in sizes)
+    if len(axis_names) != len(sizes) or not 0 <= rank < math.prod(sizes):
+        raise ValueError(f"rank {rank} of a mesh of "
+                         f"{dict(zip(axis_names, sizes))}")
+    return Mesh(axis_names, sizes, rank, torch.device("meta"), dry=True)
+
+
 # ------------------------------------------------------------ collectives
 
 @dataclasses.dataclass
 class CollectiveStats:
-    """Calls, bytes (each rank's payload) and host seconds by kind."""
+    """Calls, bytes (each rank's payload), host seconds and wire bytes
+    (the ring model's, a device) by kind."""
 
     calls: Dict[str, int] = dataclasses.field(default_factory=dict)
     bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
     seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    wire: Dict[str, float] = dataclasses.field(default_factory=dict)
 
-    def add(self, kind: str, nbytes: int, seconds: float) -> None:
+    def add(self, kind: str, nbytes: int, seconds: float,
+            wire: float = 0.0) -> None:
         self.calls[kind] = self.calls.get(kind, 0) + 1
         self.bytes[kind] = self.bytes.get(kind, 0) + int(nbytes)
         self.seconds[kind] = self.seconds.get(kind, 0.0) + seconds
+        self.wire[kind] = self.wire.get(kind, 0.0) + wire
 
 
 _STATS: Optional[CollectiveStats] = None
@@ -305,34 +333,54 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _run(mesh: Mesh, kind: str, t: torch.Tensor, fn) -> torch.Tensor:
+def _out_bytes(kind: str, nbytes: int, n: int) -> float:
+    """The output bytes of one line's collective on an ``nbytes``
+    payload over ``n`` ranks (a reduce-scatter's: the scattered part)."""
+    if kind == "all_gather":
+        return nbytes * n
+    if kind == "reduce_scatter":
+        return nbytes / n
+    return nbytes
+
+
+def _run(mesh: Mesh, kind: str, t: torch.Tensor, fn, sizes,
+         out_shape=tuple) -> torch.Tensor:
     """``fn(wire tensor, empty) -> wire tensor`` on ``t``'s bits, staged
     through pinned host memory where the mesh says so (``empty(shape)``
     makes a buffer beside the wire tensor, pinned there), counted when
-    recording."""
+    recording, with the ring model's wire bytes over lines of ``sizes``
+    ranks.  On a dry mesh ``fn`` does not run: the result is an empty
+    meta tensor of ``out_shape(wire shape)``."""
     dtype = t.dtype
     stats = _STATS
     if stats is not None and t.is_cuda:
         torch.cuda.synchronize(t.device)
     t0 = time.perf_counter()
     w = _wire(t)
-    if mesh.staged:
-        w = torch.empty(w.shape, dtype=w.dtype, pin_memory=True).copy_(w)
+    if mesh.dry:
+        out = torch.empty(out_shape(w.shape), dtype=w.dtype, device="meta")
+    else:
+        if mesh.staged:
+            w = torch.empty(w.shape, dtype=w.dtype,
+                            pin_memory=True).copy_(w)
 
-    def empty(shape):
-        return torch.empty(shape, dtype=w.dtype, device=w.device,
-                           pin_memory=mesh.staged)
+        def empty(shape):
+            return torch.empty(shape, dtype=w.dtype, device=w.device,
+                               pin_memory=mesh.staged)
 
-    out = fn(w, empty)
-    if mesh.staged:
-        out = out.to(mesh.device, non_blocking=True)
+        out = fn(w, empty)
+        if mesh.staged:
+            out = out.to(mesh.device, non_blocking=True)
     if dtype != out.dtype and out.dtype == torch.uint8:
         out = out.view(dtype)
     if stats is not None:
         if out.is_cuda:
             torch.cuda.synchronize(out.device)
-        stats.add(kind, t.numel() * t.element_size(),
-                  time.perf_counter() - t0)
+        nbytes = t.numel() * t.element_size()
+        wire = sum(R.wire_bytes(kind, _out_bytes(kind, nbytes, n), n)
+                   for n in sizes)
+        stats.add(kind, nbytes, 0.0 if mesh.dry
+                  else time.perf_counter() - t0, wire)
     return out
 
 
@@ -354,7 +402,7 @@ def all_reduce(mesh: Mesh, t: torch.Tensor, axes: Axes,
             tdist.all_reduce(w, op=red, group=g)
         return w
 
-    out = _run(mesh, "all_reduce", x, fn)
+    out = _run(mesh, "all_reduce", x, fn, [n for _, n in lines])
     return out.to(dtype) if low else out
 
 
@@ -371,7 +419,8 @@ def all_gather(mesh: Mesh, t: torch.Tensor, axes: Axes,
             tdist.all_gather(list(buf.unbind(0)), w, group=g)
             return buf
 
-        blocks = _run(mesh, "all_gather", t, fn)
+        blocks = _run(mesh, "all_gather", t, fn, [n],
+                      lambda s, n=n: (n,) + tuple(s))
         t = (blocks.reshape((-1,) + tuple(blocks.shape[2:])) if dim == 0
              else torch.cat(blocks.unbind(0), dim=dim))
     return t
@@ -384,14 +433,14 @@ def all_to_all(mesh: Mesh, t: torch.Tensor, axis: str,
     lines = _lines(mesh, axis)
     if not lines:
         return t
-    (g, _), = lines
+    (g, n), = lines
 
     def fn(w, empty):
         recv = empty(w.shape)
         tdist.all_to_all_single(recv, w, group=g)
         return recv
 
-    return _run(mesh, kind, t, fn)
+    return _run(mesh, kind, t, fn, [n])
 
 
 def reduce_scatter(mesh: Mesh, t: torch.Tensor, axis: str,

@@ -30,8 +30,9 @@ takes the softmax over its slice of positions (max, sum of
 exponentials, weighted values, the window applied to global
 positions), and a log-sum-exp merge across ``model`` combines them.
 
-The reference's ``gqa_cache_abstract`` / ``mla_cache_abstract`` serve
-its dry run (ROADMAP.md queue 1, item 17.9) and are not ported yet.
+``gqa_cache_abstract`` / ``mla_cache_abstract`` are one layer's cache
+as meta tensors (shapes and dtypes, no storage), for the dry run
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import torch_dtype
 from repro_torch.dist.sharding import relayout, resolve_spec
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.launch import mesh as _mesh
@@ -162,6 +164,13 @@ def gqa_init_cache(cfg: ArchConfig, batch, max_len, dtype,
     shape = (batch, cfg.n_kv_heads, max_len, cfg.resolved_head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def gqa_cache_abstract(cfg: ArchConfig, batch, max_len,
+                       dtype=torch.bfloat16) -> KVCache:
+    """One layer's cache on the meta device: ``gqa_init_cache``'s
+    shapes and dtype without storage."""
+    return gqa_init_cache(cfg, batch, max_len, torch_dtype(dtype), "meta")
 
 
 def gqa_cache_logical(cfg: ArchConfig) -> KVCache:
@@ -397,6 +406,12 @@ def mla_init_cache(cfg: ArchConfig, batch, max_len, dtype,
                          device=device),
         k_rope=torch.zeros((batch, max_len, m.rope_dim), dtype=dtype,
                            device=device))
+
+
+def mla_cache_abstract(cfg: ArchConfig, batch, max_len,
+                       dtype=torch.bfloat16) -> MLACache:
+    """One layer's latent cache on the meta device."""
+    return mla_init_cache(cfg, batch, max_len, torch_dtype(dtype), "meta")
 
 
 def mla_cache_logical(cfg: ArchConfig) -> MLACache:

@@ -10,10 +10,13 @@ tree as an ``nn.Module`` from a ``torch.Generator`` on the device, under
 a mesh each leaf as this rank's block of the global seeded tensor;
 ``tree["attn"]["wq"]`` reads a leaf as the reference's dict does, and
 the ``state_dict`` keys join the path with dots (``named_specs`` gives
-each key's sharding).  The reference draws from ``jax.random``, so the
-two packages' initial weights differ: the tests carry the reference's
-weights across with ``convert.lm_state_dict`` (``convert.shard_state_dict``
-cuts them to a rank's blocks).
+each key's sharding).  On the meta device it draws nothing: the dry
+run's parameters are shapes (``shape_tree`` is the tree of global
+shapes, ``count_params`` counts its elements).  The reference draws
+from ``jax.random``, so the two packages' initial weights differ: the
+tests carry the reference's weights across with
+``convert.lm_state_dict`` (``convert.shard_state_dict`` cuts them to a
+rank's blocks).
 
 Under a mesh the embedding table is vocabulary-sharded (``"vocab"``
 over ``model`` by DEFAULT_RULES): ``embed`` looks up the rows a rank
@@ -35,6 +38,7 @@ fp32.
 """
 from __future__ import annotations
 
+import math
 from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
@@ -42,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.device import torch_dtype
 from repro_torch.dist.sharding import (AxisRules, NamedSharding,
                                        active_rules, resolve_spec)
 from repro_torch.dist.sharding import relayout as _relayout
@@ -55,13 +60,18 @@ class PAb(NamedTuple):
     scale: float = 1.0
 
 
-def init_leaf(ab: PAb, gen: torch.Generator, device: torch.device,
-              dtype: torch.dtype) -> torch.Tensor:
+def init_leaf(ab: PAb, gen: Optional[torch.Generator],
+              device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """One leaf drawn on ``device``.  On the meta device (the dry run's
+    shapes) a normal leaf is a shape only: there is nothing to draw, and
+    ``gen`` is None there."""
     if ab.init == "zeros":
         return torch.zeros(ab.shape, dtype=dtype, device=device)
     if ab.init == "ones":
         return torch.ones(ab.shape, dtype=dtype, device=device)
     out = torch.empty(ab.shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     return out.normal_(generator=gen).mul_(ab.scale)
 
 
@@ -191,6 +201,21 @@ def pspec_tree(tree, mesh, rules: Optional[AxisRules] = None):
     rules = rules or active_rules()
     return _map_pab(lambda ab: resolve_spec(ab.shape, ab.logical, mesh,
                                             rules), tree)
+
+
+def shape_tree(tree, dtype):
+    """The tree of ``torch.empty(shape, dtype=dtype, device="meta")``
+    over an abstract tree's leaves: the port's ``jax.ShapeDtypeStruct``
+    tree, shapes and dtypes without storage."""
+    dt = torch_dtype(dtype)
+    return _map_pab(lambda ab: torch.empty(ab.shape, dtype=dt,
+                                           device="meta"), tree)
+
+
+def count_params(tree) -> int:
+    """The elements of every leaf of an abstract tree (or of a tree of
+    tensors, ``shape_tree``'s)."""
+    return sum(math.prod(leaf.shape) for _, leaf in named_leaves(tree))
 
 
 def named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:

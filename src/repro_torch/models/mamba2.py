@@ -27,10 +27,10 @@ kernel.  ``mamba_decode`` writes the new conv window and state into
 the cache in place (the reference returns an updated copy), as
 ``attention.gqa_decode`` does.  ``mamba_train`` and ``mamba_decode``
 take a ``mesh`` argument and leave it unused, as the reference's do;
-``mamba_cache_logical`` gives the cache's logical axes.  The ssm and
-hybrid families' forward under a mesh is ROADMAP.md queue 1, item
-17.10; ``mamba_cache_abstract`` serves the reference's dry run (item
-17.9) and is not ported yet.
+``mamba_cache_logical`` gives the cache's logical axes and
+``mamba_cache_abstract`` its shapes on the meta device (the dry run's).
+The ssm and hybrid families' forward under a mesh is ROADMAP.md queue
+1, item 17.10.
 
 The reference reshapes a prompt into ``S // chunk`` chunks of
 ``min(ssm.chunk, S)`` tokens, so a prompt longer than one chunk whose
@@ -45,6 +45,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import PAb
@@ -240,6 +241,13 @@ def mamba_init_cache(cfg, batch, dtype, device=None) -> MambaCache:
                          device=device),
         state=torch.zeros((batch, nh, s.head_dim, s.d_state), dtype=dtype,
                           device=device))
+
+
+def mamba_cache_abstract(cfg: ArchConfig, batch,
+                         dtype=torch.bfloat16) -> MambaCache:
+    """One layer's cache on the meta device: ``mamba_init_cache``'s
+    shapes and dtype without storage."""
+    return mamba_init_cache(cfg, batch, torch_dtype(dtype), "meta")
 
 
 def mamba_cache_logical(cfg: ArchConfig) -> MambaCache:

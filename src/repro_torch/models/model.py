@@ -192,12 +192,22 @@ def init_params(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None,
     """The parameter tree in ``dtype`` (default ``cfg.params_dtype``),
     drawn on the device from a ``torch.Generator`` seeded with ``seed``;
     under a mesh each leaf is this rank's block of the same global
-    tree (``param_shardings``)."""
+    tree (``param_shardings``).  On the meta device (the dry run) the
+    leaves are shapes: nothing is drawn."""
     _check_mesh(cfg, mesh)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     return L.ParamTree(abstract_params(cfg), gen, dev,
                        torch_dtype(dtype or cfg.params_dtype), mesh)
+
+
+def param_shapes(cfg: ArchConfig, dtype=None) -> dict:
+    """Every parameter's global shape as a meta tensor in ``dtype``
+    (default ``cfg.params_dtype``), in the structure of
+    ``abstract_params``: one entry a layer where the reference stacks
+    them on a leading ``layers`` axis."""
+    return L.shape_tree(abstract_params(cfg), dtype or cfg.params_dtype)
 
 
 def param_shardings(cfg: ArchConfig, mesh):
@@ -534,6 +544,8 @@ def _layer_cache(cfg, batch, max_len, dtype, device, n, kind="a"):
 
 def cache_zeros(cfg: ArchConfig, batch, max_len, dtype=torch.bfloat16,
                 device: DeviceLike = None) -> DecodeCache:
+    """The decode cache, zeros, stacked over the layers of each run of
+    blocks (the reference's layout, ``cache_logical``'s structure)."""
     _check_family(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
@@ -553,6 +565,15 @@ def cache_zeros(cfg: ArchConfig, batch, max_len, dtype=torch.bfloat16,
                                device=dev)}
            if cfg.family == "encdec" else None)
     return DecodeCache(layers=layers, dense_layers=dense, enc_out=enc)
+
+
+def cache_abstract(cfg: ArchConfig, batch, max_len,
+                   dtype=torch.bfloat16) -> DecodeCache:
+    """The decode cache's shapes and dtypes as meta tensors (the dry
+    run's input): ``cache_zeros`` on the meta device, so the two trees
+    cannot drift; the leading layers axis, deepseek's ``dense_layers``
+    and whisper's ``enc_out["mem"]`` included."""
+    return cache_zeros(cfg, batch, max_len, dtype, device="meta")
 
 
 def _attn_block_decode(cfg, blk, x, cache, positions, enc_mem=None,

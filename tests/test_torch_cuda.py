@@ -1766,3 +1766,38 @@ def test_cuda_meshed_prefill_two_ranks_kernel_against_plain(cuda_device,
         np.testing.assert_allclose(res["kernel"], res["plain"],
                                    **TOL[np.float32])
         np.testing.assert_allclose(res["kernel"], want, **TOL[np.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma-2b", "deepseek-v3-671b"])
+def test_cuda_dry_prefill_counts_equal_the_card(cuda_device, arch):
+    """A reduced bf16 prefill traced on the meta device (the dry run)
+    counts the dots, the flash op and the temporaries' peak that the
+    same prefill counts on the card, exactly; and its peak is within
+    the smoke's band of the card's rise of ``max_memory_allocated`` in a
+    prefill after a first one (which makes cuBLAS's workspace)."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_reduced_config(arch),
+                              compute_dtype="bfloat16")
+    got = {}
+    for dev in ("meta", cuda_device):
+        P = M.init_params(cfg, seed=0, device=dev)
+        tok = torch.zeros((4, 256), dtype=torch.int32, device=dev)
+        if dev != "meta":
+            with torch.no_grad():      # cuBLAS's workspace, made once a
+                M.prefill(cfg, P, tok, 300)       # process, is no step's
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            _, got[str(dev)] = count_step(
+                lambda: M.prefill(cfg, P, tok, 300), dev)
+    rise = torch.cuda.max_memory_allocated() - before
+    assert got["meta"] == got[str(cuda_device)]
+    assert got["meta"]["flash_calls"] == cfg.n_layers
+    assert 0.75 <= got["meta"]["peak_bytes"] / rise <= 1.33

@@ -74,7 +74,17 @@ def test_import_repro_torch_loads_no_jax_or_reference():
             "from repro_torch.dist import sharding, compression, "
             "resolve_spec, compressed_psum_tree\n"
             "from repro_torch.launch.mesh import Mesh, make_host_mesh, "
-            "make_production_mesh\n"
+            "make_production_mesh, make_dry_mesh\n"
+            "from repro_torch.launch import dryrun, shapes, roofline, "
+            "op_count\n"
+            "from repro_torch.launch.dryrun import trace_cell, run_cell\n"
+            "from repro_torch.models.model import param_shapes, "
+            "cache_abstract\n"
+            "from repro_torch.models.layers import shape_tree, "
+            "count_params\n"
+            "from repro_torch.models.attention import gqa_cache_abstract, "
+            "mla_cache_abstract\n"
+            "from repro_torch.models.mamba2 import mamba_cache_abstract\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -185,9 +195,19 @@ def test_bsr_wrappers_take_the_twin_only_for_cpu_tensors():
         check_operands(W, X.to("meta"))
 
 
+class _OtherDevice(torch.Tensor):
+    """A CPU tensor that reports a device with no kernel and no plain
+    route."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_dense_ops_take_the_plain_version_only_for_cpu_tensors():
     """flash_attention and kmeans_assign run their plain versions for CPU
-    tensors and raise for a device that has no kernel."""
+    tensors and raise for a device that has no kernel; flash_attention's
+    meta route (the dry run's) only makes its output's shape."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.kmeans_assign import kmeans_assign
 
@@ -195,8 +215,11 @@ def test_dense_ops_take_the_plain_version_only_for_cpu_tensors():
     assert flash_attention(q, q, q).device.type == "cpu"
     X = torch.zeros((5, 2))
     assert kmeans_assign(X, X[:2])[0].device.type == "cpu"
+    out = flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    assert out.is_meta and out.shape == q.shape
+    other = torch.Tensor._make_subclass(_OtherDevice, q)
     with pytest.raises(ValueError, match="CUDA"):
-        flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+        flash_attention(other, other, other)
     with pytest.raises(ValueError, match="CUDA"):
         kmeans_assign(X.to("meta"), X[:2].to("meta"))
 

@@ -345,11 +345,37 @@ def job_mesh_ckpt(ctx, arch, directory):
                               for k, v in Q.state_dict().items()})
 
 
+def job_mesh_dry(ctx, arch, model, batch, seq, max_len):
+    """The rank's real prefill and one decode step of the reduced model
+    under the mesh, each with its collectives (calls, payload and wire
+    bytes by kind) and op counts recorded; and its parameter bytes.  The
+    dry run's ranks must count the same (``test_torch_dryrun.py``)."""
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.models import model as M
+
+    cfg = _lm_cfg(arch, {})
+    mesh = ctx.host_mesh(model)
+    P = M.init_params(cfg, seed=0, device="cpu", mesh=mesh)
+    tok = torch.zeros((batch, seq), dtype=torch.int32)
+    out = {"params_bytes": sum(p.numel() * p.element_size()
+                               for p in P.parameters())}
+    with torch.no_grad():
+        (_, cache, pos), out["prefill"] = count_step(
+            lambda: M.prefill(cfg, P, tok, max_len, mesh), "cpu")
+        nxt = torch.zeros((batch, 1), dtype=torch.int32)
+        positions = torch.full((batch, 1), pos, dtype=torch.int32)
+        _, out["decode"] = count_step(
+            lambda: M.decode_step(cfg, P, cache, nxt, positions, mesh),
+            "cpu")
+    return out
+
+
 JOBS = {"product": job_product, "memo": job_memo, "backends": job_backends,
         "traced": job_traced, "halo": job_halo, "lobpcg": job_lobpcg,
         "mesh": job_mesh, "initialized": job_initialized,
         "mesh_moe": job_mesh_moe, "mesh_lm": job_mesh_lm,
-        "mesh_int8": job_mesh_int8, "mesh_ckpt": job_mesh_ckpt}
+        "mesh_int8": job_mesh_int8, "mesh_ckpt": job_mesh_ckpt,
+        "mesh_dry": job_mesh_dry}
 
 
 def halo_rows(Ap, shard: int) -> np.ndarray:
