@@ -212,15 +212,40 @@ Phases, none of which catches its own failure:
      four: a replica peaks at some 23 GB): Gemma-2B at full width cut to
      1 layer, DP_RULES, one 2048-token sequence a replica, 3 steps; it
      fails unless every loss is finite and the replicas' parameters and
-     residuals are equal bit for bit after each step.
+     residuals are equal bit for bit after each step.  Then, in the
+     same four ranks, the other families (``MESH_FAMILIES``, each at full
+     width with its depth cut, over (data 1, model 4), their one-process
+     meshless runs on the same seeded weights made before the spawn):
+     mamba2-780m (2 of 48 layers; 4 x 2048 prompts), Jamba-1.5-Large
+     (lm_serve's 5 of 72 layers; 2 x 4096; capacity factor 2.0 on both
+     sides), whisper-small (2 of 12 encoder and 2 of 12 decoder layers;
+     8 x (1500 frames + 416 tokens)) and internvl2-1b (2 of 24 layers; 4
+     x (256 patches + 1792 tokens), its 14 heads spreading the batch),
+     8 greedy tokens each, every rank drawing its blocks in turn: each
+     fails unless every rank launched the flash kernel once an attention
+     layer of the prefill (and whisper's cross-attention once a layer a
+     decode step), the ranks served the same tokens, no pair dropped,
+     the last-token prefill logits and one decode step's, gathered, are
+     within 2^-5 relative of the meshless run's, and the kernel on each
+     rank's block of every attention kind it ran is within 2^-5 of the
+     plain attention (rows 8j-8m timed on rank 0 alone: jamba's 16 of
+     64 heads, whisper's encoder and cross-attention on 3 of 12 heads,
+     InternVL2's 14 heads on a quarter of the batch).  Then Gemma-2B at
+     full width cut to 1 layer trains 3 AdamW steps over (data 2, model
+     2) under DEFAULT_RULES (``lm_mesh_train/gemma-2b``, 2 x 2048 tokens
+     a step): it fails unless step 0's loss and gradients, gathered, are
+     within 2^-4 relative (Frobenius) of a one-process step's on the same
+     weights and batch, every loss is finite and each block's two
+     replicas are equal bit for bit after every step.  The seconds of
+     these paths with their references are printed (a budget of 90 s).
  10d. the dry-run accounting (``repro_torch.launch.dryrun``), on the meta
      device: (a) the grid, every (arch x shape x mesh) run of the
      reference's, rank 0 of the production meshes (16, 16) and (2, 16,
      16), one line each (status, bytes a device, bottleneck) and the
-     grid's seconds; it fails on a FAIL or on counts other than 26
-     ``ok``, 40 ``partial`` (the families and train steps that wait for
-     ROADMAP item 17.10) and 14 ``skip``.  Checked against the card in
-     the phases before it: (b) in ``lm_serve/gemma-2b``, the dry account
+     grid's seconds, run by a child process of its own (``--dryrun-grid
+     OUT``; no card) started before phase 2 and collected after phase
+     13; it fails on a FAIL or on counts other than 66 ``ok`` and 14
+     ``skip``.  Checked against the card in the phases before it: (b) in ``lm_serve/gemma-2b``, the dry account
      of its prefill on one device: parameter and decode-cache bytes, and
      the dot and flash counts of one prefill counted on the card
      (``dryrun.count_step``), all exactly; the predicted peak over the
@@ -231,16 +256,28 @@ Phases, none of which catches its own failure:
      exactly, its predicted peak over the rank's served peak printed;
      (d) in ``lm_train/gemma-2b``, one dry train step: parameter plus
      AdamW bytes exactly, its predicted peak over the last step's
-     (arguments plus the step's rise) within 0.75-1.33.
- 11. resilience and telemetry, on the SELL-C-σ graph of phases 2-4
-     (C = 32, k = 4, fp32): (a) ``solver="guarded", validate=True,
+     (arguments plus the step's rise) within 0.75-1.33; (c') in
+     ``lm_mesh/whisper-small``, each rank's dry rank: shard bytes and one
+     prefill's collective calls and payload bytes exactly, the predicted
+     peak over the card's (shard and input bytes plus the prefill's
+     rise) within 0.75-1.33; (d') in ``lm_mesh_train/gemma-2b``, each
+     rank's dry train step on a dry (2, 2) mesh: parameter plus AdamW
+     bytes and step 1's collective calls and payload bytes exactly, the
+     predicted peak over step 1's within 0.75-1.33.
+ 10e. the lanes' graph: phases 11-13 repeat whole solves and
+     products, so they run on ``delaunay_graph(LANE_GRAPH_R)`` (18: n =
+     262,144, SELL-C-σ with C = 32; a cut of phase 2's r = 20, printed),
+     with a matrix_free sellcs solve there held as phase 3's are (path
+     ``lanes/sellcs/matrix_free``): "the lanes' solve" below.
+ 11. resilience and telemetry, on the lanes' SELL-C-σ graph (C = 32,
+     k = 4, fp32): (a) ``solver="guarded", validate=True,
      trace=True`` with matrix_free HVPs: it fails unless the recovery
      report is clean (no rung), the graph is one component
      (``connected_components``, its BFS hops and seconds printed), the
-     labels, the HVP count and RCut equal phase 3's matrix_free solve,
+     labels, the HVP count and RCut equal the lanes' matrix_free solve,
      U^T U is within 1e-4 of I and the telemetry has the spans psc,
      init, continuation, solver.level, grblas.mxm and kmeans; its wall
-     time is printed beside phase 3's, with ``phase_breakdown()`` and
+     time is printed beside the lanes' solve's, with ``phase_breakdown()`` and
      ``coverage()``.  (b) ``solver="scf"`` with ``--scf-sweeps`` sweeps
      a level (default 1, printed as a cut of PSCConfig's 12, which
      ``--scf-sweeps 12`` restores): phase 3's checks but the RCut bound (printed beside
@@ -270,9 +307,9 @@ Phases, none of which catches its own failure:
      share printed, by the profiler).  Then the same graphs reweighted
      by 1.01: every request warm on the pattern tier, one new build per
      bucket; then one scf batch of 8 graphs of n = 250.  Seconds per
-     batch and graphs/s are printed.  (b) solo lane on phase 3's graph,
-     ``PSCConfig(k=4, backend="sellcs", hvp_mode="matrix_free")``: the
-     cold request equals phase 3's matrix_free solve (labels, RCut); a
+     batch and graphs/s are printed.  (b) solo lane on the lanes'
+     graph, ``PSCConfig(k=4, backend="sellcs", hvp_mode="matrix_free")``:
+     the cold request equals the lanes' matrix_free solve (labels, RCut); a
      repeat is warm on the exact tier within 1.01 x its RCut; 1% of the
      edges reweighted by 1.5 is warm on the pattern tier; ``update`` with
      0.1% of the edges knocked out is a weight-only churn within 1.02 x
@@ -284,7 +321,7 @@ Phases, none of which catches its own failure:
      level); the patch and build seconds, the dirty and re-matched counts
      and the RCut beside a scratch V-cycle's are printed.
  13. the distributed SpMM (``grblas.dist``): ``partition_for_mesh(W, 4,
-     sellcs=True)`` places the graph (the V-cycle; its seconds, RCut,
+     sellcs=True)`` places the lanes' graph (the V-cycle; its seconds, RCut,
      part sizes, plan mode, halo width and the halo and gather wire bytes
      at k = 1 and 8 printed; it fails unless the plan is a halo plan),
      the single-process ``sellcs`` products and LOBPCG give the
@@ -310,7 +347,15 @@ Phases, none of which catches its own failure:
 Every clustering solve (3, 7, 8, 11, 12, 13's placement) also assigns its kmeans stages through
 ``kmeans_assign``, and fails if it did not launch; the bsr graphblas
 solve fails unless its W-hat SpMMs ran through the fixed-order sum.  The
-HVP count of every flat solve is printed.  The line before the
+HVP count of every flat solve is printed.  After each phase its seconds
+and the running total are printed (``phase <name>: s (total s)``).
+
+The cuts, each printed where it applies (the old value in brackets):
+the lanes' graph ``LANE_GRAPH_R`` 18 (20), scf's ``SMOKE_SCF_SWEEPS``
+1 (12), the dist phase's ``DIST_LOBPCG_ITERS`` 100 (200), and the
+depths of the LM cells (``LM_CELLS``, ``MESH_LAYERS``,
+``MESH_FAMILIES``, ``TP_TRAIN_LAYERS``, ``MESH_TRAIN_LAYERS``).  The
+line before the
 last is a JSON object with one entry per kernel, its launches summed
 over the paths' runs (and split by path, the serve lanes' paths named
 ``serve/...``, and for ``bsr_spmm`` by
@@ -330,6 +375,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -348,12 +394,17 @@ SPMM_WIDTHS = (4, 8, 24)       # bsr_spmm's widths: the k = 4 multivectors,
                                # LOBPCG's matvec (8) and [X, R, P] block (24)
 P, EPS = 1.2, 1e-8             # PSCConfig's p_target and eps
 GRAPH_R = 20                   # delaunay_graph(20): n = 1,048,576
+LANE_GRAPH_R = 18              # a cut of GRAPH_R (20) for the phases that
+                               # repeat whole solves or products (11, 12's
+                               # solo and multilevel lanes, 13): n = 262,144,
+                               # with a reference solve of their own, so the
+                               # whole smoke keeps a quarter of its time limit
 SCF_SWEEPS = 12                # PSCConfig's scf_sweeps
 SMOKE_SCF_SWEEPS = 1           # the smoke's default, a cut of SCF_SWEEPS
 RUNG_RCUT = 1.10               # a recovered solve's RCut over the clean one
 BLOCK = 128                    # the reference's default BSR tile
 PEAK_BAND = (0.75, 1.33)       # the dry run's predicted peak over the card's
-DRYRUN_GRID = {"ok": 26, "partial": 40, "skip": 14}   # runs of the grid
+DRYRUN_GRID = {"ok": 66, "skip": 14}   # runs of the grid
 # operations per term (one stored value, one column); a pow counts as
 # one operation, so the operation bound is a lower bound
 OPS = {"reals": 2, "apply": 7, "hvp": 13}
@@ -1012,9 +1063,10 @@ def _span_names(res) -> set:
 
 
 def resilience_phase(W, counters, torch, psc, ref, args) -> tuple:
-    """Phase 11 on the SELL-C-σ graph: the guarded, validated, traced
-    solve held to phase 3's matrix_free solve (``ref``: its labels, HVPs,
-    RCut, wall seconds and launches), the scf and inverse_power drivers,
+    """Phase 11 on the lanes' SELL-C-σ graph: the guarded, validated,
+    traced solve held to the lanes' matrix_free solve (``ref``: its
+    labels, HVPs, RCut, wall seconds and launches; phase 3's where the
+    lanes run on its graph), the scf and inverse_power drivers,
     two injected faults down the recovery ladder and graph validation.
     Returns (launch counts by path, summary)."""
     from repro_torch.graphs import (GraphValidationError, ValidateConfig,
@@ -1027,7 +1079,7 @@ def resilience_phase(W, counters, torch, psc, ref, args) -> tuple:
                 newton_iters=args.newton_iters, tcg_iters=args.tcg_iters)
     by_path, out = {}, {}
 
-    # (a) guarded, validated, traced: equal to phase 3's unguarded solve
+    # (a) guarded, validated, traced: equal to the lanes' unguarded solve
     rungs0 = _rung_counts(metrics)
     cfg = psc.PSCConfig(solver="guarded", validate=True, trace=True, **base)
     by_path["guarded/matrix_free"], res = solve_phase(
@@ -1053,7 +1105,7 @@ def resilience_phase(W, counters, torch, psc, ref, args) -> tuple:
     hvps = sum(res.hvp_counts)
     same = dict(labels=bool(np.array_equal(res.labels, ref["labels"])),
                 hvps=hvps == ref["hvps"], rcut=res.rcut == ref["rcut"])
-    print(f"guarded: equal to phase 3's matrix_free solve: {same} (hvps "
+    print(f"guarded: equal to the lanes' matrix_free solve: {same} (hvps "
           f"{hvps} / {ref['hvps']}, rcut {res.rcut!r} / {ref['rcut']!r})",
           flush=True)
     if not all(same.values()):
@@ -1070,7 +1122,7 @@ def resilience_phase(W, counters, torch, psc, ref, args) -> tuple:
         spans=len(tel.spans), events=len(tel.events), dropped=tel.dropped,
         grblas_mxm_spans=len(mxm), phase_breakdown=tel.phase_breakdown(),
         coverage=tel.coverage(), bfs_hops=comps.hops, bfs_s=bfs_s)
-    print(f"guarded: wall_s={wall!r} (phase 3 unguarded: "
+    print(f"guarded: wall_s={wall!r} (the lanes' unguarded solve: "
           f"{ref['wall_s']!r}) spans={len(tel.spans)} grblas.mxm="
           f"{len(mxm)} events={len(tel.events)} dropped={tel.dropped} "
           f"phase_breakdown={out['guarded']['phase_breakdown']} "
@@ -1233,7 +1285,9 @@ def _busy(fn, torch) -> tuple:
     """(fn's output, wall ms, device ms, busy share, top kernels) of one
     call under the profiler, which records the device's kernels only (a
     batched solve's millions of host-op events took minutes to
-    aggregate)."""
+    aggregate).  The kernels' times are summed off the profiler's raw
+    events: ``key_averages()`` builds an event object each, which for
+    the ~10^5 kernels of a batched solve took 54 s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1242,12 +1296,18 @@ def _busy(fn, torch) -> tuple:
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    top = [(e.key[:60], e.self_device_time_total / 1e3, e.count)
-           for e in kernels[:6]]
+    t1 = time.perf_counter()
+    kernels = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            k = kernels.setdefault(e.name(), [0.0, 0])
+            k[0] += e.duration_ns() / 1e6
+            k[1] += 1
+    print(f"profiler: {wall_ms / 1e3!r} s profiled, its kernels summed in "
+          f"{time.perf_counter() - t1!r} s", flush=True)
+    device_ms = sum(ms for ms, _ in kernels.values())
+    top = sorted(((name[:60], ms, n) for name, (ms, n) in kernels.items()),
+                 key=lambda t: t[1], reverse=True)[:6]
     return out, wall_ms, device_ms, device_ms / wall_ms, top
 
 
@@ -1267,12 +1327,19 @@ def bucket_lane_phase(dev, counters, torch, psc) -> tuple:
     from repro_torch.serve import ClusterServeEngine, assemble_batch
     from repro_torch.serve import psc_engine
 
+    t_lane = time.perf_counter()
+    marks = {}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_lane - sum(marks.values())
+
     graphs = {}
     for n, (p_in, p_out) in SERVE_SBM.items():
         sizes = [n // 4 + (i < n % 4) for i in range(4)]
         graphs[n] = [sbm_graph(sizes, p_in, p_out, seed=s, device=dev)[0]
                      for s in range(SERVE_PER_SIZE)]
     stream = [W for n in SERVE_SBM for W in graphs[n]]
+    mark("graphs")
     cfg = psc.PSCConfig(k=4)
     eng = ClusterServeEngine(cfg, max_batch=SERVE_BATCH)
     by_path, out = {}, {}
@@ -1314,6 +1381,7 @@ def bucket_lane_phase(dev, counters, torch, psc) -> tuple:
                        buckets=[list(k) for k in keys],
                        batches=eng.stats.n_batches, batch_s=batch_s)
 
+    mark("cold")
     # one request of each bucket against the flat pipeline on the card
     first = {}
     for W, r in zip(stream, cold):
@@ -1330,6 +1398,7 @@ def bucket_lane_phase(dev, counters, torch, psc) -> tuple:
             raise AssertionError(f"bucket {key}: labels differ from the "
                                  f"flat pipeline's")
 
+    mark("flat")
     # a direct call of the largest bucket's built solve on its first
     # batch, under the profiler: pad rows exactly zero, and each
     # element's rows equal bit for bit to what the engine's run of the
@@ -1365,6 +1434,7 @@ def bucket_lane_phase(dev, counters, torch, psc) -> tuple:
                          busy_share_unprofiled=device_ms / engine_ms)
     del U
 
+    mark("direct")
     # warm wave: the same graphs reweighted by 1.01 -> pattern tier
     det = RetraceDetector()
     _reset(counters)
@@ -1408,6 +1478,8 @@ def bucket_lane_phase(dev, counters, torch, psc) -> tuple:
           f"{eng_scf.stats.n_batches} batch, wall_s={scf_s!r} "
           f"rcut={[r.rcut for r in res]}", flush=True)
     out["scf"] = dict(wall_s=scf_s, batches=eng_scf.stats.n_batches)
+    mark("warm_scf")
+    print(f"bucket lane seconds: {marks}", flush=True)
     return by_path, out
 
 
@@ -1425,9 +1497,9 @@ class _Timed:
 
 
 def solo_lane_phase(W, counters, torch, psc, ref, args) -> tuple:
-    """Phase 12 (b): the solo lane at full size — cold, exact-tier
-    repeat, pattern tier, weight-only churn.  ``ref`` is phase 3's
-    matrix_free solve."""
+    """Phase 12 (b): the solo lane on the lanes' graph — cold,
+    exact-tier repeat, pattern tier, weight-only churn.  ``ref`` is the
+    lanes' matrix_free solve."""
     from repro_torch.serve import ClusterServeEngine, EdgeDelta
     from repro_torch.serve import apply_edge_delta
 
@@ -1460,7 +1532,7 @@ def solo_lane_phase(W, counters, torch, psc, ref, args) -> tuple:
     cold = run("cold", lambda: eng.submit(W))
     if not (np.array_equal(cold.labels, ref["labels"])
             and cold.rcut == ref["rcut"]):
-        raise AssertionError(f"solo cold: differs from phase 3's "
+        raise AssertionError(f"solo cold: differs from the lanes' "
                              f"matrix_free solve (rcut {cold.rcut} vs "
                              f"{ref['rcut']})")
     exact = run("exact", lambda: eng.submit(W))
@@ -1575,17 +1647,52 @@ def multilevel_lane_phase(W, counters, torch, psc, args) -> tuple:
     return by_path, out
 
 
+def lane_graph_phase(W, counters, torch, psc, flat, by_path, args) -> tuple:
+    """The graph of phases 11-13 and its reference matrix_free solve:
+    ``delaunay_graph(LANE_GRAPH_R)`` (SELL-C-σ, C = 32) and a phase-3
+    solve on it, held as phase 3's are (path ``lanes/sellcs/matrix_free``);
+    phase 3's graph and solve where LANE_GRAPH_R is GRAPH_R."""
+    from repro_torch.graphs import delaunay_graph
+
+    if LANE_GRAPH_R == GRAPH_R:
+        return W, flat["matrix_free"]
+    print(f"graph cut: phases 11-13 on delaunay_graph({LANE_GRAPH_R}) (a "
+          f"cut of delaunay_graph({GRAPH_R}), the flat paths' graph)",
+          flush=True)
+    del W
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    W, _ = delaunay_graph(LANE_GRAPH_R, device="cuda", build_sellcs=True,
+                          sell_c=32)
+    print(f"lane graph: delaunay_graph({LANE_GRAPH_R}) n={W.n_rows} "
+          f"nnz={W.nnz} build_s={time.perf_counter() - t0!r}", flush=True)
+    used = ["sellcs_spmm", "sellcs_plap_apply", "kmeans_assign",
+            "sellcs_plap_hvp"]
+    launches, res = flat_phase("lanes", W, counters, torch, psc, "sellcs",
+                               "matrix_free", used, args)
+    by_path["lanes/sellcs/matrix_free"] = launches
+    return W, dict(labels=res.labels, hvps=sum(res.hvp_counts),
+                   rcut=res.rcut, launches=launches,
+                   wall_s=launches["wall_s"])
+
+
 def serve_phase(W, counters, torch, psc, ref, args) -> tuple:
     """Phase 12: the clustering serve engine — the bucket lane, the solo
-    lane at full size, the multilevel lane."""
-    by_path, out = {}, {}
+    and multilevel lanes on the lanes' graph."""
+    by_path, out, secs = {}, {}, {}
+    t0 = time.perf_counter()
     paths, out["bucket"] = bucket_lane_phase(W.device, counters, torch, psc)
     by_path.update(paths)
+    secs["bucket"] = time.perf_counter() - t0
     paths, out["solo"] = solo_lane_phase(W, counters, torch, psc, ref, args)
     by_path.update(paths)
+    secs["solo"] = time.perf_counter() - t0 - secs["bucket"]
     paths, out["multilevel"] = multilevel_lane_phase(W, counters, torch, psc,
                                                      args)
     by_path.update(paths)
+    secs["multilevel"] = time.perf_counter() - t0 - sum(secs.values())
+    print(f"serve lanes' seconds: {secs}", flush=True)
+    out["lane_s"] = secs
     return by_path, out
 
 
@@ -2820,12 +2927,16 @@ def _peak_ratio(tag, predicted: int, measured: int, held: bool) -> float:
     return ratio
 
 
-def dryrun_grid_phase() -> dict:
-    """(a) the dry run's whole grid, in-process on the meta device: every
-    (arch, shape, mesh) run of ``launch.dryrun.grid()``, one line each
-    (``run_cell``: status, bytes a device, bottleneck); it fails on a
-    FAIL or on counts of ok / partial / skip other than
-    ``DRYRUN_GRID``."""
+def dryrun_grid(out: Path) -> int:
+    """(a) the dry run's whole grid on the meta device, in a child process
+    of its own (``--dryrun-grid OUT``: it uses no card): every (arch,
+    shape, mesh) run of ``launch.dryrun.grid()``, one line each
+    (``run_cell``: status, bytes a device, bottleneck), the counts and
+    each run's figures written to OUT as JSON."""
+    import torch
+
+    torch.set_num_threads(2)      # beside the card's phases on the host
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.launch import dryrun as D
 
     t0 = time.perf_counter()
@@ -2839,12 +2950,41 @@ def dryrun_grid_phase() -> dict:
             argument_bytes=r.get("memory", {}).get("argument_size_in_bytes"),
             bottleneck=r.get("roofline", {}).get("bottleneck"),
             trace_s=r.get("trace_s"))
-    grid_s = time.perf_counter() - t0
-    print(f"dryrun grid: {counts} in {grid_s!r} s", flush=True)
+    out.write_text(json.dumps(dict(counts=counts, cells=cells,
+                                   grid_s=time.perf_counter() - t0),
+                              default=str))
+    return 0
+
+
+def dryrun_grid_start(tmp: Path):
+    """Start ``dryrun_grid`` in a child process (the grid takes minutes
+    of host time and no card), its lines to ``tmp/dryrun.log``."""
+    log = open(tmp / "dryrun.log", "w")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--dryrun-grid", str(tmp / "dryrun.json")],
+                            stdout=log, stderr=subprocess.STDOUT)
+    return proc, log
+
+
+def dryrun_grid_phase(proc, log, tmp: Path) -> dict:
+    """Collect ``dryrun_grid``'s child: its lines printed here, and it
+    fails on a FAIL or on counts of ok / skip other than
+    ``DRYRUN_GRID``."""
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    log.close()
+    print((tmp / "dryrun.log").read_text(), end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"dryrun grid: the child exited {rc}")
+    res = json.loads((tmp / "dryrun.json").read_text())
+    counts, grid_s = res["counts"], res["grid_s"]
+    print(f"dryrun grid: {counts} in {grid_s!r} s (a child process beside "
+          f"the phases before; waited {time.perf_counter() - t0!r} s)",
+          flush=True)
     if counts != DRYRUN_GRID:
         raise AssertionError(f"dryrun grid: {counts}, expected "
                              f"{DRYRUN_GRID}")
-    return dict(counts=counts, grid_s=grid_s, cells=cells)
+    return dict(counts=counts, grid_s=grid_s, cells=res["cells"])
 
 
 def dryrun_serve_check(tag, torch, cfg, params, tok, max_len) -> dict:
@@ -3109,11 +3249,11 @@ def lm_train_phase(torch, counters) -> tuple:
     spans = {"attention_backward": [], "optimizer_update": []}
 
     def timed(key, fn):
-        def run(*args):
+        def run(*args, **kw):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            out = fn(*args)
+            out = fn(*args, **kw)
             b.record()
             spans[key].append((a, b))
             return out
@@ -3238,6 +3378,9 @@ MESH_LAYERS = 2                # a depth cut (56 layers): the fewest that run
                                # the seq_sp hand-off between two blocks
 MESH_B, MESH_S, MESH_NEW = 2, 6144, 32
 MESH_SEED = 0
+MESH_TIMED_RANKS = 1           # row 8i timed on rank 0 alone (a cut of 4,
+                               # every rank in turn: the row is recorded);
+                               # every rank's error is held
 MESH_NO_DROP_CF = 2.0          # the no-drop check's capacity factor (the
                                # phase fails if a pair drops): at n_experts /
                                # top_k = 4 the all-to-all's C2 buffers take
@@ -3442,7 +3585,8 @@ def _mesh_rank_body(rank, tmp, mesh, torch, tdist) -> dict:
                              f"run at no-drop capacity: {out['no_drop']}")
 
     # ---- row 8i: the kernel on this rank's heads of layer 0, against the
-    # plain attention, timed (ranks in turn)
+    # plain attention on every rank, timed on the first MESH_TIMED_RANKS
+    # (in turn)
     q, k, v, kw = kept["qkv"]
     B, Hq, Sq, D = q.shape
     Sk, Dv = k.shape[2], v.shape[3]
@@ -3450,31 +3594,34 @@ def _mesh_rank_body(rank, tmp, mesh, torch, tdist) -> dict:
     j = torch.arange(Sk, device=dev)
     mask = (j[None, :] <= i[:, None]) & (j[None, :] > i[:, None]
                                          - cfg.window)
-    for turn in range(MESH_RANKS):
+    with torch.no_grad():
+        got = KF.flash_attention(q, k, v, **kw)
+        plain = KF.plain_attention(q, k, v, **kw)
+    err = (got.float() - plain.float())
+    flops, nbytes = flash_counts(q, k, v, kw.get("causal", True),
+                                 kw.get("window"))
+    bound = _bound(nbytes, flops, BF16_OPS_PER_S)
+    out["kernel"] = dict(
+        shape=dict(B=B, Hq=Hq, Hkv=k.shape[1], Sq=Sq, Sk=Sk, D=D, Dv=Dv,
+                   window=kw.get("window"), causal=kw.get("causal", True),
+                   dtype=str(q.dtype).split(".")[-1]),
+        variant=KF.kernel_variant(q.dtype, D, Sk),
+        rel_err=float(err.norm() / plain.float().norm()),
+        max_abs_err=float(err.abs().max()),
+        max_rel_err=float((err.abs() / plain.float().abs()
+                           .clamp(min=1e-30)).max()),
+        ms=None, plain_ms=None, library_ms=None, bound_ms=bound[0],
+        bound_by=bound[1], gflop=flops / 1e9)
+    del got, plain, err
+    for turn in range(MESH_TIMED_RANKS):
         if turn == rank:
             with torch.no_grad():
-                got = KF.flash_attention(q, k, v, **kw)
-                plain = KF.plain_attention(q, k, v, **kw)
-                err = (got.float() - plain.float())
-                flops, nbytes = flash_counts(q, k, v, kw.get("causal", True),
-                                             kw.get("window"))
-                bound = _bound(nbytes, flops, BF16_OPS_PER_S)
-                out["kernel"] = dict(
-                    shape=dict(B=B, Hq=Hq, Hkv=k.shape[1], Sq=Sq, Sk=Sk, D=D,
-                               Dv=Dv, window=kw.get("window"),
-                               causal=kw.get("causal", True),
-                               dtype=str(q.dtype).split(".")[-1]),
-                    variant=KF.kernel_variant(q.dtype, D, Sk),
-                    rel_err=float(err.norm() / plain.float().norm()),
-                    max_abs_err=float(err.abs().max()),
-                    max_rel_err=float((err.abs() / plain.float().abs()
-                                       .clamp(min=1e-30)).max()),
+                out["kernel"].update(
                     ms=_time_ms(lambda: KF.flash_attention(q, k, v, **kw)),
                     plain_ms=_time_ms(lambda: KF.plain_attention(
                         q, k, v, **kw), 3, 3),
                     library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
-                        q, k, v, attn_mask=mask, enable_gqa=True)),
-                    bound_ms=bound[0], bound_by=bound[1], gflop=flops / 1e9)
+                        q, k, v, attn_mask=mask, enable_gqa=True)))
         tdist.barrier()
     if not out["kernel"]["rel_err"] <= LM_TOL:
         raise AssertionError(f"mesh rank {rank}: the flash kernel on its "
@@ -3489,6 +3636,14 @@ def _mesh_rank_body(rank, tmp, mesh, torch, tdist) -> dict:
                                reserved_gb=torch.cuda.memory_reserved(dev)
                                / 1e9)
     out["train"] = _mesh_train(rank, torch, tdist)
+    torch.cuda.empty_cache()
+    tdist.barrier()
+    t0 = time.perf_counter()
+    out["families"] = {arch: _mesh_family(rank, tmp, mesh, torch, tdist,
+                                          counters, arch)
+                       for arch in MESH_FAMILIES}
+    out["tp_train"] = _tp_train(rank, tmp, torch, tdist)
+    out["families_s"] = time.perf_counter() - t0
     tdist.barrier()
     return out
 
@@ -3558,10 +3713,590 @@ def _mesh_train(rank, torch, tdist) -> dict:
     return out
 
 
+MESH_FAMILIES = {  # arch: (layers, encoder layers, requests, prompt, new)
+    # a depth cut of 48 layers: two run the seq_sp hand-off between
+    # Mamba2 layers
+    "mamba2-780m": (2, None, 4, 2048, 8),
+    # lm_serve's cut of 72 layers: m+MLP, m+MoE, m+MLP, m+MoE, a+MLP
+    "jamba-1.5-large-398b": (5, None, 2, 4096, 8),
+    # depth cuts of 12 + 12 layers; 1500 frames and 416 tokens a request
+    "whisper-small": (2, 2, 8, 416, 8),
+    # a depth cut of 24 layers; 256 patches + 1792 tokens a request; its
+    # 14 heads do not divide 4, so the batch spreads (attn_batch)
+    "internvl2-1b": (2, None, 4, 1792, 8),
+}
+MESH_FAMILY_CF = 2.0           # jamba's capacity factor on both sides (the
+                               # phase fails if a pair drops), as mixtral's
+MESH_DRY_FAMILY = "whisper-small"   # the served path dryrun_mesh_check holds
+MESH_ROWS = {                  # the flash shapes timed on rank 0 (8j-8m)
+    "jamba-1.5-large-398b": ("self",),
+    "whisper-small": ("encoder", "cross"),
+    "internvl2-1b": ("self",),
+}
+TP_TRAIN_ARCH = "gemma-2b"
+TP_TRAIN_LAYERS = 1            # a depth cut (18 layers)
+TP_TRAIN_MESH = (2, 2)         # (data, model): both axes at once
+TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_STEPS = 2, 2048, 3
+
+
+def _family_cfg(arch):
+    """A MESH_FAMILIES config at full width, its depth cut (whisper's
+    encoder too), a MoE at MESH_FAMILY_CF."""
+    from repro_torch.configs import get_config
+
+    layers, enc = MESH_FAMILIES[arch][:2]
+    cfg = _cut(get_config(arch), layers)
+    if enc is not None:
+        cfg = dataclasses.replace(cfg, enc_layers=enc)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=MESH_FAMILY_CF))
+    return cfg
+
+
+def _family_inputs(cfg, arch, torch, dev="cuda"):
+    """(numpy prompts, the tokens on ``dev``, the front end's input, the
+    cache's length)."""
+    B, S, new = MESH_FAMILIES[arch][2:]
+    prompts = np.random.default_rng(MESH_SEED).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)
+    patches = cfg.vis_seq if cfg.family == "vlm" else 0
+    return (prompts, torch.as_tensor(prompts, device=dev),
+            _front_end(cfg, B, torch), patches + S + new)
+
+
+def _family_references(torch, tmp: Path) -> dict:
+    """Each MESH_FAMILIES model's one-process meshless run on the seeded
+    weights the ranks take their blocks of: the last-token prefill
+    logits, the greedy next token and one decode step's logits, saved
+    for the ranks; and the TP train step's step 0 (``_tp_train_ref``)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+
+    out = {}
+    for arch in MESH_FAMILIES:
+        cfg = _family_cfg(arch)
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, seed=MESH_SEED, device="cuda")
+        _, tok, front, max_len = _family_inputs(cfg, arch, torch)
+        pc, dc = [], []
+        with torch.no_grad(), MOE.record_drops() as drops:
+            with _routing(MOE, pc, torch):
+                lk, cache, pos = M.prefill(cfg, params, tok, max_len,
+                                           **front)
+            nxt = torch.argmax(lk[:, -1, :cfg.vocab], -1)[:, None].to(
+                torch.int32)
+            with _routing(MOE, dc, torch):
+                ld, _ = M.decode_step(cfg, params, cache, nxt, torch.full(
+                    (tok.shape[0], 1), pos, dtype=torch.int32,
+                    device="cuda"))
+        ref = dict(prefill=lk.float().cpu(), decode=ld.float().cpu(),
+                   next=nxt.cpu(), drops=[int(d) for d in drops],
+                   routes_prefill=[c["ids"].cpu() for c in pc],
+                   routes_decode=[c["ids"].cpu() for c in dc])
+        torch.save(ref, tmp / f"fam_{arch}.pt")
+        out[arch] = dict(seconds=time.perf_counter() - t0,
+                         drops=ref["drops"])
+        del params, cache, lk, ld, front, tok
+        torch.cuda.empty_cache()
+    out["tp_train"] = _tp_train_ref(torch, tmp)
+    return out
+
+
+def _tp_cfg():
+    from repro_torch.configs import get_config
+
+    return _cut(get_config(TP_TRAIN_ARCH), TP_TRAIN_LAYERS)
+
+
+def _tp_tc():
+    from repro_torch.train import TrainConfig
+
+    return TrainConfig(optimizer="adamw", learning_rate=TRAIN_LR,
+                       warmup_steps=1, total_steps=TP_TRAIN_STEPS)
+
+
+def _capture_grads(store: list):
+    """A stand-in for ``optimizer.clip_by_global_norm`` that keeps a copy
+    of the first gradients the train step hands it (the reduced,
+    unclipped gradients), then clips as the step does."""
+    from repro_torch.train import optimizer as OPT
+
+    clip = OPT.clip_by_global_norm
+
+    def wrapped(tree, max_norm, norm=None):
+        if not store:
+            store.append({k: g.detach().clone() for k, g in tree.items()})
+        return clip(tree, max_norm, norm)
+
+    return wrapped
+
+
+def _tp_train_ref(torch, tmp: Path) -> dict:
+    """The TP train step's one-process reference: step 0 of the same
+    seeded weights and batch meshless, its loss and its gradients saved
+    for the ranks."""
+    from unittest import mock
+
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import model as M
+    from repro_torch.train import loop as LOOP
+    from repro_torch.train import make_optimizer, make_train_step
+
+    t0 = time.perf_counter()
+    cfg, tc = _tp_cfg(), _tp_tc()
+    params = M.init_params(cfg, seed=MESH_SEED, device="cuda")
+    opt = make_optimizer(tc)
+    state = opt.init(params)
+    batch = SyntheticTokens(cfg, TP_TRAIN_B, TP_TRAIN_S, seed=0,
+                            device="cuda").batch_at(0)
+    grads = []
+    with mock.patch.object(LOOP.OPT, "clip_by_global_norm",
+                           _capture_grads(grads)):
+        _, _, m = make_train_step(cfg, tc, opt=opt)(params, state, batch)
+    torch.save(dict(loss=float(m["loss"]), grads={
+        k: g.cpu() for k, g in grads[0].items()}), tmp / "tp_ref.pt")
+    out = dict(seconds=time.perf_counter() - t0, loss=float(m["loss"]),
+               grad_norm=float(m["grad_norm"]))
+    del params, state, grads, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _clone_tree(tree):
+    """A copy of every tensor of a nest of tuples, dicts and NamedTuples
+    (a decode cache: decode steps write theirs in place)."""
+    if hasattr(tree, "clone"):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_clone_tree(t) for t in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone_tree(t) for t in tree)
+    return tree
+
+
+def _mesh_family(rank, tmp, mesh, torch, tdist, counters, arch) -> dict:
+    """One MESH_FAMILIES model on this rank of the (data 1, model 4)
+    mesh: its blocks drawn (one rank at a time: a leaf is drawn whole,
+    up to 6.4 GB for jamba's experts), the engine's served run from
+    zeroed counts, its prefill probed (its collectives counted, its
+    rise of memory, the flash inputs kept by kind, the logits and a copy
+    of the cache), one decode step from that cache; the logits of both
+    against the meshless run (a MoE model: a prefill and a decode step
+    of their own under the meshless run's routing, ``_routing``, so a
+    pick that a rounding difference flips is printed, not compared);
+    the kept flash inputs against the plain attention, the MESH_ROWS
+    shapes timed on rank 0 alone."""
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from repro_torch.dist.sharding import NamedSharding
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.launch.mesh import record_collectives
+    from repro_torch.launch.op_count import flash_counts
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.serve import GenerationConfig, ServeEngine
+
+    dev = mesh.device
+    cfg = _family_cfg(arch)
+    ref = torch.load(tmp / f"fam_{arch}.pt")
+    t0 = time.perf_counter()
+    for turn in range(MESH_RANKS):
+        if turn == rank:
+            params = M.init_params(cfg, seed=MESH_SEED, device=dev,
+                                   mesh=mesh)
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+        tdist.barrier()
+    out = dict(init_s=time.perf_counter() - t0, shard_bytes=sum(
+        p.numel() * p.element_size() for p in params.parameters()))
+    prompts, tok, front, max_len = _family_inputs(cfg, arch, torch, dev)
+    new = MESH_FAMILIES[arch][4]
+    kept, probe = {}, {}
+    flash, prefill = ATT.flash_attention, M.prefill
+
+    def keep(q, k, v, **kw):
+        kind = ("self" if kw.get("causal", True) else
+                "encoder" if q.shape[2] == k.shape[2] else "cross")
+        kept.setdefault(kind, (q, k, v, kw))
+        return flash(q, k, v, **kw)
+
+    def probed_prefill(*a, **kw):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        with record_collectives() as stats, \
+                mock.patch.object(ATT, "flash_attention", keep):
+            t0 = time.perf_counter()
+            res = prefill(*a, **kw)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        probe.update(rise=torch.cuda.max_memory_allocated(dev) - before,
+                     collectives=dict(
+                         wall_s=wall, calls=stats.calls, bytes=stats.bytes,
+                         seconds=stats.seconds,
+                         share=sum(stats.seconds.values()) / wall),
+                     logits=res[0].clone(), cache=_clone_tree(res[1]),
+                     pos=res[2])
+        return res
+
+    engine = ServeEngine(cfg, params, max_len=max_len, mesh=mesh)
+    tdist.barrier()
+    _reset(counters)
+    with MOE.record_drops() as drops, \
+            mock.patch.object(M, "prefill", probed_prefill):
+        served = engine.generate(prompts, GenerationConfig(
+            max_new_tokens=new), **front)
+    torch.cuda.synchronize(dev)
+    out.update(launches=_counts(counters), timing=dict(engine.timing),
+               tokens=served.tolist(), drops=int(sum(int(d) for d in drops)),
+               prefill_rise=probe["rise"],
+               collectives_prefill=probe["collectives"])
+    whole = NamedSharding(mesh, (None, None,
+                                 M._table_sharding(cfg, mesh).spec[0]))
+    positions = torch.full((tok.shape[0], 1), probe["pos"],
+                           dtype=torch.int32, device=dev)
+    nxt = ref["next"].to(dev)
+    with torch.no_grad():
+        if cfg.moe is None:
+            lk = probe["logits"]
+            ld, _ = M.decode_step(cfg, params, probe["cache"], nxt,
+                                  positions, mesh)
+        else:               # the meshless run's routing on both sides
+            own = []
+            with MOE.record_drops() as cd, _routing(
+                    MOE, own, torch, force=_rank_routes(ref, mesh, tok)):
+                lk, cache, _ = M.prefill(cfg, params, tok, max_len, mesh,
+                                         **front)
+                ld, _ = M.decode_step(cfg, params, cache, nxt, positions,
+                                      mesh)
+            del cache
+            out["router_flips"] = [int((c["ids"] != c["run"]).any(-1).sum())
+                                   for c in own]
+            out["drops"] += int(sum(int(d) for d in cd))
+        out["rel_err"] = dict(
+            prefill=_rel(whole.gather(lk)[..., :cfg.vocab].cpu(),
+                         ref["prefill"][..., :cfg.vocab]),
+            decode=_rel(whole.gather(ld)[..., :cfg.vocab].cpu(),
+                        ref["decode"][..., :cfg.vocab]),
+            tolerance=LM_TOL)
+    del lk, ld, probe
+    out["kernels"] = {}
+    for kind, (q, k, v, kw) in sorted(kept.items()):
+        with torch.no_grad():
+            got = KF.flash_attention(q, k, v, **kw)
+            plain = KF.plain_attention(q, k, v, **kw)
+        err = got.float() - plain.float()
+        res = dict(shape=dict(B=q.shape[0], Hq=q.shape[1], Hkv=k.shape[1],
+                              Sq=q.shape[2], Sk=k.shape[2], D=q.shape[3],
+                              causal=kw.get("causal", True)),
+                   variant=KF.kernel_variant(q.dtype, q.shape[3],
+                                             k.shape[2]),
+                   rel_err=float(err.norm() / plain.float().norm()),
+                   max_abs_err=float(err.abs().max()),
+                   max_rel_err=float((err.abs() / plain.float().abs()
+                                      .clamp(min=1e-30)).max()))
+        del got, plain, err
+        if rank == 0 and kind in MESH_ROWS.get(arch, ()):
+            flops, nbytes = flash_counts(q, k, v, res["shape"]["causal"],
+                                         kw.get("window"))
+            bound = _bound(nbytes, flops, BF16_OPS_PER_S)
+            causal = res["shape"]["causal"]
+            res.update(
+                ms=_time_ms(lambda: KF.flash_attention(q, k, v, **kw)),
+                plain_ms=_time_ms(lambda: KF.plain_attention(
+                    q, k, v, **kw), 3, 3),
+                library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True)),
+                bound_ms=bound[0], bound_by=bound[1], gflop=flops / 1e9)
+        out["kernels"][kind] = res
+        tdist.barrier()                 # rank 0 times alone
+    bad = {k: r["rel_err"] for k, r in out["kernels"].items()
+           if not r["rel_err"] <= LM_TOL}
+    if bad or not (out["rel_err"]["prefill"] <= LM_TOL
+                   and out["rel_err"]["decode"] <= LM_TOL
+                   and out["drops"] == 0):
+        raise AssertionError(f"mesh rank {rank} {arch}: off the meshless "
+                             f"run or the plain attention ({bad}), or "
+                             f"pairs dropped: {out}")
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, engine, kept, front, tok
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    if rank == 0:
+        print(f"lm_mesh/{arch} rank 0: done in {out['s']!r} s", flush=True)
+    tdist.barrier()
+    return out
+
+
+def _rank_routes(ref, mesh, tok):
+    """The meshless run's expert ids of each MoE call (prefill's, then
+    the decode step's), cut to this rank's tokens: the prefill's
+    all-to-all schedule routes its sequence block over ``model``, the
+    decode step's EP psum every token of the batch."""
+    B, S = tok.shape
+    n, r = mesh.count("model"), mesh.index("model")
+    out = []
+    for ids in ref["routes_prefill"]:
+        k = ids.shape[-1]
+        out.append(ids.view(B, S, k)[:, r * S // n:(r + 1) * S // n]
+                   .reshape(-1, k).to(mesh.device))
+    return out + [ids.to(mesh.device) for ids in ref["routes_decode"]]
+
+
+def _tp_train(rank, tmp, torch, tdist) -> dict:
+    """Gemma-2B at full width cut to TP_TRAIN_LAYERS over a (data 2,
+    model 2) mesh under DEFAULT_RULES (the weights split over model, the
+    batch over data), AdamW, TP_TRAIN_STEPS steps of the global batch of
+    TP_TRAIN_B x TP_TRAIN_S: step 0's loss and its gradients (gathered
+    over the ranks) within GRAD_TOL of the one-process step's, step 1's
+    collectives and peak kept for the dry run, and the two replicas of
+    each block equal bit for bit after every step."""
+    from unittest import mock
+
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.dist.sharding import DEFAULT_RULES, use_rules
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.launch.mesh import (all_gather, all_reduce,
+                                         make_host_mesh, record_collectives)
+    from repro_torch.models import model as M
+    from repro_torch.train import loop as LOOP
+    from repro_torch.train import make_optimizer, make_train_step
+    from repro_torch.train import optimizer as OPT
+
+    mesh = make_host_mesh(TP_TRAIN_MESH[1], device="cuda")
+    dev = mesh.device
+    cfg, tc = _tp_cfg(), _tp_tc()
+    ref = torch.load(tmp / "tp_ref.pt", mmap=True)
+    out = dict(mesh=mesh.shape, steps=[], identical=[])
+    with use_rules(DEFAULT_RULES):
+        params = M.init_params(cfg, seed=MESH_SEED, device=dev, mesh=mesh)
+        opt = make_optimizer(tc)
+        state = opt.init(params)
+        step = make_train_step(cfg, tc, opt=opt, mesh=mesh)
+        data = SyntheticTokens(cfg, TP_TRAIN_B, TP_TRAIN_S, seed=0,
+                               device=dev)
+        out["args"] = dict(params=tree_bytes(params),
+                           opt_state=tree_bytes(tuple(state)))
+        grads = []
+        for i in range(TP_TRAIN_STEPS):
+            batch = data.batch_at(i)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            with record_collectives() as stats, mock.patch.object(
+                    LOOP.OPT, "clip_by_global_norm", _capture_grads(grads)):
+                params, state, m = step(params, state, batch)
+            torch.cuda.synchronize(dev)
+            out["steps"].append(dict(
+                s=time.perf_counter() - t0, loss=float(m["loss"]),
+                grad_norm=float(m["grad_norm"]),
+                rise=torch.cuda.max_memory_allocated(dev) - before,
+                calls=dict(stats.calls), bytes=dict(stats.bytes)))
+            fp = _fingerprint(OPT.named_leaves(params), torch)
+            every = all_gather(mesh, fp[None], "data", 0)
+            out["identical"].append(bool((every == every[:1]).all()))
+            if i == 0:                 # step 0's gradients against the ref
+                axes = LOOP.leaf_axes(cfg, mesh)
+                specs = M.param_specs(cfg, mesh)
+                sums = torch.zeros(2, dtype=torch.float64, device=dev)
+                for k, g in grads[0].items():
+                    want = specs[k].shard(ref["grads"][k]).to(dev)
+                    share = 1.0 / mesh.count(axes[k][1])
+                    sums += share * torch.stack([
+                        (g.double() - want.double()).square().sum(),
+                        want.double().square().sum()])
+                sums = all_reduce(mesh, sums, ("data", "model"))
+                out["step0"] = dict(
+                    loss=float(m["loss"]), ref_loss=ref["loss"],
+                    loss_rel_err=abs(float(m["loss"]) - ref["loss"])
+                    / abs(ref["loss"]),
+                    grad_rel_err=float(sums[0].sqrt() / sums[1].sqrt()),
+                    tolerance=GRAD_TOL)
+                grads.clear()
+                grads.append(None)      # capture no more
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    s0 = out["step0"]
+    if not (all(out["identical"]) and s0["loss_rel_err"] <= GRAD_TOL
+            and s0["grad_rel_err"] <= GRAD_TOL
+            and all(math.isfinite(s["loss"]) for s in out["steps"])):
+        raise AssertionError(f"mesh rank {rank}: the TP train step is off "
+                             f"the one-process step, a loss is not finite "
+                             f"or the replicas differ: {out}")
+    del params, state, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_family_check(tag, arch, ranks) -> dict:
+    """(c') the dry rank of each real rank of one MESH_FAMILIES path: its
+    shard bytes and one prefill's collective calls and payload bytes by
+    kind exactly, and its predicted peak over the card's (shard and
+    input bytes plus the prefill's rise) within PEAK_BAND."""
+    from repro_torch.dist.sharding import DEFAULT_RULES
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_dry_mesh
+    from repro_torch.launch.shapes import ShapeSpec
+
+    cfg = _family_cfg(arch)
+    B, S = MESH_FAMILIES[arch][2:4]
+    max_len = ((cfg.vis_seq if cfg.family == "vlm" else 0) + S
+               + MESH_FAMILIES[arch][4])
+    out = {}
+    for res in ranks:
+        r, fam = res["rank"], res["families"][arch]
+        t0 = time.perf_counter()
+        dry = D.trace_cell(cfg, ShapeSpec(tag, S, B, "prefill"),
+                           make_dry_mesh(("data", "model"), (1, MESH_RANKS),
+                                         r),
+                           rules=DEFAULT_RULES, max_len=max_len)
+        rt = f"{tag} rank {r}"
+        mem = dry["memory"]
+        _exact(rt, "shard bytes", mem["params_bytes"], fam["shard_bytes"])
+        coll = fam["collectives_prefill"]
+        _exact(rt, "collective calls", dry["collectives"]["calls"],
+               coll["calls"])
+        _exact(rt, "collective payload bytes",
+               dry["collectives"]["payload_bytes"], coll["bytes"])
+        measured = (fam["shard_bytes"] + mem["inputs_bytes"]
+                    + fam["prefill_rise"])
+        out[f"rank {r}"] = dict(
+            trace_s=time.perf_counter() - t0,
+            predicted_peak=dry["bytes_per_device"], measured_peak=measured,
+            peak_ratio=_peak_ratio(rt, dry["bytes_per_device"], measured,
+                                   True),
+            wire_bytes=dry["collectives"]["by_kind"],
+            roofline=dry["roofline"])
+    print(f"{tag} dry run: {out}", flush=True)
+    return out
+
+
+def dryrun_tp_train_check(tag, ranks) -> dict:
+    """(d') the dry rank of each real rank of the TP train step: its
+    parameter plus AdamW bytes and step 1's collective calls and payload
+    bytes by kind exactly, and its predicted peak over step 1's
+    (arguments plus the step's rise) within PEAK_BAND."""
+    from repro_torch.dist.sharding import DEFAULT_RULES
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_dry_mesh
+    from repro_torch.launch.shapes import ShapeSpec
+
+    cfg = _tp_cfg()
+    out = {}
+    for res in ranks:
+        r, tr = res["rank"], res["tp_train"]
+        t0 = time.perf_counter()
+        dry = D.trace_cell(cfg, ShapeSpec(tag, TP_TRAIN_S, TP_TRAIN_B,
+                                          "train"),
+                           make_dry_mesh(("data", "model"), TP_TRAIN_MESH, r),
+                           rules=DEFAULT_RULES)
+        rt = f"{tag} rank {r}"
+        mem = dry["memory"]
+        _exact(rt, "parameter + optimizer-state bytes",
+               mem["params_bytes"] + mem["opt_state_bytes"],
+               tr["args"]["params"] + tr["args"]["opt_state"])
+        step = tr["steps"][1]
+        _exact(rt, "collective calls", dry["collectives"]["calls"],
+               step["calls"])
+        _exact(rt, "collective payload bytes",
+               dry["collectives"]["payload_bytes"], step["bytes"])
+        measured = (tr["args"]["params"] + tr["args"]["opt_state"]
+                    + mem["inputs_bytes"] + step["rise"])
+        out[f"rank {r}"] = dict(
+            trace_s=time.perf_counter() - t0,
+            predicted_peak=dry["bytes_per_device"], measured_peak=measured,
+            peak_ratio=_peak_ratio(rt, dry["bytes_per_device"], measured,
+                                   True),
+            wire_bytes=dry["collectives"]["by_kind"],
+            roofline=dry["roofline"])
+    print(f"{tag} dry run: {out}", flush=True)
+    return out
+
+
+def _family_rows(ranks) -> list:
+    """Rows 8j-8m: the flash kernel at each MESH_ROWS shape on rank 0's
+    block, its launches the wgmma kernel's on that path by rank."""
+    rows = []
+    for arch, kinds in MESH_ROWS.items():
+        for kind in kinds:
+            k0 = ranks[0]["families"][arch]["kernels"][kind]
+            name = "flash_attention_" + k0["variant"]
+            by_rank = {f"rank {res['rank']}":
+                       res["families"][arch]["launches"].get(name, 0)
+                       for res in ranks}
+            row = _row(f"flash_attention_mesh/{arch}/{kind}",
+                       "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention_wgmma.cu",
+                       "src/repro/kernels/flash_attention/"
+                       "flash_attention.py:74",
+                       (k0["max_abs_err"], k0["max_rel_err"]), k0["ms"],
+                       k0["plain_ms"], (k0["bound_ms"], k0["bound_by"]),
+                       k0["library_ms"])
+            row.update(counter=name, launches=sum(by_rank.values()),
+                       launches_by_path={f"lm_mesh/{arch}": by_rank},
+                       shape=k0["shape"], rel_err_by_rank={
+                           f"rank {res['rank']}":
+                           res["families"][arch]["kernels"][kind]["rel_err"]
+                           for res in ranks})
+            rows.append(row)
+    return rows
+
+
+def _check_families(ranks) -> dict:
+    """Per MESH_FAMILIES path: every rank launched the flash kernel once
+    an attention layer of the prefill and once a cross-attention layer
+    a decode step (none for mamba2), and the ranks served the same
+    tokens.  Prints each rank's figures."""
+    out = {}
+    for arch in MESH_FAMILIES:
+        cfg = _family_cfg(arch)
+        tag = f"lm_mesh/{arch}"
+        by_rank = {}
+        for res in ranks:
+            fam = res["families"][arch]
+            flash = {k: v for k, v in fam["launches"].items()
+                     if k.startswith("flash_attention_") and v}
+            want = (_attention_layers(cfg) + _cross_layers(cfg)
+                    * fam["timing"]["decode_steps"])
+            got = sum(flash.values())
+            by_rank[f"rank {res['rank']}"] = flash
+            print(f"{tag} rank {res['rank']}: shard_bytes="
+                  f"{fam['shard_bytes']} init_s={fam['init_s']!r} "
+                  f"prefill_s={fam['timing']['prefill_s']!r} "
+                  f"decode_ms_per_token={fam['timing']['decode_s'] / fam['timing']['decode_steps'] * 1e3!r} "
+                  f"peak_memory_gb={fam['peak_memory_gb']!r} flash={flash} "
+                  f"(expected {want}) drops={fam['drops']} router flips "
+                  f"against the meshless routing {fam.get('router_flips')} "
+                  f"vs the meshless run {fam['rel_err']}; in {fam['s']!r} "
+                  f"s; collectives of one prefill "
+                  f"{fam['collectives_prefill']}; kernels vs plain "
+                  f"{fam['kernels']}", flush=True)
+            if got != want or len(flash) > 1:
+                raise AssertionError(f"{tag} rank {res['rank']}: flash "
+                                     f"launches {flash}, expected {want} of "
+                                     "one kernel")
+        if len({json.dumps(res["families"][arch]["tokens"])
+                for res in ranks}) != 1:
+            raise AssertionError(f"{tag}: the ranks served different tokens")
+        out[arch] = dict(flash_by_rank=by_rank, first_request_tokens=ranks[0][
+            "families"][arch]["tokens"][0], rel_err={
+                f"rank {res['rank']}": res["families"][arch]["rel_err"]
+                for res in ranks})
+    return out
+
+
 def lm_mesh_phase(torch) -> tuple:
     """Mixtral-8x22B served at full width (depth cut to MESH_LAYERS) over
     a (data 1, model 4) mesh of four ranks on the one card; then the int8
-    compressed DP train step.  Returns (the kernel row 8i, summary)."""
+    compressed DP train step; then, in the same ranks, the MESH_FAMILIES
+    paths and the TP train step (``_mesh_family``, ``_tp_train``).
+    Returns (the kernel rows 8i-8m, summary)."""
     import socket
     import tempfile
 
@@ -3595,6 +4330,16 @@ def lm_mesh_phase(torch) -> tuple:
         if any(ref["drops_no_drop"]):
             raise AssertionError(f"{tag}: the meshless run dropped pairs at "
                                  "the no-drop capacity factor")
+        t0 = time.perf_counter()
+        summary["family_refs"] = _family_references(torch, Path(tmp))
+        fam_ref_s = time.perf_counter() - t0
+        print(f"lm_mesh families meshless references: "
+              f"{summary['family_refs']} in {fam_ref_s!r} s", flush=True)
+        if any(sum(r["drops"]) for a, r in summary["family_refs"].items()
+               if a != "tp_train"):
+            raise AssertionError("lm_mesh families: a meshless run dropped "
+                                 f"pairs at capacity factor {MESH_FAMILY_CF}")
+        torch.cuda.empty_cache()
         with socket.socket() as s:
             s.bind(("localhost", 0))
             port = s.getsockname()[1]
@@ -3635,6 +4380,29 @@ def lm_mesh_phase(torch) -> tuple:
         print(f"{tag} rank {r}: before the train step "
               f"{res['before_train']}; train {res['train']}", flush=True)
     summary["dryrun"] = dryrun_mesh_check(tag, cfg, ranks)
+    t0 = time.perf_counter()
+    summary["families"] = _check_families(ranks)
+    for res in ranks:
+        tr = res["tp_train"]
+        print(f"lm_mesh_train/{TP_TRAIN_ARCH} rank {res['rank']}: "
+              f"mesh={tr['mesh']} step0={tr['step0']} steps="
+              f"{[{k: v for k, v in st.items() if k not in ('calls', 'bytes')} for st in tr['steps']]} "
+              f"replicas identical={tr['identical']} peak_memory_gb="
+              f"{tr['peak_memory_gb']!r}", flush=True)
+    summary["tp_train"] = {f"rank {res['rank']}": res["tp_train"]
+                           for res in ranks}
+    summary["dryrun_families"] = {
+        MESH_DRY_FAMILY: dryrun_family_check(f"lm_mesh/{MESH_DRY_FAMILY}",
+                                             MESH_DRY_FAMILY, ranks),
+        f"train/{TP_TRAIN_ARCH}": dryrun_tp_train_check(
+            f"lm_mesh_train/{TP_TRAIN_ARCH}", ranks)}
+    ranks_fam_s = max(res["families_s"] for res in ranks)
+    summary["families_s"] = dict(
+        meshless_refs=fam_ref_s, ranks=ranks_fam_s,
+        checks=time.perf_counter() - t0,
+        total=fam_ref_s + ranks_fam_s + time.perf_counter() - t0)
+    print(f"lm_mesh families (the ssm, hybrid, encdec and vlm paths and the "
+          f"TP train step): {summary['families_s']} s", flush=True)
     name = "flash_attention_" + ranks[0]["kernel"]["variant"]
     by_rank = {f"rank {res['rank']}": res["launches"].get(name, 0)
                for res in ranks}
@@ -3658,10 +4426,11 @@ def lm_mesh_phase(torch) -> tuple:
     row["by_rank"] = {f"rank {res['rank']}": res["kernel"] for res in ranks}
     summary.update(
         n_layers=cfg.n_layers, ranks=[{k: v for k, v in res.items()
-                                       if k not in ("kernel", "tokens")}
+                                       if k not in ("kernel", "tokens",
+                                                    "families", "tp_train")}
                                       for res in ranks],
         first_request_tokens=ranks[0]["tokens"][0])
-    return [row], summary
+    return [row] + _family_rows(ranks), summary
 
 
 def _card() -> str:
@@ -3819,6 +4588,9 @@ def main() -> int:
     ap.add_argument("--flash-src", type=Path, metavar="SRC",
                     help="only time flash attention of the tree whose src "
                     "directory is SRC and print one JSON line")
+    ap.add_argument("--dryrun-grid", type=Path, metavar="OUT",
+                    help="only run the dry run's grid (phase 10d (a)) and "
+                    "write its counts to OUT: the smoke's child process")
     args = ap.parse_args()
 
     import torch
@@ -3836,6 +4608,21 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
         return 2
+    if args.dryrun_grid is not None:
+        return dryrun_grid(args.dryrun_grid)
+    with tempfile.TemporaryDirectory() as tmp:
+        grid = dryrun_grid_start(Path(tmp))
+        try:
+            return _smoke(args, torch, grid, Path(tmp))
+        finally:
+            if grid[0].poll() is None:          # a phase failed first
+                grid[0].kill()
+                grid[0].wait()
+
+
+def _smoke(args, torch, grid, tmp: Path) -> int:
+    """Every phase, in order (the module docstring's); ``grid`` is the dry
+    run's child, collected after phase 13."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import psc
     from repro_torch.graphs import delaunay_graph
@@ -3857,7 +4644,8 @@ def main() -> int:
         now = time.perf_counter()
         phase_s[name] = now - t_phase
         t_phase = now
-        print(f"phase {name}: {phase_s[name]!r} s", flush=True)
+        print(f"phase {name}: {phase_s[name]!r} s (total "
+              f"{sum(phase_s.values())!r} s)", flush=True)
 
     smi = _card()
     print(smi, flush=True)
@@ -3970,20 +4758,21 @@ def main() -> int:
     phase_done(f"lm_train/{TRAIN_ARCH}")
     mesh_rows, lm_mesh = lm_mesh_phase(torch)
     phase_done(f"lm_mesh/{MESH_ARCH}")
-    dryrun = dryrun_grid_phase()
-    dryrun.update(lm_serve=lm["gemma-2b"]["dryrun"],
-                  lm_train=lm_train["dryrun"], lm_mesh=lm_mesh["dryrun"])
-    phase_done("dryrun_grid")
 
-    # ---- resilience and telemetry, on the SELL-C-σ graph again
-    paths, resilience = resilience_phase(W, counters, torch, psc,
-                                         flat["matrix_free"], args)
+    # ---- the lanes that repeat whole solves, on delaunay_graph(
+    # LANE_GRAPH_R) (a cut), each against the matrix_free solve there
+    W, lane_ref = lane_graph_phase(W, counters, torch, psc, flat, by_path,
+                                   args)
+    phase_done("lane_graph")
+
+    # ---- resilience and telemetry, on the lanes' SELL-C-σ graph
+    paths, resilience = resilience_phase(W, counters, torch, psc, lane_ref,
+                                         args)
     by_path.update(paths)
     phase_done("resilience")
 
     # ---- the clustering serve engine: bucket, solo and multilevel lanes
-    paths, serve = serve_phase(W, counters, torch, psc, flat["matrix_free"],
-                               args)
+    paths, serve = serve_phase(W, counters, torch, psc, lane_ref, args)
     by_path.update(paths)
     phase_done("serve")
 
@@ -3991,6 +4780,11 @@ def main() -> int:
     paths, dist_rows, dist_summary = dist_phase(W, counters, torch, args)
     by_path.update(paths)
     phase_done("dist")
+    dryrun = dryrun_grid_phase(*grid, tmp)
+    dryrun.update(lm_serve=lm["gemma-2b"]["dryrun"],
+                  lm_train=lm_train["dryrun"], lm_mesh=lm_mesh["dryrun"],
+                  lm_mesh_families=lm_mesh["dryrun_families"])
+    phase_done("dryrun_grid")
 
     for row in rows:
         counter = row.get("counter", row["name"])

@@ -37,12 +37,17 @@ def _map(fn, *trees):
     return fn(*trees)
 
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, mesh=None, axes=()
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-tensor int8 quantisation: (q, scale) with q in
     [-127, 127] and x ~= q * scale, the scale max|x| / 127 (at least
-    1e-30 / 127); round half to even, as ``jnp.round``."""
+    1e-30 / 127); round half to even, as ``jnp.round``.  With ``mesh``,
+    ``x`` is this rank's block of a tensor split over ``axes`` and the
+    max is the whole tensor's."""
     xf = x.to(torch.float32)
     amax = xf.abs().max() if xf.numel() else xf.new_zeros(())
+    if mesh is not None:
+        amax = _mesh.all_reduce(mesh, amax, axes, "max")
     scale = torch.clamp(amax, min=1e-30) / 127.0
     # one temporary the size of x (the same operations as round, clip)
     q = torch.div(xf, scale).round_().clamp_(-127, 127).to(torch.int8)
@@ -72,14 +77,18 @@ def _pmean_tree(tree: Tree, mesh, axis: str) -> Tree:
 
 
 def compressed_psum_tree(grads: Tree, err: Tree, mesh,
-                         axis: str = "data") -> Tuple[Tree, Tree]:
+                         axis: str = "data", scale_axes=()
+                         ) -> Tuple[Tree, Tree]:
     """Error-feedback-compensated compressed gradient reduction.
 
     Per leaf: c = g + err is quantised to int8, the dequantised value
     is mean-reduced over the ``axis`` ranks, and the local residual
-    c - deq(c) becomes the next step's err.  Returns (reduced, new_err);
-    thread new_err through successive steps (see train/loop.py)."""
+    c - deq(c) becomes the next step's err.  A leaf split over
+    ``scale_axes`` (a rank's block of it) takes one scale over all its
+    blocks.  Returns (reduced, new_err); thread new_err through
+    successive steps (see train/loop.py)."""
     comp = _map(lambda g, e: g.to(torch.float32) + e, grads, err)
-    deq = _map(lambda c: dequantize_int8(*quantize_int8(c)), comp)
+    deq = _map(lambda c: dequantize_int8(*quantize_int8(c, mesh,
+                                                         scale_axes)), comp)
     new_err = _map(torch.subtract, comp, deq)
     return _pmean_tree(deq, mesh, axis), new_err

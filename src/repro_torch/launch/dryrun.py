@@ -37,15 +37,12 @@ block, which the port's entry points make from the global batch, a
 temporary).  ``argument_bytes`` is that static account; a traced cell
 checks its meta tensors against it.
 
-What is traced now: the dense and moe families' prefill and decode
-cells.  The ssm, hybrid, encdec and vlm families under a mesh, and a
-train step over a model axis of more than one rank, raise in the port
-(ROADMAP.md item 17.10): those cells get the static half of the account
-(argument bytes, ``model_flops`` and the compute and memory terms that
-follow from them, no collective term) and the status
-``"partial: traced accounting waits for ROADMAP item 17.10 (...)"``
-with the refusal.  ``--save-hlo`` has no counterpart (there is no HLO)
-and is refused.
+Every runnable cell is traced: every family's prefill and decode, and
+every train step, whose backward runs on the meta device too (the
+adjoint collectives of ``launch.mesh``, the gradient sums over the
+axes a leaf is whole on, the clip's norm and the optimizer's update).
+The grid's cells are ``ok`` or a documented ``skip``.  ``--save-hlo``
+has no counterpart (there is no HLO) and is refused.
 """
 from __future__ import annotations
 
@@ -77,7 +74,6 @@ from repro_torch.train.loop import (TrainConfig, make_optimizer,
                                     make_train_step)
 
 DEFAULT_OUT = "experiments/dryrun_torch"
-PENDING = "ROADMAP item 17.10"
 
 
 # ------------------------------------------------------------ the blocks
@@ -225,13 +221,9 @@ def model_flops(cfg: ArchConfig, shape: ShapeSpec) -> float:
 
 # ------------------------------------------------------------- tracing
 
-def _pending(err: Exception) -> bool:
-    return isinstance(err, NotImplementedError) and "17.10" in str(err)
-
-
 def _step(cfg, shape, mesh, max_len):
     """(the rank's traced arguments by part, a thunk that runs its
-    step).  Raises the port's refusal where a path waits for 17.10."""
+    step)."""
     specs = input_specs(cfg, shape)
     params = M.init_params(cfg, device="meta", mesh=mesh)
     if shape.kind == "train":
@@ -295,25 +287,7 @@ def trace_cell(cfg: ArchConfig, shape: ShapeSpec, mesh=None, *,
                              if shape.kind == "train" else None),
                "per_rank": f"rank {rank}'s; resolve_spec never pads, so "
                            "every rank's argument bytes are equal"}
-        try:
-            (params, state, cache), run = _step(cfg, shape, mesh, max_len)
-        except NotImplementedError as err:
-            if not _pending(err):
-                raise
-            out.update(
-                status=f"partial: traced accounting waits for {PENDING} "
-                       f"({err})",
-                memory=dict(args, temp_size_in_bytes=None),
-                bytes_per_device=None,
-                roofline=R.Roofline(
-                    flops=mflops,
-                    hbm_bytes=args["argument_size_in_bytes"] * n_chips,
-                    wire_bytes=None, n_chips=n_chips,
-                    model_flops=mflops).as_dict(),
-                roofline_basis="static: model_flops and the argument "
-                               "bytes, each read once; no collective term",
-                trace_s=time.perf_counter() - t0)
-            return out
+        (params, state, cache), run = _step(cfg, shape, mesh, max_len)
         traced = {"params_bytes": tree_bytes(params),
                   "opt_state_bytes": tree_bytes(state),
                   "cache_bytes": tree_bytes(cache)}

@@ -29,7 +29,12 @@ collective stages its buffers through pinned host memory
 travels as bytes; a bf16 or fp16 sum is taken in fp32 and cast back.
 ``record_collectives()`` counts the calls, bytes, seconds and ring-model
 wire bytes (``roofline.wire_bytes``) of each kind (a device sync before
-each timed call).  On a dry mesh a collective moves nothing: it returns
+each timed call).  Each collective is recorded for autograd with its
+adjoint as its backward: an all-gather's is the reduce-scatter of the
+gradients and a reduce-scatter's the all-gather, an all-reduce sum and
+an all-to-all are their own (a max takes no gradient), so a forward
+over a mesh differentiates across the ranks (``train/loop.py`` states
+how a train step seeds and sums the result).  On a dry mesh a collective moves nothing: it returns
 an empty meta tensor of the shape and dtype the real one returns, and
 is counted as a real rank counts it, with 0 seconds.
 
@@ -384,13 +389,31 @@ def _run(mesh: Mesh, kind: str, t: torch.Tensor, fn, sizes,
     return out
 
 
-def all_reduce(mesh: Mesh, t: torch.Tensor, axes: Axes,
-               op: str = "sum") -> torch.Tensor:
-    """The sum (or "max") of ``t`` over the ranks along ``axes``, equal
-    bits on every rank.  A 16-bit float sums in fp32."""
-    lines = _lines(mesh, axes)
-    if not lines:
-        return t
+class _Adjoint(torch.autograd.Function):
+    """A collective ``fwd`` whose backward is the collective ``bwd``, its
+    adjoint: autograd then differentiates through the ranks, each rank's
+    backward calling ``bwd`` where its forward called ``fwd`` (the same
+    order on every rank, as the forward's)."""
+
+    @staticmethod
+    def forward(ctx, t, fwd, bwd):
+        ctx.bwd = bwd
+        return fwd(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.bwd(g.contiguous()), None, None
+
+
+def _adjoint(t: torch.Tensor, fwd, bwd) -> torch.Tensor:
+    """``fwd(t)``, recorded for autograd with ``bwd`` as its backward
+    where a gradient flows through ``t``."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _Adjoint.apply(t, fwd, bwd)
+    return fwd(t)
+
+
+def _all_reduce(mesh: Mesh, t: torch.Tensor, lines, op: str) -> torch.Tensor:
     red = {"sum": tdist.ReduceOp.SUM, "max": tdist.ReduceOp.MAX}[op]
     dtype = t.dtype
     low = dtype in (torch.bfloat16, torch.float16)
@@ -406,35 +429,36 @@ def all_reduce(mesh: Mesh, t: torch.Tensor, axes: Axes,
     return out.to(dtype) if low else out
 
 
-def all_gather(mesh: Mesh, t: torch.Tensor, axes: Axes,
-               dim: int = 0) -> torch.Tensor:
-    """Every rank's block along ``axes`` concatenated on ``dim`` in mesh
-    order (the first axis the slowest).  Each axis gathers into an (n,
-    ...) buffer of the blocks, and the blocks are laid along ``dim`` on
-    the device."""
-    dim = dim % t.ndim if t.ndim else 0
-    for g, n in _lines(mesh, axes):
-        def fn(w, empty, g=g, n=n):
-            buf = empty((n,) + tuple(w.shape))
-            tdist.all_gather(list(buf.unbind(0)), w, group=g)
-            return buf
-
-        blocks = _run(mesh, "all_gather", t, fn, [n],
-                      lambda s, n=n: (n,) + tuple(s))
-        t = (blocks.reshape((-1,) + tuple(blocks.shape[2:])) if dim == 0
-             else torch.cat(blocks.unbind(0), dim=dim))
-    return t
-
-
-def all_to_all(mesh: Mesh, t: torch.Tensor, axis: str,
-               kind: str = "all_to_all") -> torch.Tensor:
-    """Equal-split all_to_all along dim 0 over one axis: block s of the
-    result is what the axis's rank s sent this rank."""
-    lines = _lines(mesh, axis)
+def all_reduce(mesh: Mesh, t: torch.Tensor, axes: Axes,
+               op: str = "sum") -> torch.Tensor:
+    """The sum (or "max") of ``t`` over the ranks along ``axes``, equal
+    bits on every rank.  A 16-bit float sums in fp32.  The sum's
+    gradient is the sum of the ranks' gradients (its adjoint); a max
+    takes no gradient."""
+    lines = _lines(mesh, axes)
     if not lines:
         return t
-    (g, n), = lines
+    if op != "sum" and torch.is_grad_enabled() and t.requires_grad:
+        raise RuntimeError(f"no gradient through an all_reduce {op!r}: "
+                           "detach its input")
+    return _adjoint(t, lambda x: _all_reduce(mesh, x, lines, op),
+                    lambda g: _all_reduce(mesh, g, lines, "sum"))
 
+
+def _gather_line(mesh: Mesh, t: torch.Tensor, g, n: int,
+                 dim: int) -> torch.Tensor:
+    def fn(w, empty):
+        buf = empty((n,) + tuple(w.shape))
+        tdist.all_gather(list(buf.unbind(0)), w, group=g)
+        return buf
+
+    blocks = _run(mesh, "all_gather", t, fn, [n], lambda s: (n,) + tuple(s))
+    return (blocks.reshape((-1,) + tuple(blocks.shape[2:])) if dim == 0
+            else torch.cat(blocks.unbind(0), dim=dim))
+
+
+def _a2a_line(mesh: Mesh, t: torch.Tensor, g, n: int,
+              kind: str) -> torch.Tensor:
     def fn(w, empty):
         recv = empty(w.shape)
         tdist.all_to_all_single(recv, w, group=g)
@@ -443,20 +467,56 @@ def all_to_all(mesh: Mesh, t: torch.Tensor, axis: str,
     return _run(mesh, kind, t, fn, [n])
 
 
-def reduce_scatter(mesh: Mesh, t: torch.Tensor, axis: str,
-                   dim: int = 0) -> torch.Tensor:
-    """The sum over ``axis``'s ranks of ``t``, of which this rank keeps
-    block ``index(axis)`` along ``dim``: an all_to_all of the blocks, then
-    the sum of the ones received in rank order (fp32 for 16-bit floats)."""
-    n = mesh.count(axis)
-    if n == 1:
-        return t
-    dim = dim % t.ndim
+def _scatter_line(mesh: Mesh, t: torch.Tensor, g, n: int,
+                  dim: int) -> torch.Tensor:
     if t.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
                          f"over {n} ranks")
     blocks = torch.stack(t.chunk(n, dim=dim))        # (n, ...)
-    recv = all_to_all(mesh, blocks, axis, kind="reduce_scatter")
+    recv = _a2a_line(mesh, blocks, g, n, "reduce_scatter")
     acc = recv.to(torch.float32) if recv.dtype in (
         torch.bfloat16, torch.float16) else recv
     return acc.sum(0).to(t.dtype)
+
+
+def all_gather(mesh: Mesh, t: torch.Tensor, axes: Axes,
+               dim: int = 0) -> torch.Tensor:
+    """Every rank's block along ``axes`` concatenated on ``dim`` in mesh
+    order (the first axis the slowest).  Each axis gathers into an (n,
+    ...) buffer of the blocks, and the blocks are laid along ``dim`` on
+    the device.  Its gradient is the reduce-scatter of the ranks'
+    gradients, axis by axis in the reverse order."""
+    dim = dim % t.ndim if t.ndim else 0
+    for g, n in _lines(mesh, axes):
+        t = _adjoint(
+            t, lambda x, g=g, n=n: _gather_line(mesh, x, g, n, dim),
+            lambda y, g=g, n=n: _scatter_line(mesh, y, g, n, dim))
+    return t
+
+
+def all_to_all(mesh: Mesh, t: torch.Tensor, axis: str,
+               kind: str = "all_to_all") -> torch.Tensor:
+    """Equal-split all_to_all along dim 0 over one axis: block s of the
+    result is what the axis's rank s sent this rank.  It is its own
+    adjoint: the gradient goes back by the same exchange."""
+    lines = _lines(mesh, axis)
+    if not lines:
+        return t
+    (g, n), = lines
+    return _adjoint(t, lambda x: _a2a_line(mesh, x, g, n, kind),
+                    lambda y: _a2a_line(mesh, y, g, n, kind))
+
+
+def reduce_scatter(mesh: Mesh, t: torch.Tensor, axis: str,
+                   dim: int = 0) -> torch.Tensor:
+    """The sum over ``axis``'s ranks of ``t``, of which this rank keeps
+    block ``index(axis)`` along ``dim``: an all_to_all of the blocks, then
+    the sum of the ones received in rank order (fp32 for 16-bit floats).
+    Its gradient is the all-gather of the ranks' gradients."""
+    lines = _lines(mesh, axis)
+    if not lines:
+        return t
+    (g, n), = lines
+    dim = dim % t.ndim
+    return _adjoint(t, lambda x: _scatter_line(mesh, x, g, n, dim),
+                    lambda y: _gather_line(mesh, y, g, n, dim))

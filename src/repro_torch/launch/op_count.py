@@ -38,6 +38,16 @@ Scope, where this differs from the reference's compiled count:
     pairs only, and its score bytes never reach memory;
   * there are no loops to multiply: each layer's ops are launched, and
     counted, once a layer;
+  * a train step: the flash op's backward is its plain version's (the
+    reference has no backward kernel), recomputed QK^T and PV and their
+    four gradients, which with the flash forward apart are the
+    reference's six attention dots a layer; and each loss chunk's
+    logits are recomputed in the backward (``chunked_xent``'s
+    checkpoint), as the reference's ``jax.checkpoint`` asks.  So the
+    dot FLOPs of a step equal the reference's compiled count wherever
+    the loss has two chunks or more (train_4k has eight); at one chunk
+    its compiler folds the recomputed logits into the forward's and
+    counts one (B, S, V) product fewer, a difference of 2 B S V D;
   * the peak counts storages as the allocator is asked for them, not as
     the card's caching allocator rounds and caches them, and not the
     workspaces a library allocates inside one op (cuBLAS, a sort).

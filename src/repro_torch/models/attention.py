@@ -21,7 +21,9 @@ sequence between blocks (``seq_sp``), in a reduce-scatter over the
 sequence.  Where the q heads do not divide the model axis the batch
 spreads over it instead (``attn_batch``, as the reference's branch).
 A rank's q heads read the kv heads their group maps to, also where the
-kv heads stay replicated (fewer than the model axis).  The decode
+kv heads stay replicated (fewer than the model axis).  A
+cross-attention (``kv_override``) projects its k and v from the
+memory the same way, column-parallel over the kv heads.  The decode
 cache lies as ``gqa_cache_logical`` / ``mla_cache_logical`` resolve:
 kv-head-sharded (16 or more kv heads), else sequence-sharded over
 ``model``.  Decoding against a sequence-sharded cache is flash-decoding,
@@ -91,8 +93,9 @@ def gqa_train(cfg: ArchConfig, params, x, positions, mesh=None,
     v are projected from instead of x: cross-attention, neither q nor k
     rotated; the caller passes ``causal=False``.
 
-    Under a mesh: ``x`` and ``positions`` are this rank's batch block as
-    ``place`` lays it (default: the whole batch), the whole sequence;
+    Under a mesh: ``x``, ``positions`` and ``kv_override`` are this
+    rank's batch block as ``place`` lays it (default: the whole batch),
+    the whole sequence;
     the result is this rank's block of the summed projection, its
     sequence split as ``place.seq`` when ``seq_out``.  The returned k
     and v are in ``gqa_kv_spec``'s layout."""
@@ -108,9 +111,6 @@ def gqa_train(cfg: ArchConfig, params, x, positions, mesh=None,
         out = flash_attention(q, k, v, causal=causal, window=cfg.window)
         proj = torch.einsum("bhsk,hkd->bsd", out, params["wo"].to(cd))
         return (proj, (k, v)) if return_kv else proj
-    if kv_override is not None:
-        raise NotImplementedError("cross-attention under a mesh (the encdec "
-                                  "family) is ROADMAP.md queue 1, item 17.10")
     place = place or Placement.whole(mesh, x.shape[0], x.shape[1])
     H, Hkv, hd, D = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
                      cfg.d_model)
@@ -124,7 +124,7 @@ def gqa_train(cfg: ArchConfig, params, x, positions, mesh=None,
     bax = ("batch" if H % mesh.shape.get("model", 1) == 0
            else "attn_batch")
     q_spec = resolve_spec((B, H, S, hd), (bax, "heads", "seq", None), mesh)
-    k_spec = gqa_kv_spec(cfg, mesh, B, S, bax)
+    k_spec = gqa_kv_spec(cfg, mesh, B, kv_src.shape[1], bax)
     q = relayout(q, mesh, (b_in, wq_h), q_spec)
     k = relayout(k, mesh, (b_in, wk_h), k_spec)
     v = relayout(v, mesh, (b_in, wk_h), k_spec)

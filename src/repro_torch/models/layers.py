@@ -24,7 +24,10 @@ holds and sums over ``model`` (one rank holds each row, so the sum is
 exact), ``unembed_logits`` returns a rank's block of the logits,
 ``vocab_argmax`` is the greedy pick across ranks (ties to the lowest
 global index, as ``argmax``), and ``chunked_xent`` takes the
-log-sum-exp across ranks.
+log-sum-exp across ranks.  Every collective they call has its adjoint
+as its gradient (``launch.mesh``), so a train step differentiates
+through them (``train.loop`` states the rule that makes each rank's
+gradients the global ones).
 
 ``chunked_xent`` is the training loss: the mean next-token NLL over
 sequence chunks, each chunk's logits recomputed in the backward
@@ -242,33 +245,13 @@ def _vocab_block(sharding: Optional[NamedSharding], rows_local: int):
     return axes, sharding.mesh.index(axes) * rows_local
 
 
-class _SumOverRanks(torch.autograd.Function):
-    """The sum over ``axes`` of each rank's contribution, its gradient
-    the identity: each rank's backward then gives its own contribution's
-    gradient, and summing those over the ranks gives the gradient of
-    the sum (the train step's reduction of the grads)."""
-
-    @staticmethod
-    def forward(ctx, t, mesh, axes):
-        return _mesh.all_reduce(mesh, t, axes)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None, None
-
-
 def sum_over_ranks(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of ``t`` over the ranks along ``axes`` (``t`` itself
+    without a mesh); its gradient is the sum of the ranks' gradients
+    (``launch.mesh.all_reduce``'s adjoint)."""
     if mesh is None or mesh.count(axes) == 1:
         return t
-    return _SumOverRanks.apply(t, mesh, axes)
-
-
-def _no_grad_collective(t: torch.Tensor, what: str) -> None:
-    if torch.is_grad_enabled() and t.requires_grad:
-        raise NotImplementedError(
-            f"{what} under a model axis runs collectives autograd does not "
-            "see; gradients through them are ROADMAP.md queue 1, item "
-            "17.10")
+    return _mesh.all_reduce(mesh, t, axes)
 
 
 # ------------------------------------------------------------------ norms
@@ -371,7 +354,6 @@ def embed(params, tokens, scale_by_dim=True,
     tab = params["table"]
     axes, lo = _vocab_block(sharding, tab.shape[0])
     if axes:
-        _no_grad_collective(tab, "the vocabulary-sharded embedding")
         ids = tokens.long() - lo
         mine = (ids >= 0) & (ids < tab.shape[0])
         out = tab[ids.clamp(0, tab.shape[0] - 1)] * mine[..., None].to(
@@ -425,7 +407,8 @@ def _xent_chunk_sharded(tab, x, labels, pad, mesh, axes, lo):
     logits = (x @ tab.T.to(x.dtype)).to(torch.float32)
     if pad is not None:
         logits = logits + pad
-    top = _mesh.all_reduce(mesh, logits.max(-1).values, axes, "max")
+    # the shift cancels in logz, so it takes no gradient
+    top = _mesh.all_reduce(mesh, logits.detach().max(-1).values, axes, "max")
     sumexp = _mesh.all_reduce(
         mesh, torch.exp(logits - top[..., None]).sum(-1), axes)
     logz = top + torch.log(sumexp)
@@ -465,11 +448,11 @@ def chunked_xent(params, x, labels, chunk: int = 512,
     Each chunk's logits are recomputed in the backward.
 
     Under a mesh: ``x`` and ``labels`` are this rank's tokens, the
-    table's ``sharding`` may shard the vocabulary (the log-sum-exp then
-    reduced across its ranks, without a gradient), and the NLL sum and
-    the count are summed over ``token_axes``, the axes the tokens are
-    split over, so every rank returns the mean over all of them (its
-    gradient this rank's share, ``sum_over_ranks``)."""
+    table's ``sharding`` may shard the vocabulary (the max, the sum of
+    exponentials and the gold logit then reduced across its ranks, each
+    chunk still recomputed in the backward), and the NLL sum and the
+    count are summed over ``token_axes``, the axes the tokens are split
+    over, so every rank returns the mean over all of them."""
     tab = params["table"]
     B, S, _ = x.shape
     axes, lo = _vocab_block(sharding, tab.shape[0])
@@ -489,9 +472,9 @@ def chunked_xent(params, x, labels, chunk: int = 512,
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
         if axes:
-            _no_grad_collective(tab, "the vocabulary-sharded loss")
-            t, n = _xent_chunk_sharded(tab, x[:, sl], labels[:, sl], pad,
-                                       sharding.mesh, axes, lo)
+            t, n = checkpoint(_xent_chunk_sharded, tab, x[:, sl],
+                              labels[:, sl], pad, sharding.mesh, axes, lo,
+                              use_reentrant=False)
         else:
             t, n = checkpoint(_xent_chunk, tab, x[:, sl], labels[:, sl],
                               pad, use_reentrant=False)

@@ -42,24 +42,30 @@ the backward (``_maybe_remat``).
 counted; the reference returns S there, a position its own forward
 does not continue from (ROADMAP.md queue 3 lists the fault).
 
-Under a mesh (``launch.mesh``; the dense and moe families) the forward
-is explicit SPMD, each rank holding its block of every parameter
+Under a mesh (``launch.mesh``; every family) the forward is explicit
+SPMD, each rank holding its block of every parameter
 (``param_shardings``; ``init_params(..., mesh=)`` draws them) and of
 the decode cache (``cache_logical``).  The entry points take the global
 tokens and positions and compute on this rank's batch block; the
 embedding is vocabulary-sharded, the attention and MLP projections
 column- / row-parallel, the MoE one of its three schedules
-(``moe.moe_block``), and between blocks the residual stream is split
-over the sequence where ``("batch", "seq_sp", None)`` resolves so
-(``layers.Placement``): each block all-gathers it before its
-projections and reduce-scatters its row-parallel sums back.  They
+(``moe.moe_block``), a Mamba2 layer head-parallel
+(``mamba2.mamba_train``), and between blocks the residual stream is
+split over the sequence where ``("batch", "seq_sp", None)`` resolves so
+(``layers.Placement``): each block, or each layer of a hybrid group,
+all-gathers it before its projections and reduce-scatters its
+row-parallel sums back.  An encdec model's encoder runs the same way
+over its frames, its output gathered whole over the sequence for the
+decoder's cross-attention (column-parallel over the heads, as the
+self-attention); a vlm model's patches join the tokens before the
+blocks, so its layouts cover P + S positions.  They
 return this rank's blocks: ``forward_train`` the hidden states in that
 layout, ``prefill`` / ``decode_step`` this rank's vocabulary block of
 the logits (``layers.vocab_argmax`` is the greedy pick across ranks)
 and the cache in ``cache_logical``'s layout (``DecodeCache.max_len``
-keeps its global length), ``loss_fn`` the global batch's loss.  The
-ssm, hybrid, encdec and vlm families under a mesh raise (ROADMAP.md
-queue 1, item 17.10).
+keeps its global length), ``loss_fn`` the global batch's loss.  Every collective on the way
+has its adjoint as its gradient, so ``loss_fn`` trains over the mesh
+(``train.loop`` states the rule).
 """
 from __future__ import annotations
 
@@ -92,16 +98,6 @@ def _check_family(cfg: ArchConfig) -> None:
                          f"{cfg.moe}, mla={cfg.mla}, ssm={cfg.ssm}, "
                          f"enc_layers={cfg.enc_layers} is not a model "
                          "this module assembles")
-
-
-MESH_FAMILIES = ("dense", "moe")
-
-
-def _check_mesh(cfg: ArchConfig, mesh) -> None:
-    if mesh is not None and cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family under a mesh is not ported "
-            "yet: ROADMAP.md queue 1, item 17.10")
 
 
 def _n_dense(cfg: ArchConfig) -> int:
@@ -194,7 +190,6 @@ def init_params(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None,
     under a mesh each leaf is this rank's block of the same global
     tree (``param_shardings``).  On the meta device (the dry run) the
     leaves are shapes: nothing is drawn."""
-    _check_mesh(cfg, mesh)
     dev = resolve_device(device)
     gen = (None if dev.type == "meta"
            else torch.Generator(device=dev).manual_seed(seed))
@@ -279,8 +274,10 @@ def _attn_block(cfg, blk, x, positions, causal=True, enc_out=None,
     x = x + h
     if enc_out is not None:
         h = _apply_norm(cfg, blk["ln_x"], x)
+        if mesh is not None:
+            h = relayout(h, mesh, place.spec(), place.spec(seq=False))
         x = x + ATT.gqa_train(cfg, blk["xattn"], h, positions, causal=False,
-                              kv_override=enc_out)
+                              kv_override=enc_out, **kw)
     h, aux = _ffn(cfg, blk, _apply_norm(cfg, blk["ln2"], x), mesh, place)
     out = x + h
     if collect:
@@ -288,19 +285,27 @@ def _attn_block(cfg, blk, x, positions, causal=True, enc_out=None,
     return out, aux
 
 
-def _mamba_block(cfg, blk, x, collect=False):
+def _mamba_block(cfg, blk, x, collect=False, mesh=None, place_in=None,
+                 place=None):
     """Pre-norm Mamba2 block, its FFN (hybrid) after a second norm:
-    (out, aux[, MambaCache piece])."""
+    (out, aux[, MambaCache piece]).  Under a mesh as ``_attn_block``."""
     h = _apply_norm(cfg, blk["ln1"], x)
+    kw = {}
+    if mesh is not None:
+        h = relayout(h, mesh, place_in.spec(), place.spec(seq=False))
+        x = relayout(x, mesh, place_in.spec(), place.spec())
+        kw = dict(place=place, seq_out=bool(place.seq))
     piece = None
     if collect:
-        h, piece = SSM.mamba_train(cfg, blk["mamba"], h, return_state=True)
+        h, piece = SSM.mamba_train(cfg, blk["mamba"], h, mesh,
+                                   return_state=True, **kw)
     else:
-        h = SSM.mamba_train(cfg, blk["mamba"], h)
+        h = SSM.mamba_train(cfg, blk["mamba"], h, mesh, **kw)
     x = x + h
     aux = 0.0
     if "ffn" in blk:
-        h, aux = _ffn(cfg, blk, _apply_norm(cfg, blk["ln2"], x))
+        h, aux = _ffn(cfg, blk, _apply_norm(cfg, blk["ln2"], x), mesh,
+                      place)
         x = x + h
     if collect:
         return x, aux, piece
@@ -315,16 +320,22 @@ def _stack(pieces):
     return type(pieces[0])(*(torch.stack(f) for f in zip(*pieces)))
 
 
-def _group_block(cfg, group, x, positions, collect=False):
+def _group_block(cfg, group, x, positions, collect=False, mesh=None,
+                 place_in=None, place=None):
     """One hybrid group, its layers in ``cfg.hybrid_group`` order:
-    (out, aux[, dict sub{i} of pieces])."""
+    (out, aux[, dict sub{i} of pieces]).  Under a mesh ``x`` comes in as
+    ``place_in`` lays it, and every layer hands the next its output as
+    ``place`` lays it (``seq_sp`` between a Mamba2 layer and an
+    attention or MoE layer alike)."""
     aux = 0.0
     pieces = {}
     for i, kind in enumerate(cfg.hybrid_group):
         sub = group[f"sub{i}"]
-        out = (_mamba_block(cfg, sub, x, collect=collect) if kind == "m"
-               else _attn_block(cfg, sub, x, positions, collect=collect))
+        kw = dict(collect=collect, mesh=mesh, place_in=place_in, place=place)
+        out = (_mamba_block(cfg, sub, x, **kw) if kind == "m"
+               else _attn_block(cfg, sub, x, positions, **kw))
         x, aux = out[0], aux + out[1]
+        place_in = place
         if collect:
             pieces[f"sub{i}"] = out[2]
     if collect:
@@ -335,9 +346,11 @@ def _group_block(cfg, group, x, positions, collect=False):
 def _block(cfg, blk, x, positions, collect, causal, enc_out, mesh=None,
            place_in=None, place=None):
     if cfg.family == "ssm":
-        return _mamba_block(cfg, blk, x, collect=collect)
+        return _mamba_block(cfg, blk, x, collect=collect, mesh=mesh,
+                            place_in=place_in, place=place)
     if cfg.family == "hybrid":
-        return _group_block(cfg, blk, x, positions, collect=collect)
+        return _group_block(cfg, blk, x, positions, collect=collect,
+                            mesh=mesh, place_in=place_in, place=place)
     return _attn_block(cfg, blk, x, positions, causal=causal,
                        enc_out=enc_out, collect=collect, mesh=mesh,
                        place_in=place_in, place=place)
@@ -381,9 +394,13 @@ def _run_blocks(cfg, blocks, x, positions, collect, causal=True,
     return x, aux, (_stack(pieces) if collect else None)
 
 
-def _encode(cfg, params, enc_frames, cd):
+def _encode(cfg, params, enc_frames, cd, mesh=None, B: int = 0):
     """The encoder of an encdec model: frames (B, enc_seq, d) plus the
-    learned ``enc_pos``, non-causal blocks, ``enc_norm``."""
+    learned ``enc_pos``, non-causal blocks, ``enc_norm``.  Under a mesh
+    ``enc_frames`` is this rank's batch block of the global ``B`` and so
+    is the output, whole over the sequence (the cross-attention's
+    memory); between the encoder's blocks its sequence is split as
+    ``seq_sp`` resolves over ``enc_seq``."""
     if enc_frames is None or tuple(enc_frames.shape[1:]) != (cfg.enc_seq,
                                                             cfg.d_model):
         got = None if enc_frames is None else tuple(enc_frames.shape)
@@ -392,9 +409,24 @@ def _encode(cfg, params, enc_frames, cd):
     e = enc_frames.to(cd) + params["enc_pos"]["table"][None].to(cd)
     B, S = e.shape[:2]
     e_pos = torch.arange(S, device=e.device)[None].expand(B, S)
+    kw = {}
+    if mesh is not None:
+        place = L.Placement.between_blocks(mesh, B, S, cfg.d_model)
+        kw = dict(mesh=mesh, place_in=place.whole_seq(), place=place)
     e, _, _ = _run_blocks(cfg, params["enc_blocks"], e, e_pos, False,
-                          causal=False)
-    return _apply_norm(cfg, params["enc_norm"], e)
+                          causal=False, **kw)
+    e = _apply_norm(cfg, params["enc_norm"], e)
+    if mesh is not None:
+        e = relayout(e, mesh, kw["place"].spec(), kw["place"].spec(seq=False))
+    return e
+
+
+def _placement(cfg: ArchConfig, mesh, tokens, extra_embeds=None):
+    """The layout between blocks of a forward over the global ``tokens``
+    (B, S), P patches prepended where ``extra_embeds`` (B, P, D)."""
+    B, S = tokens.shape
+    P = 0 if extra_embeds is None else extra_embeds.shape[1]
+    return L.Placement.between_blocks(mesh, B, P + S, cfg.d_model)
 
 
 def forward_train(cfg: ArchConfig, params, tokens, mesh=None,
@@ -418,14 +450,18 @@ def forward_train(cfg: ArchConfig, params, tokens, mesh=None,
     lays them, the pieces this rank's blocks (``gqa_kv_spec``'s layout,
     or the MLA latent's batch block)."""
     _check_family(cfg)
-    _check_mesh(cfg, mesh)
     cd = torch_dtype(cfg.compute_dtype)
     place = place_in = None
+    B_all = tokens.shape[0]
     if mesh is not None:
-        B, S = tokens.shape
-        place = L.Placement.between_blocks(mesh, B, S, cfg.d_model)
+        place = _placement(cfg, mesh, tokens, extra_embeds)
         place_in = place.whole_seq()
-        tokens = relayout(tokens, mesh, (), (L.entry_of(place.batch),))
+        b_ent = (L.entry_of(place.batch),)
+        tokens = relayout(tokens, mesh, (), b_ent)
+        if extra_embeds is not None:
+            extra_embeds = relayout(extra_embeds, mesh, (), b_ent)
+        if enc_frames is not None:
+            enc_frames = relayout(enc_frames, mesh, (), b_ent)
     x = L.embed(params["embed"], tokens, cfg.embed_scale,
                 _table_sharding(cfg, mesh)).to(cd)
     if extra_embeds is not None:
@@ -434,7 +470,7 @@ def forward_train(cfg: ArchConfig, params, tokens, mesh=None,
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     if cfg.pos_embedding == "learned":
         x = x + params["pos_embed"]["table"][:S][None].to(cd)
-    enc_out = (_encode(cfg, params, enc_frames, cd)
+    enc_out = (_encode(cfg, params, enc_frames, cd, mesh, B_all)
                if cfg.family == "encdec" else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     dense_pieces = None
@@ -466,14 +502,13 @@ def loss_fn(cfg: ArchConfig, params, tokens, labels, mesh=None,
     that rank's share (the train step sums them over the batch axes)."""
     x, aux = forward_train(cfg, params, tokens, mesh,
                            extra_embeds=extra_embeds, enc_frames=enc_frames)
-    if extra_embeds is not None:
-        x = x[:, extra_embeds.shape[1]:]
+    P = 0 if extra_embeds is None else extra_embeds.shape[1]
     if mesh is None:
-        nll = L.chunked_xent(params["embed"], x, labels, real_vocab=cfg.vocab)
+        nll = L.chunked_xent(params["embed"], x[:, P:], labels,
+                             real_vocab=cfg.vocab)
         return nll + aux_weight * aux, (nll, aux)
-    B, S = labels.shape
-    place = L.Placement.between_blocks(mesh, B, S, cfg.d_model)
-    x = relayout(x, mesh, place.spec(), place.spec(seq=False))
+    place = _placement(cfg, mesh, tokens, extra_embeds)
+    x = relayout(x, mesh, place.spec(), place.spec(seq=False))[:, P:]
     labels = relayout(labels, mesh, (), (L.entry_of(place.batch),))
     nll = L.chunked_xent(params["embed"], x, labels, real_vocab=cfg.vocab,
                          sharding=_table_sharding(cfg, mesh), mesh=mesh,
@@ -591,18 +626,19 @@ def _attn_block_decode(cfg, blk, x, cache, positions, enc_mem=None,
     x = x + h
     if enc_mem is not None:
         h = _apply_norm(cfg, blk["ln_x"], x)
-        x = x + ATT.gqa_train(cfg, blk["xattn"], h, positions, causal=False,
-                              kv_override=enc_mem)
+        x = x + ATT.gqa_train(cfg, blk["xattn"], h, positions, mesh=mesh,
+                              causal=False, kv_override=enc_mem, place=place)
     h, _ = _ffn(cfg, blk, _apply_norm(cfg, blk["ln2"], x), mesh, place)
     return x + h, cache
 
 
-def _mamba_block_decode(cfg, blk, x, cache):
+def _mamba_block_decode(cfg, blk, x, cache, mesh=None, place=None):
     h = _apply_norm(cfg, blk["ln1"], x)
-    h, cache = SSM.mamba_decode(cfg, blk["mamba"], h, cache)
+    h, cache = SSM.mamba_decode(cfg, blk["mamba"], h, cache, mesh,
+                                place=place)
     x = x + h
     if "ffn" in blk:
-        h, _ = _ffn(cfg, blk, _apply_norm(cfg, blk["ln2"], x))
+        h, _ = _ffn(cfg, blk, _apply_norm(cfg, blk["ln2"], x), mesh, place)
         x = x + h
     return x, cache
 
@@ -614,14 +650,18 @@ def _layer(stacked, i):
 
 def _decode_blocks(cfg, blocks, x, stacked, positions, enc_mem=None,
                    **mesh_kw):
+    ssm_kw = {k: v for k, v in mesh_kw.items() if k != "cache_spec"}
     for g, blk in enumerate(blocks):
         if cfg.family == "ssm":
-            x, _ = _mamba_block_decode(cfg, blk, x, _layer(stacked, g))
+            x, _ = _mamba_block_decode(cfg, blk, x, _layer(stacked, g),
+                                       **ssm_kw)
         elif cfg.family == "hybrid":
             for i, kind in enumerate(cfg.hybrid_group):
                 sub, c = blk[f"sub{i}"], _layer(stacked[f"sub{i}"], g)
-                x, _ = (_mamba_block_decode(cfg, sub, x, c) if kind == "m"
-                        else _attn_block_decode(cfg, sub, x, c, positions))
+                x, _ = (_mamba_block_decode(cfg, sub, x, c, **ssm_kw)
+                        if kind == "m" else
+                        _attn_block_decode(cfg, sub, x, c, positions,
+                                           **mesh_kw))
         else:
             x, _ = _attn_block_decode(cfg, blk, x, _layer(stacked, g),
                                       positions, enc_mem, **mesh_kw)
@@ -638,7 +678,6 @@ def decode_step(cfg: ArchConfig, params, cache: DecodeCache, tokens,
     this rank's (``prefill``'s under the same mesh) and the logits are
     this rank's vocabulary block of its batch block."""
     _check_family(cfg)
-    _check_mesh(cfg, mesh)
     cd = torch_dtype(cfg.compute_dtype)
     mesh_kw = {}
     if mesh is not None:
@@ -691,12 +730,30 @@ def _pad_piece(piece, max_len, dtype):
     return type(piece)(*(pad(f) for f in piece))
 
 
-def _place_piece(cfg, piece, mesh, B: int, S: int, max_len: int):
+def _place_piece(cfg, piece, mesh, place, max_len: int):
     """A stacked prefill piece (this rank's block, the whole sequence,
-    padded to max_len) moved to the cache's layout."""
+    padded to max_len; a hybrid dict piece by piece) moved to the
+    cache's layout.  A Mamba piece is already in it, its batch block
+    moved where the cache's batch axes differ from the activations'."""
+    if isinstance(piece, dict):
+        return {k: _place_piece(cfg, v, mesh, place, max_len)
+                for k, v in piece.items()}
+    B, S = place.B, place.S
+    b = L.entry_of(place.batch)
+    if isinstance(piece, SSM.MambaCache):
+        s, _, nh, conv_dim = SSM._dims(cfg)
+        blk = SSM._blocks(cfg, mesh)
+        logical = SSM.mamba_cache_logical(cfg)
+        conv = resolve_spec((B, s.d_conv - 1, conv_dim), logical.conv, mesh)
+        state = resolve_spec((B, nh, s.head_dim, s.d_state), logical.state,
+                             mesh)
+        return SSM.MambaCache(
+            conv=relayout(piece.conv, mesh, (None, b, None, blk.conv),
+                          (None,) + tuple(conv)),
+            state=relayout(piece.state, mesh, (None, b, blk.heads),
+                           (None,) + tuple(state)))
     if cfg.mla:
-        src = (None, L.entry_of(L.Placement.between_blocks(
-            mesh, B, S, cfg.d_model).batch))
+        src = (None, b)
     else:
         src = (None,) + tuple(ATT.gqa_kv_spec(cfg, mesh, B, S))
     dst = (None,) + tuple(_layer_cache_spec(cfg, mesh, B, max_len))
@@ -725,7 +782,7 @@ def prefill(cfg: ArchConfig, params, tokens, max_len, mesh=None,
         enc_frames=enc_frames, collect_cache=True)
     last = x[:, -1:]
     if mesh is not None:
-        place = L.Placement.between_blocks(mesh, B, S, cfg.d_model)
+        place = _placement(cfg, mesh, tokens, extra_embeds)
         if place.seq:    # the last position is the last sequence block's
             last = _mesh.all_gather(mesh, last, place.seq, 1)[:, -1:]
     logits = L.unembed_logits(params["embed"], last, real_vocab=cfg.vocab,
@@ -734,11 +791,16 @@ def prefill(cfg: ArchConfig, params, tokens, max_len, mesh=None,
     layers = _pad_piece(pieces, max_len, cd)
     dense = (_pad_piece(dense_pieces, max_len, cd)
              if dense_pieces is not None else None)
-    if mesh is not None:
-        layers = _place_piece(cfg, layers, mesh, B, S, max_len)
-        if dense is not None:
-            dense = _place_piece(cfg, dense, mesh, B, S, max_len)
     enc = {"mem": enc_out.to(cd)} if enc_out is not None else None
+    if mesh is not None:
+        layers = _place_piece(cfg, layers, mesh, place, max_len)
+        if dense is not None:
+            dense = _place_piece(cfg, dense, mesh, place, max_len)
+        if enc is not None:
+            enc = {"mem": relayout(enc["mem"], mesh, (L.entry_of(
+                place.batch),), resolve_spec(
+                    (B,) + tuple(enc["mem"].shape[1:]),
+                    cache_logical(cfg).enc_out["mem"], mesh))}
     nxt = S + (extra_embeds.shape[1] if extra_embeds is not None else 0)
     return logits, DecodeCache(layers=layers, dense_layers=dense,
                                enc_out=enc,

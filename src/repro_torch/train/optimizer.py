@@ -2,7 +2,7 @@
 reference's ``repro.train.optimizer``.
 
 API: ``opt.init(params) -> state``; ``opt.update(grads, state, params,
-lr) -> (params, state)``.  ``params`` is the model's ``nn.Module`` (or a
+lr) -> (params, state)`` (under a mesh also ``shards=``, below).  ``params`` is the model's ``nn.Module`` (or a
 dict of name -> tensor), ``grads`` a dict keyed by the same names
 (``named_parameters()``).  The update writes the parameters and the
 moments in place under ``torch.no_grad()`` and returns the same objects:
@@ -26,6 +26,12 @@ likewise) and keeps one moment a group, over the stacked group.  A leaf
 without a layer index is a group of its own, as in the reference.
 AdamW is elementwise and needs no grouping; the global-norm clip is the
 same either way.
+
+Under a mesh a parameter is a rank's block: ``update(..., shards=)``
+(name -> the mesh and the axes of each of the leaf's dims, which the
+train step passes) makes Adafactor's means over a dim a split dim's
+mean over its ranks' blocks (``_block_mean``), so its moments and its
+update clip are the whole leaf's; AdamW takes it and needs nothing.
 """
 from __future__ import annotations
 
@@ -34,6 +40,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 from torch import nn
+
+from repro_torch.launch import mesh as _mesh
 
 
 def named_leaves(tree) -> Dict[str, torch.Tensor]:
@@ -51,10 +59,11 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(tree, max_norm):
+def clip_by_global_norm(tree, max_norm, norm=None):
     """Scale every leaf of ``tree`` in place by min(1, max_norm / norm);
-    returns (tree, norm)."""
-    n = global_norm(tree)
+    returns (tree, norm).  ``norm`` defaults to ``global_norm(tree)``
+    (under a mesh the caller passes the global tree's)."""
+    n = global_norm(tree) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
     for x in named_leaves(tree).values():
         x.mul_(scale)
@@ -96,7 +105,7 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
                          count=torch.zeros((), dtype=torch.int32))
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, shards=None):
         c = state.count + 1
         bc1 = 1.0 - b1 ** float(c)
         bc2 = 1.0 - b2 ** float(c)
@@ -168,7 +177,7 @@ def adafactor(decay=0.8, eps=1e-30, clip_threshold=1.0,
                               count=torch.zeros((), dtype=torch.int32))
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, shards=None):
         c = state.count + 1
         beta = 1.0 - float(c) ** -decay
         named = named_leaves(params)
@@ -176,11 +185,12 @@ def adafactor(decay=0.8, eps=1e-30, clip_threshold=1.0,
             m = state.moments[key]
             g = (torch.stack([grads[n].to(torch.float32) for n in members])
                  if stacked else grads[members[0]].to(torch.float32))
+            mean = _block_mean(shards, members[0], g.ndim, stacked)
             g2 = g * g + eps
             if isinstance(m, FactoredMoment):
-                m.row.mul_(beta).add_(g2.mean(-1), alpha=1.0 - beta)
-                m.col.mul_(beta).add_(g2.mean(-2), alpha=1.0 - beta)
-                row_mean = m.row.mean(-1, keepdim=True)
+                m.row.mul_(beta).add_(mean(g2, -1), alpha=1.0 - beta)
+                m.col.mul_(beta).add_(mean(g2, -2), alpha=1.0 - beta)
+                row_mean = mean(m.row, -1, leaf_dim=-2, keepdim=True)
                 vhat = (m.row[..., None] / torch.clamp(
                     row_mean[..., None], min=eps)) * m.col[..., None, :]
                 step = g * torch.rsqrt(torch.clamp(vhat, min=eps))
@@ -190,7 +200,7 @@ def adafactor(decay=0.8, eps=1e-30, clip_threshold=1.0,
             del g, g2
             # update clipping (RMS of step <= clip_threshold), over the
             # whole group
-            rms = torch.sqrt(torch.mean(step * step) + 1e-30)
+            rms = torch.sqrt(mean(step * step) + 1e-30)
             step = step / torch.clamp(rms / clip_threshold, min=1.0)
             for i, n in enumerate(members):
                 s = step[i] if stacked else step
@@ -201,6 +211,31 @@ def adafactor(decay=0.8, eps=1e-30, clip_threshold=1.0,
         return params, AdafactorState(moments=state.moments, count=c)
 
     return Optimizer(init=init, update=update, name="adafactor")
+
+
+def _block_mean(shards, name: str, ndim: int, stacked: bool):
+    """``mean(x, dim, leaf_dim, keepdim)``: the mean of ``x`` over its
+    dim ``dim`` (None: every dim), which is the group's (stacked) leaf's
+    dim ``leaf_dim`` (default ``dim``), where ``x`` is a rank's block:
+    the block's mean, averaged over the ranks that split that dim
+    (``shards[name]``: the mesh and the axes of each of the leaf's
+    dims; None: one process).  The blocks are equal in size, so that is
+    the whole leaf's mean."""
+    mesh, dims = shards[name] if shards is not None else (None, ())
+    dims = ((),) * stacked + tuple(dims)
+    dims += ((),) * (ndim - len(dims))          # trailing replication
+
+    def mean(x, dim=None, leaf_dim=None, keepdim=False):
+        if dim is None:
+            out, axes = torch.mean(x), tuple(a for d in dims for a in d)
+        else:
+            out = x.mean(dim, keepdim=keepdim)
+            axes = dims[dim if leaf_dim is None else leaf_dim]
+        if mesh is None or mesh.count(axes) == 1:
+            return out
+        return _mesh.all_reduce(mesh, out, axes) / mesh.count(axes)
+
+    return mean
 
 
 def get_optimizer(name: str, **kw) -> Optimizer:

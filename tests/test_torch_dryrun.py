@@ -23,8 +23,21 @@
   as its flash op instead.  No other dot differs.
 * A dry rank's collectives, shard bytes and op counts equal a real CPU
   rank's (two gloo ranks, ``tests/torch_dist_ranks.py``).
-* The launcher writes ``ok`` and ``partial`` cells; the flash op's meta
-  route makes its output's shape and reports its FLOPs.
+* The launcher writes ``ok`` cells, the ssm family's too; the flash op's
+  meta route makes its output's shape and reports its FLOPs.
+* Every (arch, shape, mesh) run of the grid traces (``ok``) or is a
+  documented ``skip``: no ``partial`` is left (ROADMAP item 17.10).  A
+  run of each family and of train steps over the model axis is traced
+  here (the whole grid takes minutes; ``chip_smoke.py`` runs it), its
+  argument bytes the reference's.
+* A train step's dot FLOPs (reduced gemma-2b, one device, fp32, 1024
+  positions: train_4k's two or more loss chunks) equal
+  ``hlo_parse.analyze_hlo`` of the reference's jitted train step,
+  exactly.  The reference's own dry run of gemma-2b train_4k on its
+  production mesh fails under the installed jax (a mesh of explicit axes
+  under ``with_sharding_constraint``, as its own
+  ``tests/test_dryrun_smoke.py`` does), so its HLO at full size is not
+  available here.
 """
 import dataclasses
 import json
@@ -488,7 +501,7 @@ def _launch(tmp_path, *argv):
 
 @pytest.mark.parametrize("arch,shape,status", [
     ("gemma-2b", "decode_32k", "ok"), ("chatglm3-6b", "prefill_32k", "ok"),
-    ("mamba2-780m", "prefill_32k", "partial")])
+    ("mamba2-780m", "prefill_32k", "ok")])
 def test_launcher_writes_the_cell(tmp_path, arch, shape, status):
     r = _launch(tmp_path, "--arch", arch, "--shape", shape, "--mesh",
                 "single")
@@ -500,19 +513,93 @@ def test_launcher_writes_the_cell(tmp_path, arch, shape, status):
     assert roof["bottleneck"] in ("compute", "memory", "collective")
     assert out["memory"]["argument_size_in_bytes"] > 0
     assert roof["model_flops"] > 0 and out["trace_s"] > 0
-    if status == "ok":
-        assert out["bytes_per_device"] > out["memory"][
-            "argument_size_in_bytes"]
-        assert roof["flops"] > 0
-        # decode runs DEFAULT_RULES (collectives over model); a 6 B
-        # model's prefill is pure DP (rules_for), with none
-        collectives = shape == "decode_32k"
-        assert (roof["wire_bytes_per_dev"] > 0) == collectives
-        assert bool(out["collectives"]["op_counts"]) == collectives
-    else:
-        assert "ROADMAP item 17.10" in out["status"]
-        assert out["bytes_per_device"] is None
-        assert roof["t_collective_s"] is None
+    assert out["bytes_per_device"] > out["memory"]["argument_size_in_bytes"]
+    assert roof["flops"] > 0
+    # decode runs DEFAULT_RULES (collectives over model); a prefill of a
+    # model under 10 B parameters is pure DP (rules_for), with none
+    collectives = shape == "decode_32k"
+    assert (roof["wire_bytes_per_dev"] > 0) == collectives
+    assert bool(out["collectives"]["op_counts"]) == collectives
+
+
+TRACED = [("mamba2-780m", "decode_32k", "single"),
+          ("mamba2-780m", "long_500k", "multi"),
+          ("jamba-1.5-large-398b", "decode_32k", "single"),
+          ("jamba-1.5-large-398b", "long_500k", "single"),
+          ("whisper-small", "prefill_32k", "single"),
+          ("whisper-small", "decode_32k", "multi"),
+          ("whisper-small", "train_4k", "multi"),
+          ("internvl2-1b", "prefill_32k", "multi"),
+          ("internvl2-1b", "decode_32k", "single"),
+          ("internvl2-1b", "train_4k", "single"),
+          ("gemma-2b", "train_4k", "single"),
+          ("chatglm3-6b", "train_4k", "multi")]
+
+
+@pytest.mark.parametrize("arch,shape,mesh", TRACED)
+def test_grid_run_is_traced_with_the_reference_argument_bytes(arch, shape,
+                                                              mesh):
+    """Runs that waited for ROADMAP item 17.10 (the ssm, hybrid, encdec
+    and vlm families under a mesh, train steps over the model axis of
+    16): each traces on rank 0 of its production mesh, ``ok``, with the
+    reference's argument bytes on an ``AbstractMesh`` (``trace_cell``
+    holds its traced meta tensors to the same account)."""
+    names, sizes = MESHES[mesh]
+    r = D.run_cell(arch, shape, mesh == "multi")
+    assert r["status"] == "ok", r["status"]
+    mem = dict(r["memory"])
+    mem.pop("temp_size_in_bytes")
+    assert mem == _ref_argument_bytes(ref_config(arch), RSH.SHAPES[shape],
+                                      AbstractMesh(sizes, names))
+    assert r["bytes_per_device"] > mem["argument_size_in_bytes"]
+    if shape == "train_4k" or SH.SHAPES[shape].kind == "decode":
+        assert r["collectives"]["calls"], r["collectives"]
+
+
+def test_grid_has_no_partial_run():
+    """Every run of the grid is traced or a documented skip: the runs
+    that are neither are the skips of ``cell_status``, 14 of 80."""
+    runs = D.grid()
+    skips = [(a, s) for a, s, _ in runs
+             if SH.cell_status(get_config(a), SH.SHAPES[s])]
+    assert len(runs) == 80 and len(skips) == 14
+    assert not hasattr(D, "PENDING")
+
+
+def test_train_step_dot_counts_match_reference_hlo():
+    """Tolerance: exact.  Reduced gemma-2b, one device, fp32, B 2 x S
+    1024 (two loss chunks of 512, as train_4k's eight): the port's
+    meta-device count of one train step (forward, backward, AdamW)
+    against ``hlo_parse.analyze_hlo`` of the reference's jitted step.
+    The flash op's forward is apart; its backward (the plain attention's
+    QK^T and PV, recomputed, and their four gradients) and the
+    reference's six attention dots a layer are the same count.  At a
+    single loss chunk the reference's compiler folds the chunk's
+    recomputed logits into the forward, one (B, S, V) product fewer
+    (``op_count``'s docstring)."""
+    from repro_torch.data.tokens import batch_specs
+    from repro_torch.train import TrainConfig, make_optimizer, make_train_step
+    from repro.train import TrainConfig as RTrainConfig
+    from repro.train import make_optimizer as ref_make_optimizer
+    from repro.train import make_train_step as ref_make_train_step
+    from torch_lm_pairs import batch, pair
+
+    B, S = 2, 1024
+    cfg, _, rcfg, rp = pair("gemma-2b")
+    tc = TrainConfig()
+    opt = make_optimizer(tc)
+    P = M.init_params(cfg, device="meta")
+    state = opt.init(P)
+    with OpCounter("meta") as oc, torch.enable_grad():
+        make_train_step(cfg, tc, opt=opt)(P, state, batch_specs(cfg, B, S))
+    rtc = RTrainConfig()
+    ropt = ref_make_optimizer(rtc)
+    _, rb = batch(cfg, B=B, S=S)
+    step = jax.jit(ref_make_train_step(rcfg, rtc, opt=ropt))
+    ref = RHP.analyze_hlo(step.lower(rp, ropt.init(rp), rb).compile()
+                          .as_text())
+    assert oc.dot_flops == ref["flops"]
+    assert oc.flash_calls == cfg.n_layers
 
 
 def test_launcher_refuses_save_hlo(tmp_path):

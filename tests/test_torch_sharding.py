@@ -330,18 +330,56 @@ def test_moe_block_without_a_model_axis_is_meshless():
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-1.5-large-398b",
                                   "whisper-small", "internvl2-1b"])
-def test_unported_families_under_a_mesh_name_item_17_10(arch):
-    cfg = get_reduced_config(arch)
-    with pytest.raises(NotImplementedError, match=r"17\.10"):
-        M.init_params(cfg, device="cpu", mesh=LM.make_production_mesh())
+def test_families_under_a_mesh_draw_their_blocks(arch):
+    """Every family draws under a mesh (ROADMAP item 17.10): rank 0 of
+    the production mesh holds each leaf's block as its spec lays it."""
+    cfg = get_config(arch)
+    mesh = LM.make_dry_mesh(("data", "model"), (16, 16))
+    P = M.init_params(cfg, device="meta", mesh=mesh)
+    specs = M.param_specs(cfg, mesh)
+    shapes = dict(L.named_leaves(M.param_shapes(cfg)))
+    for name, t in P.named_parameters():
+        assert tuple(t.shape) == specs[name].local_shape(
+            shapes[name].shape), name
+    # the Mamba2 projections split over model, their column blocks
+    if cfg.ssm is not None:
+        name = next(n for n in specs if n.endswith("mamba.in_proj"))
+        assert specs[name].spec == (None, "model")
 
 
-def test_train_step_over_a_model_axis_names_item_17_10():
-    from repro_torch.train import TrainConfig, make_train_step
+@pytest.mark.parametrize("opt_name", ["adamw", "adafactor"])
+def test_train_step_over_a_model_axis_runs(opt_name):
+    """A train step over a model axis of two ranks (rank 0 of a dry
+    (data 1, model 2) mesh, on the meta device): it runs, its backward
+    calls the adjoint collectives (a reduce-scatter where the forward
+    all-gathered), and it sums a norm scale's gradient over model."""
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.data.tokens import batch_specs
+    from repro_torch.train import TrainConfig, make_optimizer, make_train_step
+    from repro_torch.train import loop as LOOP
 
-    with pytest.raises(NotImplementedError, match=r"17\.10"):
-        make_train_step(get_reduced_config("gemma-2b"), TrainConfig(),
-                        mesh=LM.make_production_mesh())
+    cfg = get_reduced_config("gemma-2b")
+    mesh = LM.make_dry_mesh(("data", "model"), (1, 2))
+    tc = TrainConfig(optimizer=opt_name)
+    opt = make_optimizer(tc)
+    P = M.init_params(cfg, device="meta", mesh=mesh)
+    state = opt.init(P)
+    step = make_train_step(cfg, tc, opt=opt, mesh=mesh)
+    with torch.enable_grad():
+        (P, state, m), counts = count_step(
+            lambda: step(P, state, batch_specs(cfg, 2, 32)))
+    assert m["loss"].is_meta and int(state.count) == 1
+    fwd = M.forward_train
+    with torch.no_grad():
+        _, fwd_counts = count_step(lambda: fwd(
+            cfg, P, torch.empty((2, 32), dtype=torch.int32, device="meta"),
+            mesh))
+    assert counts["calls"]["reduce_scatter"] > fwd_counts["calls"][
+        "reduce_scatter"]
+    assert counts["calls"]["all_gather"] > fwd_counts["calls"]["all_gather"]
+    axes = LOOP.leaf_axes(cfg, mesh)
+    assert axes["final_norm.scale"][:2] == ((), ("model",))
+    assert axes["blocks.0.attn.wq"][:2] == (("model",), ())
 
 
 def test_vocab_argmax_breaks_ties_to_the_lowest_index():

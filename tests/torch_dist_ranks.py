@@ -13,7 +13,10 @@ The sharding tests (``tests/test_torch_mesh.py``) run the ``mesh_*``
 jobs: each builds a ``(world // model, model)`` host mesh
 (``launch.mesh.make_host_mesh``; every rank makes the meshes in one
 order, as ``new_group`` requires) and returns whole numpy arrays,
-gathered from the ranks' blocks.
+gathered from the ranks' blocks.  The ``mesh_family`` and
+``mesh_steps`` jobs (``tests/test_torch_mesh_families.py``) take a
+(data, model) mesh over the first data * model ranks; a rank outside it
+returns None.
 """
 from __future__ import annotations
 
@@ -370,12 +373,150 @@ def job_mesh_dry(ctx, arch, model, batch, seq, max_len):
     return out
 
 
+def _family_mesh(ctx, data, model):
+    """The (data, model) mesh over the first data * model ranks (None on
+    the others), made once; every rank makes every mesh, in one order."""
+    key = ("family", data, model)
+    if key not in ctx._host_meshes:
+        from repro_torch.launch.mesh import make_host_mesh
+
+        ctx._host_meshes[key] = make_host_mesh(
+            model, device="cpu", ranks=range(data * model))
+    return ctx._host_meshes[key]
+
+
+def job_mesh_family(ctx, arch, override, state, batch, steps, max_len,
+                    mesh, aux_weight):
+    """One family's reduced model under a (data, model) mesh on the full
+    ``state``: the gathered prefill logits, decode logits a column of
+    ``steps``, the cache gathered leaf by leaf (with each block's shape
+    and the shape its ``cache_logical`` spec gives), the state dict
+    gathered back, and the train step's step-0 loss and its reduced,
+    unclipped gradients (gathered)."""
+    from unittest import mock
+
+    from repro_torch import convert
+    from repro_torch.dist.sharding import NamedSharding, resolve_spec
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.train import TrainConfig, make_optimizer, make_train_step
+    from repro_torch.train import loop as LOOP
+
+    mesh = _family_mesh(ctx, *mesh)
+    if mesh is None:
+        return None
+    cfg = _lm_cfg(arch, dict(override))
+    full = {k: torch.from_numpy(v) for k, v in state.items()}
+    P = M.init_params(cfg, device="cpu", mesh=mesh)
+    P.load_state_dict(convert.shard_state_dict(full, cfg, mesh))
+    b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    front = {k: b[k] for k in ("enc_frames", "extra_embeds") if k in b}
+    tok = b["tokens"]
+    B = tok.shape[0]
+    dplace = L.Placement.between_blocks(mesh, B, 1, cfg.d_model)
+    lspec = (L.entry_of(dplace.batch), None,
+             M._table_sharding(cfg, mesh).spec[0])
+    out = {"state": {k: _np(v) for k, v in convert.gather_state_dict(
+        P.state_dict(), cfg, mesh).items()}}
+    with torch.no_grad():
+        logits, cache, pos = M.prefill(cfg, P, tok, max_len, mesh, **front)
+        out["prefill"] = _whole(mesh, logits, lspec)
+        out["decode"] = []
+        for i in range(steps.shape[1]):
+            d, cache = M.decode_step(
+                cfg, P, cache, torch.from_numpy(steps[:, i:i + 1]),
+                torch.full((B, 1), pos + i, dtype=torch.int32), mesh)
+            out["decode"].append(_whole(mesh, d, lspec))
+    out["pos"] = pos
+    out["cache"], out["cache_blocks"] = {}, {}
+    logical = M.cache_logical(cfg)
+    glob = M.cache_abstract(cfg, B, max_len)
+
+    def walk(tree, gl, lg, name):
+        if tree is None:
+            return
+        if isinstance(tree, dict):
+            for k in tree:
+                walk(tree[k], gl[k], lg[k], f"{name}.{k}")
+            return
+        if isinstance(tree, torch.Tensor):
+            spec = resolve_spec(gl.shape, lg, mesh)
+            out["cache"][name] = _whole(mesh, tree, spec)
+            out["cache_blocks"][name] = (tuple(tree.shape), NamedSharding(
+                mesh, spec).local_shape(gl.shape))
+            return
+        for f in tree._fields:
+            walk(getattr(tree, f), getattr(gl, f), getattr(lg, f),
+                 f"{name}.{f}")
+
+    for f in ("layers", "dense_layers", "enc_out"):
+        walk(getattr(cache, f), getattr(glob, f), getattr(logical, f), f)
+    tc = TrainConfig(optimizer="adamw", learning_rate=1e-3, warmup_steps=1,
+                     aux_weight=aux_weight)
+    opt = make_optimizer(tc)
+    grads = []
+    clip = LOOP.OPT.clip_by_global_norm
+
+    def keep(tree, max_norm, norm=None):
+        if not grads:
+            grads.append({k: g.detach().clone() for k, g in tree.items()})
+        return clip(tree, max_norm, norm)
+
+    with mock.patch.object(LOOP.OPT, "clip_by_global_norm", keep):
+        _, _, m = make_train_step(cfg, tc, opt=opt, mesh=mesh)(
+            P, opt.init(P), b)
+    specs = M.param_specs(cfg, mesh)
+    out["loss"] = float(m["loss"])
+    out["grad_norm"] = float(m["grad_norm"])
+    out["grads"] = {k: _np(specs[k].gather(g)) for k, g in grads[0].items()}
+    return out
+
+
+def job_mesh_steps(ctx, arch, state, tc, batches, mesh):
+    """Train steps over a (data, model) mesh (DEFAULT_RULES: the weights
+    split over model), int8 compressed where ``tc`` says so: per step
+    the loss and the grad norm, then the parameters (and residuals),
+    gathered."""
+    from repro_torch import convert
+    from repro_torch.models import model as M
+    from repro_torch.train import (TrainConfig, init_compression_state,
+                                   make_optimizer, make_train_step)
+
+    mesh = _family_mesh(ctx, *mesh)
+    if mesh is None:
+        return None
+    cfg = _lm_cfg(arch, {})
+    P = M.init_params(cfg, device="cpu", mesh=mesh)
+    P.load_state_dict(convert.shard_state_dict(
+        {k: torch.from_numpy(v) for k, v in state.items()}, cfg, mesh))
+    tc = TrainConfig(**tc)
+    opt = make_optimizer(tc)
+    st, err = opt.init(P), init_compression_state(P)
+    step = make_train_step(cfg, tc, opt=opt, mesh=mesh)
+    out = dict(loss=[], grad_norm=[])
+    for bt in batches:
+        b = {k: torch.from_numpy(v) for k, v in bt.items()}
+        if tc.grad_compression == "int8":
+            P, st, err, m = step(P, st, err, b)
+        else:
+            P, st, m = step(P, st, b)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    specs = M.param_specs(cfg, mesh)
+    out["params"] = {k: _np(v) for k, v in convert.gather_state_dict(
+        P.state_dict(), cfg, mesh).items()}
+    if tc.grad_compression == "int8":
+        out["err"] = {k: _np(specs[k].gather(v)) for k, v in err.items()}
+    return out
+
+
 JOBS = {"product": job_product, "memo": job_memo, "backends": job_backends,
         "traced": job_traced, "halo": job_halo, "lobpcg": job_lobpcg,
         "mesh": job_mesh, "initialized": job_initialized,
         "mesh_moe": job_mesh_moe, "mesh_lm": job_mesh_lm,
         "mesh_int8": job_mesh_int8, "mesh_ckpt": job_mesh_ckpt,
-        "mesh_dry": job_mesh_dry}
+        "mesh_dry": job_mesh_dry, "mesh_family": job_mesh_family,
+        "mesh_steps": job_mesh_steps}
 
 
 def halo_rows(Ap, shard: int) -> np.ndarray:
